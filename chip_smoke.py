@@ -8,22 +8,34 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
 one process per source, all started together), then:
 
-  1. main path: drains 50,000 pods onto 5,000 nodes through the port's
-     BatchScheduler on the card, in batches of 16,384 — the `uniform`
-     workload through the chained schedule_launch -> schedule_finish
-     drain, the `spread` workload (SelectorSpread groups over zone and
-     hostname) one batch after another, as BatchScheduler.schedule does.
-     Kernel launch counts are zeroed just before and read just after;
-     every kernel must have launched. Every pod must bind, and no node's
+  1. main paths, each with the kernel launch counts zeroed just before
+     and read just after it; every kernel of the path must have launched:
+     - `uniform` and `spread`: 50,000 pods onto 5,000 nodes through the
+       port's BatchScheduler, in batches of 16,384 — `uniform` through
+       the chained schedule_launch -> schedule_finish drain
+       (scheduler/drain.py), `spread` (SelectorSpread groups over zone
+       and hostname) one batch after another (K1, K2; K3 on spread);
+     - `scheduler`: the scheduler loop as production runs it —
+       Scheduler(client, batch_size=16384, device="cuda").drain_pipelined
+       with the commit thread on, over a cluster built through the port's
+       Client as bench.py's run_config builds it: 50,000 pods of nine
+       tenants (priority 1000 for every fourth pod) onto 5,000 nodes.
+       Every popped batch is ordered by DRF on the card (K4, K5, at least
+       4 launches each), then scanned (K1, K2).
+     Every pod must bind (in the store, for `scheduler`), and no node's
      usage recomputed from the binds may exceed its allocatable;
-  2. kernel phase: each kernel on the inputs the main path gave it, held
+  2. kernel phase: each kernel on the inputs the main paths gave it, held
      bit for bit against its plain PyTorch version on the card, and
      timed with CUDA events beside the plain version and, where one
      PyTorch call computes the same function, that call;
-  3. the same two drains with the plain versions on the card (the
-     kernels patched out in this script only): the binds must be equal;
-  4. a small drain (128 nodes, 1,024 pods) on the card against the same
-     drain on the CPU: the binds and score bits must be equal.
+  3. the `uniform` and `spread` drains with the plain versions on the
+     card (the kernels patched out in this script only): the binds must
+     be equal;
+  4. small drains (128 nodes, 1,024 pods) on the card against the same
+     drains on the CPU: for `uniform` and `spread` the binds and score
+     bits must be equal; for the nine-tenant scheduler loop (with
+     KTPU_COMMIT_THREAD=0, the only setting whose multi-tenant order does
+     not depend on thread timing) the binds and the DRF shares' bits.
 
 It prints a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and as its last line
@@ -35,6 +47,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -46,6 +59,14 @@ N_NODES = 5000
 N_PODS = 50_000
 BATCH = 16_384
 SMALL_NODES, SMALL_PODS, SMALL_BATCH = 128, 1024, 256
+#: the scheduler path's tenants (bench.py tenancy_main's nine steady
+#: tenants) and its priority mix (every fourth pod at 1000)
+N_TENANTS = 9
+#: kernels each main path must launch
+PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
+                "spread": ("class_ms_init", "class_scan", "apply_dirty"),
+                "scheduler": ("class_ms_init", "class_scan", "drf_dominant",
+                              "drf_order")}
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 #: outside the tensor cores; the bound of a kernel is the larger of its
 #: bytes over the first and its f32 operations over the second
@@ -83,6 +104,15 @@ class Port:
         from kubernetes_tpu_torch.scheduler.nodeinfo import (NodeInfo,
                                                               pod_resource)
         from kubernetes_tpu_torch.scheduler.priorities import SpreadListers
+        from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
+        from kubernetes_tpu_torch.scheduler.tensorize import \
+            precompute_pod_features
+        from kubernetes_tpu_torch.state import Client
+        from kubernetes_tpu_torch.tenancy import TENANT_LABEL
+        from kubernetes_tpu_torch.tenancy import kernels as tk
+        self.Scheduler, self.Client, self.tk = Scheduler, Client, tk
+        self.precompute = precompute_pod_features
+        self.TENANT_LABEL = TENANT_LABEL
         self.torch, self.api, self.wl = torch, api, workload
         self.drain, self.kb = drain_mod.drain, kb
         self.Cache, self.BatchScheduler = Cache, BatchScheduler
@@ -97,6 +127,21 @@ class Port:
     def pods(self, n, variant):
         return [self.wl.make_pod(self.api, i, variant) for i in range(n)]
 
+    def tenant_pod(self, i):
+        """bench.py's uniform pod i of tenant t{i % 9}, priority 1000 for
+        every fourth pod (the DRF parity mix of bench.py tenancy)."""
+        pod = self.wl.make_pod(self.api, i)
+        pod.metadata.labels[self.TENANT_LABEL] = f"t{i % N_TENANTS}"
+        pod.spec.priority = 1000 if i % 4 == 3 else 0
+        return pod
+
+    def launches(self):
+        return {**self.kb.LAUNCHES, **self.tk.LAUNCHES}
+
+    def reset_launches(self):
+        self.kb.reset_launches()
+        self.tk.reset_launches()
+
 
 class Recorder:
     """Wraps the kernel entry points to keep (a copy of) the inputs the
@@ -106,7 +151,11 @@ class Recorder:
     unchanged."""
 
     def __init__(self, port):
-        self.kb = port.kb
+        self.kb, self.tk = port.kb, port.tk
+        #: the inputs of the largest drf_dominant / drf_order call (the
+        #: last one at that size, when shares have built up)
+        self.dominant_inputs = None
+        self.order_inputs = None
         #: variant -> its first batch's (node_cfg, usage, pod batch)
         self.scan_inputs = {}
         self.variant = None
@@ -151,11 +200,32 @@ class Recorder:
                          usage_rows)
         kb.schedule_batch_packed = scan
         kb.apply_dirty = dirty
+        tk = self.tk
+        self._orig_tk = {"drf_dominant": tk.drf_dominant,
+                         "drf_order": tk.drf_order}
+        orig_dom, orig_ord = tk.drf_dominant, tk.drf_order
+
+        def dominant(usage, cap):
+            if self.dominant_inputs is None or \
+                    usage.shape[0] >= self.dominant_inputs[0].shape[0]:
+                self.dominant_inputs = (usage.clone(), cap.clone())
+            return timed(orig_dom, usage, cap)
+
+        def order(prio, shares, tidx, pos):
+            if self.order_inputs is None or \
+                    prio.shape[0] >= self.order_inputs[0].shape[0]:
+                self.order_inputs = (prio.clone(), shares.clone(),
+                                     tidx.clone(), pos.clone())
+            return timed(orig_ord, prio, shares, tidx, pos)
+        tk.drf_dominant = dominant
+        tk.drf_order = order
         return self
 
     def __exit__(self, *exc):
         for k, v in self._orig.items():
             setattr(self.kb, k, v)
+        for k, v in self._orig_tk.items():
+            setattr(self.tk, k, v)
 
 
 class PlainOnCard:
@@ -180,6 +250,76 @@ class PlainOnCard:
     def __exit__(self, *exc):
         for k, v in self._orig.items():
             setattr(self.kb, k, v)
+
+
+def run_scheduler_drain(port, device, n_nodes, n_pods, batch):
+    """The scheduler loop on `device`, built as bench.py's run_config
+    builds it: nodes and pods created through the port's Client, nodes
+    fed to the cache, pods (features precomputed, as the informer thread
+    does) to the queue. Returns the drain's numbers; host phases and the
+    launch-to-committed latency of each batch are taken by wrapping the
+    drain's own methods here (the package has no such hooks)."""
+    client = port.Client(validate=False)
+    sched = port.Scheduler(client, batch_size=batch, device=device)
+    t0 = time.perf_counter()
+    for i in range(n_nodes):
+        node = port.wl.make_node(port.api, i)
+        client.nodes().create(node)
+        sched.cache.add_node(node)
+    pods = [client.pods().create(port.tenant_pod(i)) for i in range(n_pods)]
+    for pod in pods:
+        port.precompute(pod)
+        sched.queue.add(pod)
+    setup_s = time.perf_counter() - t0
+    sched.algorithm.refresh()
+    phases = {"drf_order": 0.0, "launch": 0.0, "finish": 0.0,
+              "commit": 0.0}
+    latency = []
+    algo = sched.algorithm
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                phases[name] += time.perf_counter() - t
+        return run
+    sched._drf_order = timed("drf_order", sched._drf_order)
+    sched._commit_stage = timed("commit", sched._commit_stage)
+    algo.schedule_finish = timed("finish", algo.schedule_finish)
+    launch = timed("launch", algo.schedule_launch)
+
+    def schedule_launch(*a, **kw):
+        t = time.perf_counter()
+        pending = launch(*a, **kw)
+        if pending is not None:
+            pending.t_launch = t
+        return pending
+    algo.schedule_launch = schedule_launch
+    finish_pipelined = sched._finish_pipelined
+
+    def finish(pending, cycle, commit_fut):
+        fut = finish_pipelined(pending, cycle, commit_fut)
+        if fut is None:
+            latency.append(time.perf_counter() - pending.t_launch)
+        else:
+            fut.add_done_callback(lambda f, t=pending.t_launch:
+                                  latency.append(time.perf_counter() - t))
+        return fut
+    sched._finish_pipelined = finish
+    algo.reset_phase_stats()
+    t0 = time.perf_counter()
+    n = sched.drain_pipelined()
+    wall = time.perf_counter() - t0
+    sched.stop()
+    stored = client.pods().list()
+    return {"sched": sched, "client": client, "pods": stored, "bound": n,
+            "binds": {p.metadata.key(): p.spec.node_name or None
+                      for p in stored},
+            "wall": wall, "setup_s": setup_s, "latency": latency,
+            "phases": phases, "commit_thread": sched._commit_async,
+            "phase_stats": dict(algo.phase_stats)}
 
 
 def run_drain(port, variant, device, n_nodes, n_pods, batch, chain):
@@ -437,6 +577,89 @@ def kernel_phase(port, rec, launches):
                  "library_call": f"index_copy_ x{len(lib_dst)} tables",
                  "bytes": k3_bytes, "ops": 0,
                  "shape": f"D={D} ({n_live} rows) N={cap}"})
+    rows.extend(drf_rows(port, rec, launches))
+    return rows
+
+
+def drf_rows(port, rec, launches):
+    """K4 and K5 on the inputs the scheduler path gave them."""
+    torch, tk = port.torch, port.tk
+    if rec.dominant_inputs is None or rec.order_inputs is None:
+        fail("the scheduler path never reached the DRF kernels")
+    rows = []
+
+    # ---- K4 drf_dominant
+    usage, cap = rec.dominant_inputs
+    T, R = usage.shape
+    sh_k = tk.drf_dominant(usage, cap)
+    sh_p = tk.drf_dominant_plain(usage, cap)
+    torch.cuda.synchronize()
+    if not bits_equal(torch, sh_k, sh_p):
+        fail("K4 drf_dominant disagrees with its plain version")
+    k4_ms = time_cuda(torch, lambda: tk.drf_dominant(usage, cap), reps=200,
+                      warm=5)
+    k4_plain_ms, _ = time_host(torch, lambda: tk.drf_dominant_plain(
+        usage, cap))
+    k4_lib_ms = time_cuda(torch, lambda: (
+        usage / torch.clamp_min(cap, 1.0)).amax(1), reps=200, warm=5)
+    k4_bytes = T * R * 4 + R * 4 + T * 4
+    k4_bound = bound(k4_bytes, 2 * T * R)
+    rows.append({"name": "drf_dominant", "route": "cuda",
+                 "source": "kubernetes_tpu_torch/csrc/drf_dominant.cu",
+                 "replaces": "kubernetes_tpu/tenancy/drf.py:98",
+                 "launches": launches["drf_dominant"],
+                 "max_abs_err": max_abs(torch, sh_k, sh_p),
+                 "ms": k4_ms, "plain_ms": k4_plain_ms,
+                 "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+                 "library_ms": k4_lib_ms, "match": True,
+                 "library_call": "(usage / clamp_min(cap, 1)).amax(1), "
+                                 "one expression of three calls",
+                 "bytes": k4_bytes, "ops": 2 * T * R,
+                 "shape": f"T={T} R={R}"})
+
+    # ---- K5 drf_order
+    prio, shares, tidx, pos = rec.order_inputs
+    P = prio.shape[0]
+    perm_k = tk.drf_order(prio, shares, tidx, pos)
+    perm_p = tk.drf_order_plain(prio, shares, tidx, pos)
+    torch.cuda.synchronize()
+    if not torch.equal(perm_k, perm_p):
+        n = int((perm_k != perm_p).sum())
+        fail(f"K5 drf_order disagrees with its plain version ({n} of {P}"
+             " entries)")
+    k5_ms = time_cuda(torch, lambda: tk.drf_order(prio, shares, tidx, pos),
+                      reps=20, warm=2)
+    k5_plain_ms, _ = time_host(torch, lambda: tk.drf_order_plain(
+        prio, shares, tidx, pos))
+    if not torch.equal(pos, torch.arange(P, dtype=torch.int32,
+                                         device=pos.device)):
+        fail("the drain's pop positions are not 0..P-1")
+    neg = tk.neg_wrap(prio)
+
+    def two_pass():
+        # pos is 0..P-1: lexsort is two stable sorts, minor key first
+        perm = torch.sort(shares[tidx.long()], stable=True).indices
+        return perm[torch.sort(neg[perm], stable=True).indices]
+    if not torch.equal(two_pass().to(torch.int32), perm_k):
+        fail("the two-pass torch.sort yardstick disagrees with K5")
+    k5_lib_ms = time_cuda(torch, two_pass, reps=20, warm=2)
+    k5_bytes = 4 * P * 4 + shares.numel() * 4
+    # a comparison sort of P keys needs P log2 P comparisons of three-part
+    # keys; the rank-counting kernel itself does P * P of them
+    k5_ops = int(3 * P * math.log2(max(P, 2)))
+    k5_bound = bound(k5_bytes, k5_ops)
+    rows.append({"name": "drf_order", "route": "cuda",
+                 "source": "kubernetes_tpu_torch/csrc/drf_order.cu",
+                 "replaces": "kubernetes_tpu/tenancy/drf.py:115",
+                 "launches": launches["drf_order"], "max_abs_err": 0.0,
+                 "ms": k5_ms, "plain_ms": k5_plain_ms,
+                 "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+                 "library_ms": k5_lib_ms, "match": True,
+                 "library_call": "two-pass stable torch.sort (share, then "
+                                 "-prio), positions 0..P-1",
+                 "bytes": k5_bytes, "ops": k5_ops,
+                 "kernel_comparisons": P * P,
+                 "shape": f"P={P} T={shares.numel()}"})
     return rows
 
 
@@ -476,28 +699,37 @@ def main() -> None:
     kb = port.kb
     dev = torch.device("cuda")
 
-    # ---- main path
+    # ---- main paths: counts zeroed just before each, read just after
     rec = Recorder(port)
-    kb.reset_launches()
-    per_drain = {}
+    per_path = {}
     drains = {}
     with rec:
         for variant, chain in (("uniform", True), ("spread", False)):
-            before = dict(kb.LAUNCHES)
             rec.variant = variant
+            port.reset_launches()
             sched, pods, res, wall = run_drain(
                 port, variant, dev, N_NODES, N_PODS, BATCH, chain)
-            per_drain[variant] = {k: kb.LAUNCHES[k] - before[k]
-                                  for k in kb.LAUNCHES}
+            per_path[variant] = port.launches()
             drains[variant] = (sched, pods, res, wall)
-    launches = dict(kb.LAUNCHES)
-    for k, n in launches.items():
-        if n == 0:
-            fail(f"kernel {k} was never launched on the main path")
+        rec.variant = "scheduler"
+        port.reset_launches()
+        sp = run_scheduler_drain(port, dev, N_NODES, N_PODS, BATCH)
+        per_path["scheduler"] = port.launches()
+    for path, kernels in PATH_KERNELS.items():
+        for k in kernels:
+            if per_path[path][k] == 0:
+                fail(f"kernel {k} was never launched on the {path} path")
+    for k in ("drf_dominant", "drf_order"):
+        if per_path["scheduler"][k] < 4:
+            fail(f"{k} launched {per_path['scheduler'][k]} times on the "
+                 "scheduler path; a drain of 50,000 pods in batches of "
+                 "16,384 orders at least 4 pops on the card")
+    launches = {k: sum(c[k] for c in per_path.values())
+                for k in per_path["uniform"]}
+    torch.cuda.synchronize()
     for variant, (sched, pods, res, wall) in drains.items():
         check_capacity(port, variant, N_NODES, pods, res.binds)
         bs = [s * 1e3 for s in res.batch_seconds]
-        torch.cuda.synchronize()
         busy = sum(a.elapsed_time(b) for v, a, b in rec.events
                    if v == variant)
         print(f"main path: {variant} drain of {N_PODS} pods onto {N_NODES}"
@@ -505,7 +737,7 @@ def main() -> None:
               f"{res.chained} chained): all bound, capacity held; "
               f"{wall} s = {N_PODS / wall} pods/s; batch latency p50 "
               f"{pct(bs, 0.5)} ms p99 {pct(bs, 0.99)} ms; launches "
-              f"{per_drain[variant]}; host phases (s): launch "
+              f"{per_path[variant]}; host phases (s): launch "
               f"{res.launch_s} finish {res.finish_s} commit {res.commit_s}"
               f", inside them {sched.phase_stats}; device busy in the "
               f"kernel calls {busy} ms of {wall * 1e3} ms wall, idle share "
@@ -513,12 +745,37 @@ def main() -> None:
     for variant in drains:
         if variant not in rec.scan_inputs:
             fail(f"the {variant} drain never reached the class scan")
+    # the scheduler loop: every pod bound in the store, capacity held
+    if sp["bound"] != N_PODS:
+        fail(f"scheduler: drain_pipelined bound {sp['bound']} of {N_PODS}")
+    check_capacity(port, "scheduler", N_NODES, sp["pods"], sp["binds"])
+    if not sp["commit_thread"]:
+        fail("scheduler: the commit thread was off on the card")
+    lat = [t * 1e3 for t in sp["latency"]]
+    busy = sum(a.elapsed_time(b) for v, a, b in rec.events
+               if v == "scheduler")
+    wall = sp["wall"]
+    print(f"main path: scheduler drain_pipelined of {N_PODS} pods of "
+          f"{N_TENANTS} tenants onto {N_NODES} nodes, batches of {BATCH}, "
+          f"commit thread on: all bound in the store, capacity held; "
+          f"{wall} s = {N_PODS / wall} pods/s; batch latency (launch to "
+          f"committed) p50 {pct(lat, 0.5)} ms p99 {pct(lat, 0.99)} ms over "
+          f"{len(lat)} batches; launches {per_path['scheduler']}; host "
+          f"phases (s): drf order {sp['phases']['drf_order']} launch "
+          f"{sp['phases']['launch']} finish {sp['phases']['finish']} "
+          f"commit (commit thread) {sp['phases']['commit']}, inside them "
+          f"{sp['phase_stats']}; cluster set-up {sp['setup_s']} s; device "
+          f"busy in the kernel calls {busy} ms of {wall * 1e3} ms wall, "
+          f"idle share {1 - busy / (wall * 1e3)} {tag}")
+    drf_rep = sp["sched"].drf.report()
+    print("scheduler: DRF dominant shares after the drain "
+          f"{ {t: v['dominant_share'] for t, v in drf_rep['tenants'].items()} }")
 
     # ---- kernel phase (on the main path's own inputs)
     rows = kernel_phase(port, rec, launches)
     for r in rows:
-        r["launches_per_drain"] = {v: per_drain[v][r["name"]]
-                                   for v in per_drain}
+        r["launches_per_path"] = {v: per_path[v][r["name"]]
+                                  for v in per_path}
         print(f"  {r['name']} at {r['shape']}: bit-identical to plain; "
               f"{r['ms']} ms per launch (plain {r['plain_ms']} ms, library "
               f"{r['library_ms']} ms, bound {r['bound_ms']} ms by "
@@ -527,11 +784,11 @@ def main() -> None:
 
     # ---- the same drains with the plain versions on the card
     for variant, chain in (("uniform", True), ("spread", False)):
-        kb.reset_launches()
+        port.reset_launches()
         with PlainOnCard(port):
             _, _, pres, pwall = run_drain(port, variant, dev, N_NODES,
                                           N_PODS, BATCH, chain)
-        if any(kb.LAUNCHES.values()):
+        if any(port.launches().values()):
             fail(f"the plain {variant} drain launched kernels")
         kres = drains[variant][2]
         if pres.binds != kres.binds:
@@ -556,6 +813,35 @@ def main() -> None:
             fail(f"small {variant} drain: the card disagrees with the CPU")
         print(f"small {variant} drain ({SMALL_PODS} pods, {SMALL_NODES} "
               "nodes): card equals CPU, binds and score bits")
+
+    # ---- small scheduler loop, nine tenants: card against CPU. The
+    # multi-tenant order depends on commit-thread timing (the commit
+    # thread charges DRF usage while the drain thread orders the next
+    # pop), so both run with the commit stage inline.
+    saved = os.environ.get("KTPU_COMMIT_THREAD")
+    os.environ["KTPU_COMMIT_THREAD"] = "0"
+    try:
+        small = [run_scheduler_drain(port, d, SMALL_NODES, SMALL_PODS,
+                                     SMALL_BATCH) for d in (dev, "cpu")]
+    finally:
+        if saved is None:
+            del os.environ["KTPU_COMMIT_THREAD"]
+        else:
+            os.environ["KTPU_COMMIT_THREAD"] = saved
+    g, c = small
+    if g["bound"] != SMALL_PODS or g["binds"] != c["binds"]:
+        fail("small scheduler drain: the card's binds differ from the "
+             "CPU's")
+    import numpy as np
+    g_sh, c_sh = (r["sched"].drf.dominant_shares() for r in small)
+    if g_sh.view(np.int32).tolist() != c_sh.view(np.int32).tolist() or \
+            g["sched"].drf.report() != c["sched"].drf.report():
+        fail("small scheduler drain: the DRF shares differ between the "
+             "card and the CPU")
+    print(f"small scheduler drain ({SMALL_PODS} pods of {N_TENANTS} "
+          f"tenants, {SMALL_NODES} nodes, batches of {SMALL_BATCH}, "
+          "KTPU_COMMIT_THREAD=0): card equals CPU, binds and DRF share "
+          "bits")
 
     print(json.dumps({"kernels": rows}))
     print(card)

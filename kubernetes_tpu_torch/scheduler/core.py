@@ -17,16 +17,20 @@ The methods on that path keep the reference's code; only imports and
 device calls differ. Entry points run on CUDA unless the caller passes
 device="cpu" (the tests do); with no CUDA device they raise.
 
-Routes outside this slice raise NotImplementedError at the point where
-they would reach an unported kernel: gang batches, preemption,
-speculative cohorts, the sharded mesh, in-scan topology or soft term
-tables, nominated reservations, and the classic per-pod branch
-(ROADMAP, port slices 2 and 3 and later).
+The scheduler loop (scheduler.py) also reads the host-side helpers kept
+here: soft_batch_limit and topo_scan_likely (drain sub-chunking) and
+explain / FitError (failure diagnosis).
+
+Routes outside the ported slices raise NotImplementedError at the point
+where they would reach an unported kernel: gang batches, preemption
+(preempt / preempt_gang), speculative cohorts, the sharded mesh, in-scan
+topology or soft term tables, nominated reservations, and the classic
+per-pod branch (ROADMAP, port slice 3 and later).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +56,30 @@ def resolve_device(device=None) -> torch.device:
             "kubernetes_tpu_torch runs on a CUDA device and none is "
             "available; pass device=\"cpu\" to run the plain versions")
     return dev
+
+
+@dataclass
+class FitError(Exception):
+    """Ref: core.FitError — why a pod fit nowhere. total_nodes is the
+    cluster size; not_examined > 0 means the diagnosis was capped."""
+    pod: Optional[Pod] = None
+    failed_predicates: Dict[str, List[str]] = field(default_factory=dict)
+    total_nodes: int = 0
+    not_examined: int = 0
+
+    def error(self) -> str:
+        # aggregate like the reference's FitError.Error()
+        counts: Dict[str, int] = {}
+        for reasons in self.failed_predicates.values():
+            for r in reasons:
+                counts[r] = counts.get(r, 0) + 1
+        parts = [f"{n} {r}" for r, n in sorted(counts.items())]
+        total = self.total_nodes or len(self.failed_predicates)
+        msg = "0/%d nodes are available: %s." % (total, ", ".join(parts))
+        if self.not_examined:
+            msg += (f" ({self.not_examined} node(s) not examined: "
+                    f"diagnosis capped)")
+        return msg
 
 
 @dataclass
@@ -287,7 +315,16 @@ class BatchScheduler:
         #: gang.GangManager; a batch carrying PodGroup members would route
         #: to the all-or-nothing kernel (not ported: raises)
         self.gang = None
+        #: tenancy.DRFAccount, installed by the scheduler shell (the
+        #: reference's preemption pricing reads it; preemption is not
+        #: ported yet)
+        self.drf = None
         import os as _os
+        #: soft-score sub-batch size, resolved ONCE at construction (like
+        #: KTPU_ALIGN_SPLIT) — re-reading the environment per batch was a
+        #: silent per-drain cost and an unannounced behavior knob
+        self.soft_score_chunk = int(_os.environ.get(
+            "SCHED_SOFT_SCORE_CHUNK", str(self.SOFT_SCORE_CHUNK)))
         #: KTPU_TOPO_TABLE_CACHE=0 disables the epoch-keyed profile cache
         self.topo_table_cache = _os.environ.get(
             "KTPU_TOPO_TABLE_CACHE", "1") != "0"
@@ -302,6 +339,9 @@ class BatchScheduler:
         #: profile resolution survives across batches until a profile-
         #: relevant topology change (new term, zero-crossing count)
         self._profile_cache: Dict[Tuple, Tuple[int, AffinityProfile]] = {}
+        #: scheduler.SchedulerMetrics, installed by the shell (None in
+        #: bare-algorithm tests)
+        self.sched_metrics = None
         #: observability.SpanTracer, installed by a scheduler shell: the
         #: device path's stage spans (tensorize / scan wait)
         self.tracer = None
@@ -531,6 +571,56 @@ class BatchScheduler:
                     ok = self.volume_binder.find_pod_volumes(pod, ni.node)
             row_mask[row] = ok
         return row_mask
+
+    #: env-tunable. SelectorSpread and preferred inter-pod (anti-)affinity
+    #: both run IN-SCAN (running group counts / credit accumulators), so
+    #: sub-chunking engages only when a batch OVERFLOWS the in-scan caps.
+    SOFT_SCORE_CHUNK = 256
+
+    def topo_scan_likely(self, pods: List[Pod]) -> bool:
+        """True when this batch carries required ANTI-affinity — the
+        in-scan counter workload whose per-step [K, N] gathers still make
+        power-of-two padding worth splitting away (drain_pipelined's
+        alignment split). Required AFFINITY batches keep the padded single
+        scan. (Such batches reach the in-scan topology tables, which raise
+        at launch until port slice 3.)"""
+        if self.topology.has_required_anti_carriers():
+            return True
+        return any(
+            p.spec.affinity is not None
+            and p.spec.affinity.pod_anti_affinity is not None
+            and p.spec.affinity.pod_anti_affinity
+            .required_during_scheduling_ignored_during_execution
+            for p in pods)
+
+    def soft_batch_limit(self, pods: List[Pod]) -> int:
+        """How many of these pods may schedule in ONE kernel batch without
+        visible soft-score drift. Spread groups beyond the in-scan group
+        cap would run the whole batch on frozen counts, so such a batch
+        schedules in SOFT_SCORE_CHUNK sub-batches. (The reference also
+        chunks a batch whose preferred inter-pod term union overflows the
+        in-scan credit tables; every such batch reaches those tables,
+        which raise at launch until port slice 3.)"""
+        chunk = self.soft_score_chunk
+        if len(pods) <= chunk or chunk <= 0:
+            return len(pods)
+        listers = self.scorer.listers
+        if listers is not None and \
+                self.scorer.weights.get("SelectorSpreadPriority"):
+            memo: Dict[Tuple, bool] = {}
+            n_groups = 0
+            for pod in pods:
+                key = (pod.metadata.namespace,
+                       tuple(sorted(pod.metadata.labels.items())))
+                v = memo.get(key)
+                if v is None:
+                    v = bool(listers.selectors_for_pod(pod))
+                    memo[key] = v
+                    if v:
+                        n_groups += 1
+                        if n_groups > self.SPREAD_GROUP_CAP:
+                            return chunk
+        return len(pods)
 
     #: in-scan spread group cap per batch; overflow groups fall back to
     #: the static (batch-start) spread row
@@ -1069,3 +1159,59 @@ class BatchScheduler:
                     "scan's phantom-usage overlay, which is not ported yet "
                     "(ROADMAP: port slice 3)")
         return None
+
+    # ------------------------------------------------ preemption, diagnosis
+
+    def preempt(self, pod: Pod):
+        """Ref: generic_scheduler.go Preempt. The victim-pricing kernels
+        (kernels/preempt.py price_nodes) are not ported yet."""
+        raise NotImplementedError(
+            "BatchScheduler.preempt: the victim-pricing kernels are not "
+            "ported yet (ROADMAP: Queue A item 4, preemption pricing)")
+
+    def preempt_gang(self, members: List[Pod], min_member: int,
+                     topology_key: Optional[str]):
+        """Whole-gang preemption over ICI domains (price_domains): not
+        ported yet."""
+        raise NotImplementedError(
+            "BatchScheduler.preempt_gang: the domain-pricing kernels are "
+            "not ported yet (ROADMAP: Queue A item 4, preemption pricing)")
+
+    def _fits_predicates(self, pod: Pod) -> Dict[str, object]:
+        """The predicate set a fit check runs (same assembly as the
+        reference's explain())."""
+        all_preds = dict(preds.DEFAULT_PREDICATES)
+        if _pod_has_pvc(pod) or _pod_has_attach_volumes(pod):
+            all_preds.update(self._volume_count_preds)
+            all_preds["NoVolumeZoneConflict"] = self._zone_conflict
+            all_preds["CheckVolumeBinding"] = \
+                preds.check_volume_binding_factory(self.volume_binder)
+        return all_preds
+
+    #: nodes examined per failure diagnosis; the reference pays full-cluster
+    #: cost per ATTEMPT inside its parallelized hot loop, but here explain()
+    #: is purely diagnostic (events), so a capped sample keeps a mass-
+    #: unschedulable burst from burning minutes of host python — the
+    #: aggregate message still reports the total node count
+    EXPLAIN_NODE_CAP = 100
+
+    def explain(self, pod: Pod, node_cap: Optional[int] = None) -> FitError:
+        """Host-path per-node failure reasons for events/conditions.
+        Diagnoses up to `node_cap` nodes (EXPLAIN_NODE_CAP default; None
+        from callers means the default, 0 means unlimited)."""
+        cap = self.EXPLAIN_NODE_CAP if node_cap is None else node_cap
+        meta = preds.PredicateMetadata(pod, self.snapshot.node_infos)
+        all_preds = self._fits_predicates(pod)
+        failed: Dict[str, List[str]] = {}
+        examined = 0
+        total = len(self.snapshot.node_infos)
+        for name, ni in self.snapshot.node_infos.items():
+            if cap and examined >= cap:
+                break
+            examined += 1
+            ok, reasons = preds.pod_fits_on_node(pod, meta, ni, all_preds)
+            if not ok:
+                failed[name] = reasons
+        return FitError(pod=pod, failed_predicates=failed,
+                        total_nodes=total,
+                        not_examined=total - examined)

@@ -1,11 +1,11 @@
 """A chained batch drain: schedule_launch -> schedule_finish with each
 batch launched on its predecessor's post-batch device usage.
 
-The single-threaded form of the chaining that kubernetes_tpu's
-Scheduler.drain_pipelined does (its threaded loop, queue and bind path
-are port slice 2). Batch k+1 launches chained on batch k before k's
-results are fetched, so the card runs k+1's scan while the host repairs
-and commits k. Winners are committed with cache.assume_pod; the only
+The single-threaded form of the chaining that Scheduler.drain_pipelined
+(scheduler.py) does with its queue, commit thread and store binds, kept as
+the smallest caller of the chained launch. Batch k+1 launches chained on
+batch k before k's results are fetched, so the card runs k+1's scan
+while the host repairs and commits k. Winners are committed with cache.assume_pod; the only
 cache mutations between two launches are the drain's own assumes, which
 is what the chain_seq check asks.
 """

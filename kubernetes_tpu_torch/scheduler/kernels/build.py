@@ -28,7 +28,9 @@ BUILD_DIR = PKG_DIR / "build"
 #: kernel name -> source file (each includes csrc/*.cuh as needed)
 SOURCES = {"class_ms_init": "class_ms_init.cu",
            "class_scan": "class_scan.cu",
-           "apply_dirty": "apply_dirty.cu"}
+           "apply_dirty": "apply_dirty.cu",
+           "drf_dominant": "drf_dominant.cu",
+           "drf_order": "drf_order.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

@@ -1,2 +1,2 @@
-"""Cross-cutting utilities: copies of kubernetes_tpu/utils' clock and
-feature gates."""
+"""Cross-cutting utilities: copies of kubernetes_tpu/utils' clock, feature
+gates, metrics, backoff, error log and step traces."""

@@ -41,7 +41,17 @@ SLICE_MODULES = [
     "kubernetes_tpu_torch.scheduler.kernels",
     "kubernetes_tpu_torch.scheduler.kernels.batch",
     "kubernetes_tpu_torch.scheduler.kernels.build",
-    "kubernetes_tpu_torch.convert", "kubernetes_tpu_torch.workload"]
+    "kubernetes_tpu_torch.convert", "kubernetes_tpu_torch.workload",
+    "kubernetes_tpu_torch.scheduler.scheduler",
+    "kubernetes_tpu_torch.scheduler.gang",
+    "kubernetes_tpu_torch.scheduler.debugger",
+    "kubernetes_tpu_torch.state", "kubernetes_tpu_torch.state.store",
+    "kubernetes_tpu_torch.state.client",
+    "kubernetes_tpu_torch.state.informer",
+    "kubernetes_tpu_torch.state.record", "kubernetes_tpu_torch.runtime",
+    "kubernetes_tpu_torch.observability", "kubernetes_tpu_torch.tenancy",
+    "kubernetes_tpu_torch.tenancy.drf",
+    "kubernetes_tpu_torch.tenancy.kernels"]
 
 
 def test_port_loads_neither_jax_nor_the_reference_package():

@@ -119,3 +119,60 @@ def test_apply_dirty_kernel_matches_plain(cuda):
     for x, y in ((a[0], b[0]), (a[1], b[1])):
         for k in x:
             assert torch.equal(x[k], y[k]), k
+
+
+# ------------------------------------------------- DRF kernels K4, K5
+
+
+def _drf_inputs(seed, P, T):
+    """The hazard inputs of tests/test_torch_drf.py: share ties, 0.0 and
+    -0.0, system-class priorities and the priorities whose negation
+    wraps."""
+    rng = np.random.default_rng(seed)
+    prio = rng.choice(np.array([0, 0, 1000, 2_000_001_000, -2_147_483_647,
+                                -2 ** 31], np.int32), P).astype(np.int32)
+    shares = rng.choice(np.array([0.0, -0.0, 0.25, 1e-3, 0.5], np.float32),
+                        T).astype(np.float32)
+    tidx = rng.integers(0, T, P).astype(np.int32)
+    pos = np.arange(P, dtype=np.int32)
+    return prio, shares, tidx, pos
+
+
+@pytest.mark.parametrize("T", [1, 9, 300])
+def test_drf_dominant_kernel_matches_plain(cuda, T):
+    from kubernetes_tpu_torch.tenancy import kernels as tk
+    rng = np.random.default_rng(T)
+    usage = torch.from_numpy((rng.random((T, 3)) * 1e9).astype(np.float32))
+    usage[::3] = 0.0
+    cap = torch.tensor([64_000.0, 0.5, 0.0])
+    before = tk.LAUNCHES["drf_dominant"]
+    got = tk.drf_dominant(usage.to(cuda), cap.to(cuda))
+    assert tk.LAUNCHES["drf_dominant"] == before + 1
+    want = tk.drf_dominant_plain(usage.to(cuda), cap.to(cuda))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("P", [64, 65, 200, 16_384])
+def test_drf_order_kernel_matches_plain(cuda, P):
+    from kubernetes_tpu_torch.tenancy import kernels as tk
+    prio, shares, tidx, pos = (torch.from_numpy(a).to(cuda)
+                               for a in _drf_inputs(P, P, 9))
+    before = tk.LAUNCHES["drf_order"]
+    got = tk.drf_order(prio, shares, tidx, pos)
+    assert tk.LAUNCHES["drf_order"] == before + 1
+    want = tk.drf_order_plain(prio, shares, tidx, pos)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+    # the CPU plain version agrees too
+    assert torch.equal(got.cpu(), tk.drf_order_plain(
+        prio.cpu(), shares.cpu(), tidx.cpu(), pos.cpu()))
+
+
+def test_drf_order_kernel_single_tenant_keeps_pop_order(cuda):
+    from kubernetes_tpu_torch.tenancy import kernels as tk
+    prio, _, _, pos = _drf_inputs(5, 1000, 1)
+    got = tk.drf_order(torch.from_numpy(prio).to(cuda),
+                       torch.tensor([0.375], device=cuda),
+                       torch.zeros(1000, dtype=torch.int32, device=cuda),
+                       torch.from_numpy(pos).to(cuda)).cpu().numpy()
+    assert got.tolist() == np.lexsort((pos, -prio)).tolist()
