@@ -22,15 +22,28 @@ one process per source, all started together), then:
        tenants (priority 1000 for every fourth pod) onto 5,000 nodes.
        Every popped batch is ordered by DRF on the card (K4, K5, at least
        4 launches each), then scanned (K1, K2).
-     Every pod must bind (in the store, for `scheduler`), and no node's
-     usage recomputed from the binds may exceed its allocatable;
+     - `anti-affinity` and `preferred`: the same scheduler loop, single
+       tenant, over bench.py run_config's clusters of its
+       `pod-anti-affinity` (required anti-affinity within 100 colors on
+       kubernetes.io/hostname, with its 100 seeded colored pods) and
+       `preferred-affinity` (preferred anti-affinity, weight 10, within
+       16 groups on the hostname, at the default InterPodAffinityPriority
+       weight) pods: 10,000 pods onto 1,000 nodes, BASELINE.json's
+       configs 3 and 4. Their batches carry K2's topology counters and
+       soft credits (the class_scan_topo and class_scan_soft instances).
+     Every pod must bind (in the store, for the scheduler loops), no
+     node's usage recomputed from the binds may exceed its allocatable,
+     and on `anti-affinity` no two pods of a color may share a node;
   2. kernel phase: each kernel on the inputs the main paths gave it, held
      bit for bit against its plain PyTorch version on the card, and
      timed with CUDA events beside the plain version and, where one
-     PyTorch call computes the same function, that call;
-  3. the `uniform` and `spread` drains with the plain versions on the
-     card (the kernels patched out in this script only): the binds must
-     be equal;
+     PyTorch call computes the same function, that call. Each K2
+     instance is held on a whole batch of its path;
+  3. the `uniform`, `spread`, `anti-affinity` and `preferred` drains
+     with the plain versions on the card (the kernels patched out in
+     this script only): the binds must be equal. `uniform` and `spread`
+     are cut to their first two batches here (PLAIN_PODS), which bind
+     as in the whole drain, to keep the script well inside its time;
   4. small drains (128 nodes, 1,024 pods) on the card against the same
      drains on the CPU: for `uniform` and `spread` the binds and score
      bits must be equal; for the nine-tenant scheduler loop (with
@@ -59,14 +72,29 @@ N_NODES = 5000
 N_PODS = 50_000
 BATCH = 16_384
 SMALL_NODES, SMALL_PODS, SMALL_BATCH = 128, 1024, 256
+#: the depth of the uniform and spread drains with the plain versions
+PLAIN_PODS = 2 * BATCH
+#: BASELINE.json configs 3 and 4: 10k pods onto 1k nodes
+AFF_NODES, AFF_PODS = 1000, 10_000
+#: the inter-pod paths and the bench.py variant each drains
+AFF_PATHS = {"anti-affinity": "pod-anti-affinity",
+             "preferred": "preferred-affinity"}
 #: the scheduler path's tenants (bench.py tenancy_main's nine steady
 #: tenants) and its priority mix (every fourth pod at 1000)
 N_TENANTS = 9
 #: kernels each main path must launch
 PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
-                "spread": ("class_ms_init", "class_scan", "apply_dirty"),
+                "spread": ("class_ms_init", "class_scan_spread",
+                           "apply_dirty"),
                 "scheduler": ("class_ms_init", "class_scan", "drf_dominant",
-                              "drf_order")}
+                              "drf_order"),
+                "anti-affinity": ("class_ms_init", "class_scan_topo"),
+                "preferred": ("class_ms_init", "class_scan_soft")}
+#: the K2 instances, each timed and held on a batch of the path named
+SCAN_ROWS = (("class_scan", "uniform", "batch.py:596"),
+             ("class_scan_spread", "spread", "batch.py:163"),
+             ("class_scan_topo", "anti-affinity", "batch.py:366"),
+             ("class_scan_soft", "preferred", "batch.py:254"))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 #: outside the tensor cores; the bound of a kernel is the larger of its
 #: bytes over the first and its f32 operations over the second
@@ -234,31 +262,38 @@ class PlainOnCard:
     PyTorch versions. The package itself has no such switch."""
 
     def __init__(self, port):
-        self.kb = port.kb
-        self._orig = {}
+        self.kb, self.tk = port.kb, port.tk
+        self._orig = []
 
     def __enter__(self):
-        kb = self.kb
-        self._orig = {"class_ms_init": kb.class_ms_init,
-                      "_class_scan_cuda": kb._class_scan_cuda,
-                      "apply_dirty": kb.apply_dirty}
-        kb.class_ms_init = kb.class_ms_init_plain
-        kb._class_scan_cuda = kb._class_scan_plain
-        kb.apply_dirty = kb.apply_dirty_plain
+        kb, tk = self.kb, self.tk
+        for mod, name, plain in (
+                (kb, "class_ms_init", kb.class_ms_init_plain),
+                (kb, "_class_scan_cuda", kb._class_scan_plain),
+                (kb, "apply_dirty", kb.apply_dirty_plain),
+                (tk, "drf_dominant", tk.drf_dominant_plain),
+                (tk, "drf_order", tk.drf_order_plain)):
+            self._orig.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, plain)
         return self
 
     def __exit__(self, *exc):
-        for k, v in self._orig.items():
-            setattr(self.kb, k, v)
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+        self._orig = []
 
 
-def run_scheduler_drain(port, device, n_nodes, n_pods, batch):
+def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
+                        variant="tenants"):
     """The scheduler loop on `device`, built as bench.py's run_config
     builds it: nodes and pods created through the port's Client, nodes
-    fed to the cache, pods (features precomputed, as the informer thread
-    does) to the queue. Returns the drain's numbers; host phases and the
-    launch-to-committed latency of each batch are taken by wrapping the
-    drain's own methods here (the package has no such hooks)."""
+    and the variant's seeded bound pods fed to the cache, pods (features
+    precomputed, as the informer thread does) to the queue; bench.py's
+    compile warm-up batches are left out (nothing here compiles per
+    shape). `variant` "tenants" is the nine-tenant mix, any other a
+    bench.py pod variant. Returns the drain's numbers; host phases and
+    the launch-to-committed latency of each batch are taken by wrapping
+    the drain's own methods here (the package has no such hooks)."""
     client = port.Client(validate=False)
     sched = port.Scheduler(client, batch_size=batch, device=device)
     t0 = time.perf_counter()
@@ -266,7 +301,12 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch):
         node = port.wl.make_node(port.api, i)
         client.nodes().create(node)
         sched.cache.add_node(node)
-    pods = [client.pods().create(port.tenant_pod(i)) for i in range(n_pods)]
+    seeds = port.wl.seed_pods(port.api, variant, n_nodes)
+    for pod in seeds:
+        sched.cache.add_pod(pod)
+    make = port.tenant_pod if variant == "tenants" else \
+        (lambda i: port.wl.make_pod(port.api, i, variant))
+    pods = [client.pods().create(make(i)) for i in range(n_pods)]
     for pod in pods:
         port.precompute(pod)
         sched.queue.add(pod)
@@ -315,6 +355,7 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch):
     sched.stop()
     stored = client.pods().list()
     return {"sched": sched, "client": client, "pods": stored, "bound": n,
+            "seeds": seeds,
             "binds": {p.metadata.key(): p.spec.node_name or None
                       for p in stored},
             "wall": wall, "setup_s": setup_s, "latency": latency,
@@ -357,6 +398,26 @@ def check_capacity(port, variant, n_nodes, pods, binds):
             fail(f"{variant}: node {node} over capacity: cpu {cpu}/"
                  f"{a.milli_cpu}, memory {mem}/{a.memory}, pods {cnt}/"
                  f"{a.allowed_pod_number}")
+
+
+def check_affinity_drain(port, path, r):
+    """Every pod bound in the store, capacity held with the seeded pods
+    counted, and on `anti-affinity` no two pods of a color (seeds
+    included) on one node."""
+    if r["bound"] != AFF_PODS:
+        fail(f"{path}: drain_pipelined bound {r['bound']} of {AFF_PODS}")
+    binds = dict(r["binds"])
+    binds.update({p.metadata.key(): p.spec.node_name for p in r["seeds"]})
+    pods = list(r["pods"]) + list(r["seeds"])
+    check_capacity(port, path, AFF_NODES, pods, binds)
+    if path == "anti-affinity":
+        seen = {}
+        for pod in pods:
+            key = (pod.metadata.labels["color"], binds[pod.metadata.key()])
+            if key in seen:
+                fail(f"anti-affinity: {seen[key]} and {pod.metadata.key()} "
+                     f"of color {key[0]} share node {key[1]}")
+            seen[key] = pod.metadata.key()
 
 
 def pct(xs, q):
@@ -414,17 +475,21 @@ def bits_equal(torch, a, b):
 
 
 def check_scan(port, node_cfg, usage, pb, label):
-    """K1 + K2 against their plain versions on one batch's inputs;
-    returns (packed, post-batch usage, max abs error)."""
+    """K1 + K2 against their plain versions on one whole batch's inputs;
+    returns (packed, post-batch usage, max abs error, ms of the plain
+    versions on the card, host clock)."""
     torch, kb = port.torch, port.kb
     packed_k, use_k = kb.schedule_batch_packed(node_cfg, usage, pb)
     with PlainOnCard(port):
-        packed_p, use_p = kb.schedule_batch_packed(node_cfg, usage, pb)
+        plain_ms, (packed_p, use_p) = time_host(
+            torch, lambda: kb.schedule_batch_packed(node_cfg, usage, pb))
     torch.cuda.synchronize()
     if not torch.equal(packed_k, packed_p):
         fail(f"K2 class_scan disagrees with its plain version on the "
              f"{label} batch ({int((packed_k != packed_p).sum())} packed "
              "entries)")
+    if set(use_k) != set(use_p):
+        fail(f"K2 post-batch usage keys differ on the {label} batch")
     for k in use_p:
         if not bits_equal(torch, use_k[k], use_p[k]):
             fail(f"K2 class_scan post-batch usage {k} disagrees on the "
@@ -433,7 +498,7 @@ def check_scan(port, node_cfg, usage, pb, label):
               max_abs(torch, packed_k[1].view(torch.float32),
                       packed_p[1].view(torch.float32)),
               *(max_abs(torch, use_k[k], use_p[k]) for k in use_p))
-    return packed_k, use_k, err
+    return packed_k, use_k, err, plain_ms
 
 
 def kernel_phase(port, rec, launches):
@@ -444,7 +509,6 @@ def kernel_phase(port, rec, launches):
         pb["unique_scores"]
     N, R = node_cfg["alloc"].shape
     C = cls["class_req"].shape[0]
-    P = pb["class_idx"].shape[0]
     rows = []
 
     # ---- K1 class_ms_init
@@ -473,62 +537,11 @@ def kernel_phase(port, rec, launches):
                  "bytes": k1_bytes, "ops": k1_ops,
                  "shape": f"C={C} N={N} R={R}"})
 
-    # ---- K2 class_scan (K1 + K2 inside schedule_batch_packed; K2 alone
-    # is timed on a prepared table)
-    has_spread = pb.get("spread_base") is not None
-    packed_k, use_k, err = check_scan(port, node_cfg, usage, pb, "uniform")
-    # the spread carries run only on the spread batch: hold them too
-    s_cfg, s_usage, s_pb = rec.scan_inputs["spread"]
-    _, _, s_err = check_scan(port, s_cfg, s_usage, s_pb, "spread")
-    err = max(err, s_err)
-    s_cls = {k: s_pb[k] for k in kb._CLASS_KEYS}
-
-    def spread_scan():
-        _, _, ms0, carry, hs = kb._scan_setup(s_cfg, s_usage, s_pb)
-        return lambda: kb._class_scan_cuda(s_cfg, s_pb, s_cls,
-                                           s_pb["resource_weights"], ms0,
-                                           carry, hs)
-    k2_spread_ms = [time_cuda(torch, spread_scan(), reps=1, warm=0)
-                    for _ in range(2)][-1]
-
-    def scan_only(plain=False):
-        # a fresh table and carry for each run; only the scan is timed
-        _, _, ms0, carry, hs = kb._scan_setup(node_cfg, usage, pb)
-        fn = kb._class_scan_plain if plain else kb._class_scan_cuda
-        return lambda: fn(node_cfg, pb, cls, rw, ms0, carry, hs)
-    k2_runs = []
-    for _ in range(3):
-        run = scan_only()
-        k2_runs.append(time_cuda(torch, run, reps=1, warm=0))
-    k2_ms = sum(k2_runs[1:]) / 2   # the first run pays the library load
-    k2_plain_ms, _ = time_host(torch, scan_only(plain=True))
-    G = pb["spread_base"].shape[0] if has_spread else 0
-    k2_bytes = (nbytes(*node_cfg.values(), *usage.values(), *cls.values(),
-                       rw, ms_k, pb["class_idx"], pb["seq"], pb["active"],
-                       packed_k, use_k["used"], use_k["nonzero_used"],
-                       use_k["pod_count"], ms_k)
-                + um.numel() + us.numel() * 4)
-    if has_spread:
-        k2_bytes += nbytes(pb["spread_gidx"], pb["spread_match"],
-                           pb["spread_base"], pb["spread_zone"],
-                           use_k["spread"])
-    # per (pod, node): feasibility compare, select, tie penalty mul + sub,
-    # argmax compare; spread adds ~14 (reductions, scores, blend); per
-    # pod the winner column over C classes and the usage adds
-    per_node = 5 + (14 if has_spread else 0)
-    k2_ops = P * (N * per_node + C * (2 * R + 28) + R + 3 + G)
-    k2_bound = bound(k2_bytes, k2_ops)
-    rows.append({"name": "class_scan", "route": "cuda",
-                 "source": "kubernetes_tpu_torch/csrc/class_scan.cu",
-                 "replaces": "kubernetes_tpu/scheduler/kernels/batch.py:596",
-                 "launches": launches["class_scan"], "max_abs_err": err,
-                 "ms": k2_ms, "plain_ms": k2_plain_ms,
-                 "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-                 "library_ms": None, "match": True,
-                 "bytes": k2_bytes, "ops": k2_ops,
-                 "shape": f"P={P} C={C} N={N} R={R} G={G}",
-                 "ms_spread_batch": k2_spread_ms})
-
+    # ---- K2, one row per instance: K1 + K2 held against the plain
+    # versions on a whole batch of the instance's path (the plain time is
+    # that run's), K2 alone timed on a freshly prepared table and carry
+    for name, path, line in SCAN_ROWS:
+        rows.append(scan_row(port, rec, launches, name, path, line))
     # ---- K3 apply_dirty
     if rec.dirty_inputs is None:
         fail("the main path never scattered dirty rows (K3)")
@@ -579,6 +592,91 @@ def kernel_phase(port, rec, launches):
                  "shape": f"D={D} ({n_live} rows) N={cap}"})
     rows.extend(drf_rows(port, rec, launches))
     return rows
+
+
+def scan_row(port, rec, launches, name, path, line):
+    torch, kb = port.torch, port.kb
+    if path not in rec.scan_inputs:
+        fail(f"the {path} path never reached the class scan")
+    node_cfg, usage, pb = rec.scan_inputs[path]
+    spread, topo, dir2, soft = kb._scan_terms(pb)
+    if kb.scan_instance(spread, topo, soft) != name:
+        fail(f"the {path} batch runs {kb.scan_instance(spread, topo, soft)}"
+             f", not {name}")
+    packed_k, use_k, err, plain_ms = check_scan(port, node_cfg, usage, pb,
+                                                path)
+    cls = {k: pb[k] for k in kb._CLASS_KEYS}
+    rw = pb["resource_weights"]
+
+    def scan_only():
+        # a fresh table and carry for each run; only the scan is timed
+        _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb)
+        return lambda: kb._class_scan_cuda(node_cfg, pb, cls, rw, ms0,
+                                           carry, terms)
+    runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
+    ms = sum(runs[1:]) / 2   # the first run pays the library load
+    N, R = node_cfg["alloc"].shape
+    C = cls["class_req"].shape[0]
+    P = pb["class_idx"].shape[0]
+    # the [C, N] table is read and written once, like every input and
+    # output
+    bytes_ = (nbytes(*node_cfg.values(), *usage.values(), *cls.values(),
+                     rw, pb["class_idx"], pb["seq"], pb["active"], packed_k,
+                     *use_k.values(), pb["unique_masks"],
+                     pb["unique_scores"]) + 2 * C * N * 4)
+    # per (pod, node): feasibility compare, select, tie penalty mul + sub,
+    # argmax compare; per pod the winner column over C classes and the
+    # usage adds
+    per_node = 5
+    per_pod = C * (2 * R + 28) + R + 3
+    term_ops = 0
+    G = K = Ks = 0
+    if spread:
+        G = pb["spread_base"].shape[0]
+        bytes_ += nbytes(pb["spread_gidx"], pb["spread_match"],
+                         pb["spread_base"], pb["spread_zone"])
+        per_node += 14     # reductions, node and zone scores, blend
+        per_pod += G
+    if topo:
+        K = pb["anti_tids"].shape[1]
+        lists = [pb[k] for k in ("anti_tids", "aff_tids", "match_tids",
+                                 "cmatch_tids", "canti_tids") if k in pb]
+        bytes_ += nbytes(pb["anti_dom"], pb["anti_cnt0"], *lists)
+        # each real read entry: a domain gather, a count gather and a
+        # compare at every node; each real write entry: two adds
+        reads = sum(int((pb[k] >= 0).sum()) for k in
+                    ("anti_tids", "aff_tids", "cmatch_tids") if k in pb)
+        writes = sum(int((pb[k] >= 0).sum()) for k in
+                     ("match_tids", "canti_tids") if k in pb)
+        term_ops += 3 * reads * N + 2 * writes
+    if soft:
+        Ks = pb["soft_read_tids"].shape[1]
+        bytes_ += nbytes(pb["soft_dom"], pb["soft_base"],
+                         pb["soft_base_idx"], pb["soft_read_tids"],
+                         pb["soft_read_w"], pb["soft_write_tids"],
+                         pb["soft_write_w"],
+                         usage.get("soft_cnt", pb["soft_cnt0"]))
+        # each real read entry: two gathers, a multiply and an add at
+        # every node; per scored pod and node the base add, the min/max
+        # and the normalisation (sub, mul, sub, max, div, add, floor,
+        # mul, add)
+        reads = int((pb["soft_read_tids"] >= 0).sum())
+        scored = int((pb["soft_base_idx"] >= 0).sum())
+        writes = int((pb["soft_write_tids"] >= 0).sum())
+        term_ops += 4 * reads * N + 12 * scored * N + writes
+    ops = P * (N * per_node + per_pod) + term_ops
+    b = bound(bytes_, ops)
+    return {"name": name, "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/class_scan.cu"
+                      + (" + affinity.cuh" if topo or soft else ""),
+            "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "match": True,
+            "bytes": bytes_, "ops": ops,
+            "shape": f"P={P} C={C} N={N} R={R} G={G} K={K} Ks={Ks}"
+                     f"{' dir2' if dir2 else ''} ({path} batch)"}
 
 
 def drf_rows(port, rec, launches):
@@ -715,6 +813,13 @@ def main() -> None:
         port.reset_launches()
         sp = run_scheduler_drain(port, dev, N_NODES, N_PODS, BATCH)
         per_path["scheduler"] = port.launches()
+        aff = {}
+        for path, variant in AFF_PATHS.items():
+            rec.variant = path
+            port.reset_launches()
+            aff[path] = run_scheduler_drain(port, dev, AFF_NODES, AFF_PODS,
+                                            BATCH, variant)
+            per_path[path] = port.launches()
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             if per_path[path][k] == 0:
@@ -770,6 +875,26 @@ def main() -> None:
     drf_rep = sp["sched"].drf.report()
     print("scheduler: DRF dominant shares after the drain "
           f"{ {t: v['dominant_share'] for t, v in drf_rep['tenants'].items()} }")
+    for path, r in aff.items():
+        check_affinity_drain(port, path, r)
+        lat = [t * 1e3 for t in r["latency"]]
+        busy = sum(a.elapsed_time(b) for v, a, b in rec.events
+                   if v == path)
+        wall = r["wall"]
+        print(f"main path: {path} drain_pipelined of {AFF_PODS} pods "
+              f"(bench.py {AFF_PATHS[path]}, {len(r['seeds'])} seeded "
+              f"pods) onto {AFF_NODES} nodes, batches of {BATCH}, commit "
+              f"thread {'on' if r['commit_thread'] else 'off'}: all bound "
+              f"in the store, capacity held; {wall} s = {AFF_PODS / wall} "
+              f"pods/s; batch latency (launch to committed) p50 "
+              f"{pct(lat, 0.5)} ms p99 {pct(lat, 0.99)} ms over {len(lat)} "
+              f"batches; launches {per_path[path]}; host phases (s): "
+              f"launch {r['phases']['launch']} finish "
+              f"{r['phases']['finish']} commit {r['phases']['commit']}, "
+              f"inside them {r['phase_stats']}; cluster set-up "
+              f"{r['setup_s']} s; device busy in the kernel calls {busy} "
+              f"ms of {wall * 1e3} ms wall, idle share "
+              f"{1 - busy / (wall * 1e3)} {tag}")
 
     # ---- kernel phase (on the main path's own inputs)
     rows = kernel_phase(port, rec, launches)
@@ -787,16 +912,31 @@ def main() -> None:
         port.reset_launches()
         with PlainOnCard(port):
             _, _, pres, pwall = run_drain(port, variant, dev, N_NODES,
-                                          N_PODS, BATCH, chain)
+                                          PLAIN_PODS, BATCH, chain)
         if any(port.launches().values()):
             fail(f"the plain {variant} drain launched kernels")
         kres = drains[variant][2]
-        if pres.binds != kres.binds:
-            n = sum(pres.binds[k] != kres.binds.get(k) for k in pres.binds)
+        n = sum(pres.binds[k] != kres.binds.get(k) for k in pres.binds)
+        if len(pres.binds) != PLAIN_PODS or n:
             fail(f"{variant}: {n} binds differ between the kernels and "
                  "the plain versions on the card")
-        print(f"plain versions on the card: {variant} drain binds equal "
-              f"the kernels' ({pwall} s) {tag}")
+        print(f"plain versions on the card: {variant} drain of the first "
+              f"{PLAIN_PODS} pods binds them as the kernels' drain did "
+              f"({pwall} s) {tag}")
+    for path, variant in AFF_PATHS.items():
+        port.reset_launches()
+        with PlainOnCard(port):
+            pr = run_scheduler_drain(port, dev, AFF_NODES, AFF_PODS, BATCH,
+                                     variant)
+        if any(port.launches().values()):
+            fail(f"the plain {path} drain launched kernels")
+        if pr["binds"] != aff[path]["binds"]:
+            n = sum(pr["binds"][k] != aff[path]["binds"].get(k)
+                    for k in pr["binds"])
+            fail(f"{path}: {n} binds differ between the kernels and the "
+                 "plain versions on the card")
+        print(f"plain versions on the card: {path} drain binds equal the "
+              f"kernels' ({pr['wall']} s) {tag}")
 
     # ---- small drain: card against CPU
     for variant in ("uniform", "spread"):

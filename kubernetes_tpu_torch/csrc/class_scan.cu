@@ -2,28 +2,94 @@
 //
 // Replaces kubernetes_tpu/scheduler/kernels/batch.py schedule_batch's
 // class route (_schedule_batch_classes -> lax.scan of _class_pod_step,
-// with _spread_score, _tie_penalized and _class_col inside the step, and
-// pack_results as the epilogue).
+// with _spread_score, _tie_penalized and _class_col inside the step, the
+// required (anti-)affinity and preferred-credit carries of affinity.cuh,
+// and pack_results as the epilogue).
+//
+// The kernel is a template on the terms a batch carries (spread groups,
+// topology counters, soft credits); the host picks the instance, so a
+// batch without a term runs no code for it.
 //
 // Each pod sees the usage every earlier pod's bind left behind, so the
 // pods run in order. One persistent block of 1024 threads walks them;
-// each thread owns node rows tid, tid + 1024, ... Per pod:
-//   1. read the pod's class row of the [C, N] masked-score table;
-//   2. with spread groups: block reductions for the max feasible count
-//      and have_zones, shared-memory zone sums (integer-valued f32, exact
-//      in any order below 2^24), then the per-node spread score;
-//   3. the tie-penalized first-max argmax (ties to the lowest row);
-//   4. the winner's used / nonzero_used / pod_count / spread columns;
+// each thread owns node rows tid, tid + 1024, ... Per pod, in the
+// order of the reference's _class_pod_step:
+//   1. feasibility: the pod's class row of the [C, N] masked-score
+//      table, and with topology counters `fits &= ~topo_bad`;
+//   2. one block reduction over the feasible rows: with soft credits the
+//      min and max of the raw inter-pod score; with spread groups the
+//      max count, have_zones and the shared-memory zone sums
+//      (integer-valued f32, exact in any order below 2^24);
+//   3. score = base + soft + spread, the tie-penalized first-max argmax
+//      (ties to the lowest row);
+//   4. the winner's used / nonzero_used / pod_count / spread columns, and
+//      on thread 0, in k order, its topology and credit writes;
 //   5. the winner's column of the table refreshed over all C classes
 //      (ktpu_class_score, shared with K1);
 //   6. assign and the bits of the chosen score into the packed [2, P].
 //
 // Bound: the dependency chain from one pod to the next, not bytes or
 // operations. Each pod reads its class row (N f32, from L2) and does
-// O(N + C*R) work; four or five block barriers per pod set the time.
+// O(N*(1 + K + Ks) + C*R) work; four or five block barriers per pod set
+// the time.
 // One of the card's SMs is busy; spreading a pod's rows over several
 // SMs needs a grid-wide barrier per pod and is left to later work.
 #include "score.cuh"
+#include "affinity.cuh"
+
+// The host's parameter block: the pointer fields in the order of
+// kubernetes_tpu_torch/scheduler/kernels/batch.py _SCAN_PTRS, then the
+// ints of _SCAN_INTS (ctypes lays the Structure out as C does). A term's
+// pointers are null when the batch does not carry it.
+struct KtpuScanParams {
+  const float* alloc;
+  const float* max_pods;
+  const bool* node_ok;
+  const bool* mem_pressure;
+  const bool* valid;
+  const float* class_req;
+  const float* class_nz;
+  const bool* class_blocked;
+  const int* class_mask_idx;
+  const int* class_score_idx;
+  const bool* unique_masks;
+  const float* unique_scores;
+  const float* rw;
+  float* used;
+  float* nz_used;
+  float* pod_count;
+  float* ms;
+  const int* class_idx;
+  const int* seq;
+  const bool* active;
+  const int* spread_gidx;
+  const float* spread_match;
+  float* spread;
+  const int* zone_of;
+  const float* zinit;
+  const float* spread_w;
+  const int* anti_dom;
+  float* topo_cnt;
+  float* topo_tot;
+  float* topo_carry;
+  const int* anti_tids;
+  const int* aff_tids;
+  const int* match_tids;
+  const int* cmatch_tids;
+  const int* canti_tids;
+  const int* soft_dom;
+  float* soft_cnt;
+  const float* soft_base;
+  const int* soft_base_idx;
+  const int* read_tids;
+  const float* read_w;
+  const int* write_tids;
+  const float* write_w;
+  const float* soft_w;
+  int* packed;
+  int N, R, C, P, G, Z, T, D, K, Ts, Ds, Ks, Sb;
+  int has_spread, has_topo, has_dir2, has_soft;
+};
 
 struct KtpuScanArgs {
   KtpuNodeCfg cfg;
@@ -42,13 +108,15 @@ struct KtpuScanArgs {
   const int* zone_of;       // [N]
   const float* zinit;       // [Z]
   const float* spread_w;    // scalar
-  int has_spread;
+  KtpuTopo topo;            // (topology counters only)
+  KtpuSoft soft;            // (soft credits only)
   int N, R, C, P, G, Z;
   int* packed;              // [2, P]
 };
 
 #define KTPU_SCAN_THREADS 1024
 
+template <bool SPREAD, bool TOPO, bool SOFT>
 __global__ void __launch_bounds__(KTPU_SCAN_THREADS, 1)
 ktpu_class_scan_kernel(KtpuScanArgs a) {
   extern __shared__ float zs[];  // [Z] zone sums
@@ -57,6 +125,8 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
   __shared__ float w_val[32];
   __shared__ float w_maxc[32];
   __shared__ int w_hz[32];
+  __shared__ float w_mn[32];
+  __shared__ float w_mx[32];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -64,61 +134,89 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
   const int nwarps = nthreads >> 5;
   const int N = a.N, R = a.R;
   const float rw0 = a.rw[0], rw1 = a.rw[1];
-  const float sw = a.has_spread ? a.spread_w[0] : 0.0f;
+  const float inf = __int_as_float(0x7f800000);
+  const float sw = SPREAD ? a.spread_w[0] : 0.0f;
+  const float soft_w = SOFT ? a.soft.weight[0] : 0.0f;
 
   for (int p = 0; p < a.P; ++p) {
     const int u = a.class_idx[p];
     const float* ms_u = a.ms + (size_t)u * N;
     const uint32_t seq_term = (uint32_t)a.seq[p] * 40503u;
 
-    // ---- spread reductions over the feasible set
-    float use = 0.0f, maxc = 0.0f, maxz = 0.0f, sw_use = 0.0f;
+    // ---- reductions over the feasible set (soft min/max, spread)
+    float maxc = 0.0f, maxz = 0.0f, sw_use = 0.0f, mn = inf, mx = -inf;
     bool have_zones = false;
+    bool soft_use = false;
     const float* cnt_g = nullptr;
-    if (a.has_spread) {
+    if (SPREAD) {
       const int g = a.spread_gidx[p];
-      use = g >= 0 ? 1.0f : 0.0f;
-      sw_use = __fmul_rn(sw, use);
+      sw_use = __fmul_rn(sw, g >= 0 ? 1.0f : 0.0f);
       cnt_g = a.spread + (size_t)(g > 0 ? g : 0) * N;
       for (int z = tid; z < a.Z; z += nthreads) zs[z] = a.zinit[z];
       __syncthreads();
-      float lmax = 0.0f;
+    }
+    if (SOFT) soft_use = a.soft.base_idx[p] >= 0;
+    if (SPREAD || SOFT) {
+      float lmax = 0.0f, lmn = inf, lmx = -inf;
       int lhz = 0;
       for (int r = tid; r < N; r += nthreads) {
-        const bool fit = ms_u[r] > KTPU_NEG_THRESHOLD;
-        const float cf = fit ? cnt_g[r] : 0.0f;
-        const int z = a.zone_of[r];
-        lmax = fmaxf(lmax, cf);
-        if (fit && z > 0) lhz = 1;
-        // zone 0 ("no zone label") never enters maxz or a zone score
-        if (cf != 0.0f && z > 0 && z < a.Z) atomicAdd(&zs[z], cf);
+        bool fit = ms_u[r] > KTPU_NEG_THRESHOLD;
+        if (TOPO) fit = fit && !ktpu_topo_bad(a.topo, p, r, N);
+        if (SOFT && fit) {
+          const float raw = ktpu_soft_raw(a.soft, p, r, N);
+          lmn = fminf(lmn, raw);
+          lmx = fmaxf(lmx, raw);
+        }
+        if (SPREAD) {
+          const float cf = fit ? cnt_g[r] : 0.0f;
+          const int z = a.zone_of[r];
+          lmax = fmaxf(lmax, cf);
+          if (fit && z > 0) lhz = 1;
+          // zone 0 ("no zone label") never enters maxz or a zone score
+          if (cf != 0.0f && z > 0 && z < a.Z) atomicAdd(&zs[z], cf);
+        }
       }
       for (int o = 16; o > 0; o >>= 1) {
-        lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
-        lhz |= __shfl_xor_sync(0xffffffffu, lhz, o);
+        if (SPREAD) {
+          lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, o));
+          lhz |= __shfl_xor_sync(0xffffffffu, lhz, o);
+        }
+        if (SOFT) {
+          lmn = fminf(lmn, __shfl_xor_sync(0xffffffffu, lmn, o));
+          lmx = fmaxf(lmx, __shfl_xor_sync(0xffffffffu, lmx, o));
+        }
       }
       if (lane == 0) {
         w_maxc[warp] = lmax;
         w_hz[warp] = lhz;
+        w_mn[warp] = lmn;
+        w_mx[warp] = lmx;
       }
       __syncthreads();
       int hz = 0;
       for (int w = 0; w < nwarps; ++w) {
         maxc = fmaxf(maxc, w_maxc[w]);
         hz |= w_hz[w];
+        mn = fminf(mn, w_mn[w]);
+        mx = fmaxf(mx, w_mx[w]);
       }
       have_zones = hz != 0;
-      for (int z = 1; z < a.Z; ++z) maxz = fmaxf(maxz, zs[z]);
+      if (SPREAD)
+        for (int z = 1; z < a.Z; ++z) maxz = fmaxf(maxz, zs[z]);
     }
 
     // ---- tie-penalized first-max argmax over this thread's rows
-    float bpen = __int_as_float(0xff800000), bval = KTPU_NEG;  // -inf
+    float bpen = -inf, bval = KTPU_NEG;
     int brow = 0x7fffffff;
     for (int r = tid; r < N; r += nthreads) {
       const float base = ms_u[r];
-      const bool fit = base > KTPU_NEG_THRESHOLD;
+      bool fit = base > KTPU_NEG_THRESHOLD;
+      if (TOPO) fit = fit && !ktpu_topo_bad(a.topo, p, r, N);
       float score = base;
-      if (a.has_spread)
+      if (SOFT)
+        score = __fadd_rn(score, ktpu_soft_term(
+            ktpu_soft_raw(a.soft, p, r, N), mn, mx, soft_use, soft_w));
+      if (SPREAD)
         score = __fadd_rn(score, __fmul_rn(sw_use, ktpu_spread_score(
             cnt_g[r], a.zone_of[r], zs, a.Z, maxc, maxz, have_zones)));
       const float masked = fit ? score : KTPU_NEG;
@@ -161,7 +259,7 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
     const float okf = ok ? 1.0f : 0.0f;
 
     // ---- the winner's usage columns (added even when !ok, as 0 * req)
-    const int n_upd = R + 3 + (a.has_spread ? a.G : 0);
+    const int n_upd = R + 3 + (SPREAD ? a.G : 0);
     for (int j = tid; j < n_upd; j += nthreads) {
       if (j < R) {
         float* x = a.used + (size_t)best * R + j;
@@ -179,6 +277,12 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
                                      okf));
       }
     }
+    // every thread has read the tables (the barrier above): one thread
+    // applies the winner's writes, in pod and k order
+    if (tid == 0) {
+      if (TOPO) ktpu_topo_scatter(a.topo, p, best, N, ok);
+      if (SOFT) ktpu_soft_write(a.soft, p, best, N, ok);
+    }
     __syncthreads();
 
     // ---- refresh the winner's column over every class
@@ -195,46 +299,60 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
   }
 }
 
-extern "C" int ktpu_class_scan(
-    const float* alloc, const float* max_pods, const bool* node_ok,
-    const bool* mem_pressure, const bool* valid, const float* class_req,
-    const float* class_nz, const bool* class_blocked,
-    const int* class_mask_idx, const int* class_score_idx,
-    const bool* unique_masks, const float* unique_scores, const float* rw,
-    float* used, float* nz_used, float* pod_count, float* ms,
-    const int* class_idx, const int* seq, const bool* active,
-    const int* spread_gidx, const float* spread_match, float* spread,
-    const int* zone_of, const float* zinit, const float* spread_w,
-    int has_spread, int N, int R, int C, int P, int G, int Z, int* packed,
-    void* stream) {
+template <bool SPREAD, bool TOPO, bool SOFT>
+static void ktpu_launch_scan(const KtpuScanArgs& a, size_t smem,
+                             cudaStream_t stream) {
+  ktpu_class_scan_kernel<SPREAD, TOPO, SOFT>
+      <<<1, KTPU_SCAN_THREADS, smem, stream>>>(a);
+}
+
+extern "C" int ktpu_class_scan(const KtpuScanParams* h, void* stream) {
   KtpuScanArgs a;
-  a.cfg = KtpuNodeCfg{alloc, max_pods, node_ok, mem_pressure, valid};
-  a.cl = KtpuClasses{class_req, class_nz, class_blocked, class_mask_idx,
-                     class_score_idx, unique_masks, unique_scores, C};
-  a.rw = rw;
-  a.used = used;
-  a.nz_used = nz_used;
-  a.pod_count = pod_count;
-  a.ms = ms;
-  a.class_idx = class_idx;
-  a.seq = seq;
-  a.active = active;
-  a.spread_gidx = spread_gidx;
-  a.spread_match = spread_match;
-  a.spread = spread;
-  a.zone_of = zone_of;
-  a.zinit = zinit;
-  a.spread_w = spread_w;
-  a.has_spread = has_spread;
-  a.N = N;
-  a.R = R;
-  a.C = C;
-  a.P = P;
-  a.G = G;
-  a.Z = has_spread ? Z : 0;
-  a.packed = packed;
+  a.cfg = KtpuNodeCfg{h->alloc, h->max_pods, h->node_ok, h->mem_pressure,
+                      h->valid};
+  a.cl = KtpuClasses{h->class_req, h->class_nz, h->class_blocked,
+                     h->class_mask_idx, h->class_score_idx,
+                     h->unique_masks, h->unique_scores, h->C};
+  a.rw = h->rw;
+  a.used = h->used;
+  a.nz_used = h->nz_used;
+  a.pod_count = h->pod_count;
+  a.ms = h->ms;
+  a.class_idx = h->class_idx;
+  a.seq = h->seq;
+  a.active = h->active;
+  a.spread_gidx = h->spread_gidx;
+  a.spread_match = h->spread_match;
+  a.spread = h->spread;
+  a.zone_of = h->zone_of;
+  a.zinit = h->zinit;
+  a.topo = KtpuTopo{h->anti_dom, h->topo_cnt, h->topo_tot, h->topo_carry,
+                    h->anti_tids, h->aff_tids, h->match_tids,
+                    h->cmatch_tids, h->canti_tids, h->T, h->D, h->K,
+                    h->has_dir2};
+  a.soft = KtpuSoft{h->soft_dom, h->soft_cnt, h->soft_base,
+                    h->soft_base_idx, h->read_tids, h->read_w,
+                    h->write_tids, h->write_w, h->soft_w, h->Ds, h->Ks};
+  a.spread_w = h->spread_w;
+  a.N = h->N;
+  a.R = h->R;
+  a.C = h->C;
+  a.P = h->P;
+  a.G = h->G;
+  a.Z = h->has_spread ? h->Z : 0;
+  a.packed = h->packed;
   const size_t smem = (size_t)a.Z * sizeof(float);
-  ktpu_class_scan_kernel<<<1, KTPU_SCAN_THREADS, smem,
-                           (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((h->has_spread ? 4 : 0) | (h->has_topo ? 2 : 0) |
+          (h->has_soft ? 1 : 0)) {
+    case 0: ktpu_launch_scan<false, false, false>(a, smem, s); break;
+    case 1: ktpu_launch_scan<false, false, true>(a, smem, s); break;
+    case 2: ktpu_launch_scan<false, true, false>(a, smem, s); break;
+    case 3: ktpu_launch_scan<false, true, true>(a, smem, s); break;
+    case 4: ktpu_launch_scan<true, false, false>(a, smem, s); break;
+    case 5: ktpu_launch_scan<true, false, true>(a, smem, s); break;
+    case 6: ktpu_launch_scan<true, true, false>(a, smem, s); break;
+    default: ktpu_launch_scan<true, true, true>(a, smem, s); break;
+  }
   return (int)cudaGetLastError();
 }

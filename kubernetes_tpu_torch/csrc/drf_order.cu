@@ -16,7 +16,13 @@
 //
 // Parity hazards: the negation is done in uint32 (signed overflow is
 // undefined in C++; INT32_MIN wraps to itself, as it does in JAX and
-// numpy), and shares compare as floats, so -0.0 == 0.0.
+// numpy), and shares order as lexsort orders them: every number before
+// NaN, all NaNs equal to one another (position, then index, decides
+// among them), and -0.0 == 0.0. Each share becomes an int key under that
+// order once, as it is loaded (ktpu_share_key), so the comparison loop
+// compares ints. A raw bit compare would split -0.0 from 0.0, and a
+// plain float `<` / `==` would give a NaN share no rank of its own (two
+// pods could share a rank and a slot of perm stay unwritten).
 //
 // Work: P*P key comparisons (2.7e8 at P = 16,384), bound by operations.
 #include <cuda_runtime.h>
@@ -29,19 +35,29 @@ __device__ __forceinline__ int ktpu_neg_wrap(int p) {
   return (int)(0u - (uint32_t)p);
 }
 
+// an int that orders as lexsort orders shares: -0.0 and 0.0 map to 0,
+// every NaN to one key above +inf, a negative float's magnitude bits are
+// flipped so that more negative means smaller
+__device__ __forceinline__ int ktpu_share_key(float s) {
+  if (isnan(s)) return 0x7fc00000;
+  if (s == 0.0f) return 0;
+  const int i = __float_as_int(s);
+  return i >= 0 ? i : (i ^ 0x7fffffff);
+}
+
 __global__ void ktpu_drf_order_kernel(const int* prio, const float* shares,
                                       const int* tidx, const int* pos,
                                       int* perm, int P, int T) {
   __shared__ int s_k0[KTPU_ORDER_TILE];
-  __shared__ float s_k1[KTPU_ORDER_TILE];
+  __shared__ int s_k1[KTPU_ORDER_TILE];
   __shared__ int s_k2[KTPU_ORDER_TILE];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int k0 = 0, k2 = 0;
-  float k1 = 0.0f;
+  int k0 = 0, k1 = 0, k2 = 0;
   if (i < P) {
     k0 = ktpu_neg_wrap(prio[i]);
     const int t = tidx[i];
-    k1 = (t >= 0 && t < T) ? shares[t] : 0.0f;  // in range by contract
+    // t is in range by contract
+    k1 = ktpu_share_key((t >= 0 && t < T) ? shares[t] : 0.0f);
     k2 = pos[i];
   }
   int rank = 0;
@@ -52,14 +68,14 @@ __global__ void ktpu_drf_order_kernel(const int* prio, const float* shares,
       const int g = base + j;
       s_k0[j] = ktpu_neg_wrap(prio[g]);
       const int t = tidx[g];
-      s_k1[j] = (t >= 0 && t < T) ? shares[t] : 0.0f;
+      s_k1[j] = ktpu_share_key((t >= 0 && t < T) ? shares[t] : 0.0f);
       s_k2[j] = pos[g];
     }
     __syncthreads();
     if (i < P) {
       for (int j = 0; j < n; ++j) {
         const int a0 = s_k0[j];
-        const float a1 = s_k1[j];
+        const int a1 = s_k1[j];
         const int a2 = s_k2[j];
         const bool less =
             a0 < k0 ||

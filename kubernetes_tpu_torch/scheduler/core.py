@@ -8,7 +8,9 @@ a whole batch:
     cache.update_snapshot      O(delta) generation scan   (cache.go:210-246)
     mirror.apply(dirty)        O(delta) rows to the card  (kernel K3)
     PodBatchTensors            term-compile the pod axis
-    kernels.schedule_batch     class table (K1) + serial scan (K2)
+    kernels.schedule_batch     class table (K1) + serial scan (K2),
+                               with the required (anti-)affinity counters
+                               and preferred credits carried in K2
     -> [(pod, node_name | None)]
 
 `schedule_launch` / `schedule_finish` split a batch so a drain can chain
@@ -23,9 +25,9 @@ explain / FitError (failure diagnosis).
 
 Routes outside the ported slices raise NotImplementedError at the point
 where they would reach an unported kernel: gang batches, preemption
-(preempt / preempt_gang), speculative cohorts, the sharded mesh, in-scan
-topology or soft term tables, nominated reservations, and the classic
-per-pod branch (ROADMAP, port slice 3 and later).
+(preempt / preempt_gang), speculative cohorts, the sharded mesh,
+nominated reservations and the classic per-pod branch (ROADMAP, port
+slice 4 and later).
 """
 
 from __future__ import annotations
@@ -127,6 +129,9 @@ class PendingBatch:
     #: only when its own tables resolve to the same structure — see
     #: schedule_launch's carry-chaining gate
     spread_sig: Optional[Tuple] = None
+    #: the same for the in-scan soft credit tables (channel + template
+    #: order; see _assign_soft_terms)
+    soft_sig: Optional[Tuple] = None
 
 
 class _RepairReassigner:
@@ -340,8 +345,15 @@ class BatchScheduler:
         #: relevant topology change (new term, zero-crossing count)
         self._profile_cache: Dict[Tuple, Tuple[int, AffinityProfile]] = {}
         #: scheduler.SchedulerMetrics, installed by the shell (None in
-        #: bare-algorithm tests)
+        #: bare-algorithm tests); used for in-scan fallback counters
         self.sched_metrics = None
+        self._fallback_streak: Dict[str, int] = {}
+        #: (pod-list, plan) from the most recent _soft_plan: the drain's
+        #: soft_batch_limit and the launch's _assign_soft_terms see the
+        #: SAME list object when the batch wasn't truncated, so the O(P)
+        #: channel-planning pass runs once per batch, not twice
+        self._soft_plan_memo: Optional[Tuple[List[Pod], Optional[dict]]] = \
+            None
         #: observability.SpanTracer, installed by a scheduler shell: the
         #: device path's stage spans (tensorize / scan wait)
         self.tracer = None
@@ -582,8 +594,7 @@ class BatchScheduler:
         in-scan counter workload whose per-step [K, N] gathers still make
         power-of-two padding worth splitting away (drain_pipelined's
         alignment split). Required AFFINITY batches keep the padded single
-        scan. (Such batches reach the in-scan topology tables, which raise
-        at launch until port slice 3.)"""
+        scan."""
         if self.topology.has_required_anti_carriers():
             return True
         return any(
@@ -595,15 +606,42 @@ class BatchScheduler:
 
     def soft_batch_limit(self, pods: List[Pod]) -> int:
         """How many of these pods may schedule in ONE kernel batch without
-        visible soft-score drift. Spread groups beyond the in-scan group
-        cap would run the whole batch on frozen counts, so such a batch
-        schedules in SOFT_SCORE_CHUNK sub-batches. (The reference also
-        chunks a batch whose preferred inter-pod term union overflows the
-        in-scan credit tables; every such batch reaches those tables,
-        which raise at launch until port slice 3.)"""
+        visible soft-score drift. Preferred inter-pod (anti-)affinity
+        scores change with every in-batch winner; the serial reference
+        re-scores per pod via assume-between-iterations. When the batch's
+        soft term union fits the in-scan credit tables
+        (_assign_soft_terms), the kernel re-scores per pod itself and the
+        whole batch launches at once; only an overflowing union still
+        schedules in SOFT_SCORE_CHUNK sub-batches. Spread beyond the
+        in-scan group cap chunks as before."""
         chunk = self.soft_score_chunk
         if len(pods) <= chunk or chunk <= 0:
             return len(pods)
+        if self.scorer.weights.get("InterPodAffinityPriority"):
+            has_pref = any(
+                p.spec.affinity is not None and (
+                    (p.spec.affinity.pod_affinity is not None and
+                     p.spec.affinity.pod_affinity
+                     .preferred_during_scheduling_ignored_during_execution)
+                    or (p.spec.affinity.pod_anti_affinity is not None and
+                        p.spec.affinity.pod_anti_affinity
+                        .preferred_during_scheduling_ignored_during_execution))
+                for p in pods)
+            if has_pref:
+                if self._soft_plan_cached(pods) is None:
+                    # channel-union overflow: sub-chunk so frozen credits
+                    # refresh between launches. Gang batches used to chunk
+                    # UNCONDITIONALLY here (soft_gang); the gang kernel's
+                    # trial/committed soft accumulators lifted that, so
+                    # the counter now marks only gang batches that STILL
+                    # overflow the in-scan caps — wired, not silent
+                    if self.gang is not None:
+                        from .gang import pod_group_key
+                        if any(pod_group_key(p) is not None for p in pods):
+                            self._count_inscan_fallback("soft_gang")
+                    return chunk
+        # spread carriers beyond the in-scan group cap would otherwise run
+        # the whole batch on frozen counts — chunk so they refresh
         listers = self.scorer.listers
         if listers is not None and \
                 self.scorer.weights.get("SelectorSpreadPriority"):
@@ -706,45 +744,404 @@ class BatchScheduler:
                 self.mirror.epoch, self.scorer.spread_sel_gen,
                 self.mirror.t.capacity)
 
+    #: in-scan topology term cap per batch; bigger batches fall back to
+    #: the repair overlay + reassignment path entirely
+    TOPO_TERM_CAP = 512
+    #: per-pod in-scan term fan-out cap (the kernel's K axis)
+    TOPO_KMAX = 16
+
+    def _count_inscan_fallback(self, reason: str) -> None:
+        """No silent caps: every in-scan fallback (kmax/term-cap overflow,
+        soft term-union overflow) is counted by reason and logged once per
+        streak."""
+        if self.sched_metrics is not None:
+            self.sched_metrics.topo_inscan_fallbacks.inc(reason=reason)
+        streak = self._fallback_streak.get(reason, 0)
+        if streak == 0:
+            import logging
+            logging.getLogger(__name__).warning(
+                "in-scan topology fallback (%s): batch takes the repair/"
+                "chunked path; further occurrences counted in "
+                "scheduler_topo_inscan_fallbacks_total", reason)
+        self._fallback_streak[reason] = streak + 1
+
+    def _count_capped_scan(self, cap: str, n: int) -> None:
+        """No silent caps (KTPU005): a truncated candidate search is
+        counted by cap name and logged once per streak, like the
+        in-scan fallbacks above."""
+        if self.sched_metrics is not None:
+            self.sched_metrics.capped_scans.inc(cap=cap)
+        streak = self._fallback_streak.get(cap, 0)
+        if streak == 0:
+            import logging
+            logging.getLogger(__name__).warning(
+                "capped scan (%s): %d candidates truncated to the "
+                "documented cap; further occurrences counted in "
+                "scheduler_capped_scans_total", cap, n)
+        self._fallback_streak[cap] = streak + 1
+
+    def _end_inscan_streak(self, *reasons: str) -> None:
+        """A batch made it through the in-scan caps: close these reasons'
+        fallback streaks so the NEXT overflow logs again (the per-streak
+        contract; without this the warning fires once per process)."""
+        for reason in reasons:
+            self._fallback_streak[reason] = 0
+
     def _assign_topology_terms(self, pods: List[Pod],
                                batch: PodBatchTensors,
                                profiles: Dict[int, AffinityProfile]) -> str:
-        """In-scan required (anti-)affinity tables (core.py
-        _assign_topology_terms in the reference). A batch with no
-        constrained affinity profile has nothing to install ("inert");
-        any other batch would reach the scan's _topo_bad/_topo_scatter
-        carries, which are not ported yet."""
+        """In-scan required (anti-)affinity tables: the kernel scan tracks
+        per-(term, domain) winner-match AND winner-carry counts so each
+        pod's feasibility respects EARLIER SAME-BATCH winners in both
+        anti-affinity directions — the serial reference's
+        assume-between-iterations visibility (scheduler.go:514), which the
+        frozen batch-start mask lacks. The repair overlay stays as the
+        validator for ports/volumes/chained-predecessor winners.
+
+        Returns coverage: "installed" (tables active), "inert" (provably
+        no in-batch (anti-)affinity interaction exists to validate), or
+        "fallback" (caps overflowed; only the repair overlay validates).
+
+        Terms NO batch member matches are hoisted out entirely: their
+        counters could never move in-scan (only winner matches bump them),
+        so the pre-batch static mask already covers them — the per-pod K
+        axis then chains only genuinely carried terms through the scan.
+        The [T, N] dom table comes from the topology index's epoch-keyed
+        cache (one gather per node-topology change, not per batch)."""
         if not profiles:
             return "inert"
-        raise NotImplementedError(
-            "BatchScheduler: a batch with required inter-pod "
-            "(anti-)affinity needs the in-scan topology tables, which are "
-            "not ported yet (ROADMAP: port slice 3)")
+        idx = self.topology
+        anti_tids: List[int] = []
+        aff_tids: List[int] = []
+        seen: set = set()
+        for prof in profiles.values():
+            for tid in prof.req_anti:
+                if tid not in seen:
+                    seen.add(tid)
+                    anti_tids.append(tid)
+            for tid, waived in prof.req_aff:
+                if waived and tid not in seen:
+                    seen.add(tid)
+                    aff_tids.append(tid)
+        if not anti_tids and not aff_tids:
+            return "inert"
+        # hoist: restrict the term union to terms some batch member
+        # MATCHES — an unmatched term's in-scan counter is provably static
+        cand = seen
+        matched: set = set()
+        match_sets: Dict[Tuple, frozenset] = {}
+        for pod in pods:
+            mkey = (pod.metadata.namespace,
+                    tuple(sorted(pod.metadata.labels.items())))
+            ms = match_sets.get(mkey)
+            if ms is None:
+                ms = idx.match_set(pod)
+                match_sets[mkey] = ms
+            matched |= ms & cand
+            if len(matched) == len(cand):
+                break
+        # sorted: the table's cache key is the term-id tuple, and batches
+        # popping the same templates in a different pod order must land on
+        # the same cached [T, N] table (positions are per-batch anyway)
+        terms = sorted(tid for tid in set(anti_tids + aff_tids)
+                       if tid in matched)
+        if not terms:
+            return "inert"  # every candidate term is in-batch inert
+        if len(terms) > self.TOPO_TERM_CAP:
+            self._count_inscan_fallback("term_cap")
+            return "fallback"
+        P = len(pods)
+        dom, n_domains = idx.term_table(tuple(terms),
+                                        use_cache=self.topo_table_cache)
+        tpos = {tid: j for j, tid in enumerate(terms)}
+        # per-pod [K] term-index lists (-1 padded): the kernel's cost per
+        # scan step is O(K*N), independent of the batch's term union
+        anti_l: List[List[int]] = []
+        aff_l: List[List[int]] = []
+        match_l: List[List[int]] = []
+        kmax = 1
+        match_memo: Dict[Tuple, List[int]] = {}
+        for i, pod in enumerate(pods):
+            prof = profiles.get(i)
+            a: List[int] = []
+            f: List[int] = []
+            if prof is not None:
+                a = [tpos[tid] for tid in prof.req_anti if tid in tpos]
+                f = [tpos[tid] for tid, waived in prof.req_aff
+                     if waived and tid in tpos]
+            mkey = (pod.metadata.namespace,
+                    tuple(sorted(pod.metadata.labels.items())))
+            m = match_memo.get(mkey)
+            if m is None:
+                ms = match_sets.get(mkey)
+                if ms is None:
+                    # the hoist pass short-circuits once every candidate
+                    # term is matched — later templates fill in here
+                    ms = idx.match_set(pod)
+                    match_sets[mkey] = ms
+                m = [tpos[tid] for tid in ms if tid in tpos]
+                match_memo[mkey] = m
+            kmax = max(kmax, len(a), len(f), len(m))
+            anti_l.append(a)
+            aff_l.append(f)
+            match_l.append(m)
+        if kmax > self.TOPO_KMAX:
+            self._count_inscan_fallback("kmax")
+            return "fallback"  # degenerate fan-out: repair path handles it
+        # direction 2 (winner CARRIES anti term t, later pod MATCHES it):
+        # a pod needs an in-scan read on t only when the block isn't
+        # already implied by its own direction-1 read — i.e. unless the
+        # pod itself carries t AND every batch carrier of t also matches
+        # it (then {carriers} ⊆ {matchers} makes direction 1 strictly
+        # stronger). The common self-anti shape (each pod carries AND
+        # matches its own color) needs NO direction-2 state at all, so
+        # the extra [T, D] carry table ships only when some pure matcher
+        # exists.
+        carrier_pos: set = set()
+        carrier_ok: Dict[int, bool] = {}
+        for i in range(len(pods)):
+            mset = set(match_l[i])
+            for t in anti_l[i]:
+                carrier_pos.add(t)
+                if t not in mset:
+                    carrier_ok[t] = False
+        cmatch_l: List[List[int]] = []
+        dir2_read: set = set()
+        for i in range(len(pods)):
+            aset = set(anti_l[i])
+            cm = [t for t in match_l[i]
+                  if t in carrier_pos
+                  and not (t in aset and carrier_ok.get(t, True))]
+            dir2_read.update(cm)
+            cmatch_l.append(cm)
+        canti_l = [[t for t in anti_l[i] if t in dir2_read]
+                   for i in range(len(pods))] if dir2_read else None
+        if dir2_read:
+            kmax = max(kmax, max(len(l) for l in cmatch_l),
+                       max(len(l) for l in canti_l))
+            if kmax > self.TOPO_KMAX:
+                self._count_inscan_fallback("kmax")
+                return "fallback"
+
+        def to_arr(lists: List[List[int]]) -> np.ndarray:
+            K = max(1, kmax)
+            out = np.full((P, K), -1, np.int32)
+            for i, l in enumerate(lists):
+                out[i, :len(l)] = l
+            return out
+        batch.set_topology_terms(
+            dom, n_domains, to_arr(anti_l), to_arr(aff_l), to_arr(match_l),
+            cmatch_tids=to_arr(cmatch_l) if dir2_read else None,
+            canti_tids=to_arr(canti_l) if dir2_read else None)
+        self._end_inscan_streak("term_cap", "kmax")
+        return "installed"
+
+    #: in-scan soft (preferred inter-pod affinity) channel caps: a batch
+    #: whose credit-channel union or per-pod fan-out overflows these falls
+    #: back to SOFT_SCORE_CHUNK sub-batching (counted, never silent)
+    SOFT_TERM_CAP = 64
+    SOFT_KMAX = 16
+
+    def _soft_plan_cached(self, pods: List[Pod]):
+        """_soft_plan, computed once per pod-list object. Keyed by list
+        IDENTITY: a truncated batch (drain slices pods[:limit]) is a new
+        list and recomputes; the plan itself only depends on batch specs
+        plus match-set membership of tids the first call interned, both
+        stable between pop and launch on the drain thread."""
+        memo = self._soft_plan_memo
+        if memo is not None and memo[0] is pods:
+            return memo[1]
+        plan = self._soft_plan(pods)
+        self._soft_plan_memo = (pods, plan)
+        return plan
+
+    def _soft_plan(self, pods: List[Pod]):
+        """Channel plan for in-scan preferred inter-pod (anti-)affinity
+        credits, or None when the batch can't (or needn't) run them
+        in-scan. Channels are per-(kind, term) accumulators a winner
+        writes and later pods read at their nodes' domains:
+            m:  winners MATCHING the term (readers: the term's owners, ±w)
+            ca: winners carrying the term as required affinity
+                (readers: matching pods, × hard_pod_affinity_weight)
+            cp/cn: winners carrying it as preferred (anti-)affinity,
+                weight-summed (readers: matching pods, × ±1)
+        — exactly the topology index's count kinds, scoped to one batch."""
+        w = self.scorer.weights.get("InterPodAffinityPriority", 0)
+        if not w:
+            return None
+        idx = self.topology
+        hard_w = float(self.scorer.hard_pod_affinity_weight)
+        channels: Dict[Tuple[str, int], int] = {}
+        chan_list: List[Tuple[str, int]] = []
+
+        def slot(kind: str, tid: int) -> int:
+            k = (kind, tid)
+            s = channels.get(k)
+            if s is None:
+                s = len(chan_list)
+                channels[k] = s
+                chan_list.append(k)
+            return s
+
+        # pass 1: template dedupe; own preferred read terms + carried
+        # write channels (a winner's contribution to later pods)
+        tmpl_key: Dict[Tuple, int] = {}
+        tmpl_pods: List[Pod] = []
+        tmpl_pref: List[List[Tuple[int, float]]] = []
+        tmpl_carry: List[List[Tuple[str, int, float]]] = []
+        tmpl_of = np.zeros((len(pods),), np.int32)
+        for i, pod in enumerate(pods):
+            key = self._residual_sig(pod)
+            t = tmpl_key.get(key)
+            if t is None:
+                t = len(tmpl_pods)
+                tmpl_key[key] = t
+                tmpl_pods.append(pod)
+                pref: List[Tuple[int, float]] = []
+                carry: List[Tuple[str, int, float]] = []
+                aff = pod.spec.affinity
+                pa = aff.pod_affinity if aff else None
+                paa = aff.pod_anti_affinity if aff else None
+                for sign, kind, wterms in (
+                        (1.0, "cp",
+                         pa.preferred_during_scheduling_ignored_during_execution
+                         if pa else ()),
+                        (-1.0, "cn",
+                         paa.preferred_during_scheduling_ignored_during_execution
+                         if paa else ())):
+                    for wt in wterms or ():
+                        if not wt.weight:
+                            continue
+                        term = idx.ensure_match(
+                            wt.pod_affinity_term.topology_key,
+                            idx._resolved_ns(wt.pod_affinity_term, pod),
+                            wt.pod_affinity_term.label_selector)
+                        slot("m", term.tid)
+                        pref.append((term.tid, sign * float(wt.weight)))
+                        carry.append((kind, term.tid, float(wt.weight)))
+                if hard_w and pa is not None:
+                    for rt in pa.required_during_scheduling_ignored_during_execution or ():
+                        term = idx._intern(
+                            rt.topology_key, idx._resolved_ns(rt, pod),
+                            rt.label_selector)
+                        carry.append(("ca", term.tid, 1.0))
+                for kind, tid, _cw in carry:
+                    slot(kind, tid)
+                tmpl_pref.append(pref)
+                tmpl_carry.append(carry)
+            tmpl_of[i] = t
+        if not any(tmpl_pref):
+            # no batch member carries preferred terms: only the frozen
+            # symmetric-credit drift remains, which the static rows cover
+            # (the same contract as the old chunk trigger) — required-only
+            # batches keep the incremental class-scan fast path
+            return None
+        if not chan_list:
+            return None  # no in-batch credit can move: static rows suffice
+        # canonical template order (repr: residual sigs mix None/str/tuple
+        # and are not directly comparable) — like the channel sort below,
+        # this keeps rotated-pod-order batches on one chain signature
+        # (soft_base row r must mean the same template batch to batch).
+        # Pure renumbering; per-template structures permute consistently
+        tkeys = list(tmpl_key)
+        torder = sorted(range(len(tmpl_pods)),
+                        key=lambda t: repr(tkeys[t]))
+        tremap = {old: new for new, old in enumerate(torder)}
+        tmpl_pods = [tmpl_pods[t] for t in torder]
+        tmpl_pref = [tmpl_pref[t] for t in torder]
+        tmpl_carry = [tmpl_carry[t] for t in torder]
+        tmpl_of = np.asarray([tremap[int(t)] for t in tmpl_of], np.int32)
+        tkeys = [tkeys[t] for t in torder]
+        if len(chan_list) > self.SOFT_TERM_CAP:
+            self._count_inscan_fallback("soft_terms")
+            return None
+        # canonical channel order: the dom table's cache key is the slot
+        # term tuple, so pod-order-insensitive slot numbering keeps
+        # repeat batches on the cached table
+        chan_list = sorted(chan_list)
+        channels = {k: s for s, k in enumerate(chan_list)}
+        # pass 2: per-template read/write slot lists against the full
+        # channel union
+        read_kinds = {"ca": hard_w, "cp": 1.0, "cn": -1.0}
+        tmpl_reads: List[List[Tuple[int, float]]] = []
+        tmpl_writes: List[List[Tuple[int, float]]] = []
+        kmax = 0
+        for t, rep in enumerate(tmpl_pods):
+            mset = idx.match_set(rep)
+            reads = [(channels[("m", tid)], pw)
+                     for tid, pw in tmpl_pref[t]]
+            writes = [(channels[(kind, tid)], cw)
+                      for kind, tid, cw in tmpl_carry[t]]
+            for kind, tid in chan_list:
+                if tid not in mset:
+                    continue
+                if kind == "m":
+                    writes.append((channels[(kind, tid)], 1.0))
+                else:
+                    reads.append((channels[(kind, tid)],
+                                  read_kinds[kind]))
+            kmax = max(kmax, len(reads), len(writes))
+            tmpl_reads.append(reads)
+            tmpl_writes.append(writes)
+        if kmax > self.SOFT_KMAX:
+            self._count_inscan_fallback("soft_kmax")
+            return None
+        self._end_inscan_streak("soft_terms", "soft_kmax", "soft_gang")
+        return {"chan_list": chan_list, "tmpl_of": tmpl_of,
+                "tmpl_pods": tmpl_pods, "reads": tmpl_reads,
+                "writes": tmpl_writes, "kmax": max(1, kmax),
+                "weight": float(w), "hard_w": hard_w,
+                # canonically ordered template keys: part of the soft
+                # chain signature (soft_base row r must mean the same
+                # template on both sides of a chained launch)
+                "tmpl_sigs": tuple(tkeys)}
 
     def _assign_soft_terms(self, pods: List[Pod],
-                           batch: PodBatchTensors) -> None:
-        """In-scan preferred inter-pod credit tables (core.py
-        _assign_soft_terms in the reference). They ride only when the
-        InterPodAffinityPriority weight is set and some batch member
-        carries a weighted preferred pod (anti-)affinity term; such a
-        batch would reach the scan's soft-credit carries, which are not
-        ported yet."""
-        if not self.scorer.weights.get("InterPodAffinityPriority", 0):
+                           batch: PodBatchTensors) -> Optional[Tuple]:
+        """Install in-scan preferred inter-pod (anti-)affinity credit
+        tables: the kernel then re-scores soft credits per pod from
+        running accumulators (the serial reference's re-score via
+        assume-between-iterations), which lifts the SOFT_SCORE_CHUNK
+        sub-batching for the common small-term-union case.
+
+        Returns the batch's soft chain SIGNATURE (channel order +
+        template order + everything the carried accumulators' meaning
+        depends on), or None when no tables ride."""
+        plan = self._soft_plan_cached(pods)
+        self._soft_plan_memo = None   # batch consumed; drop the list ref
+        if plan is None:
             return None
-        for pod in pods:
-            aff = pod.spec.affinity
-            for pa in ((aff.pod_affinity, aff.pod_anti_affinity)
-                       if aff is not None else ()):
-                if pa is not None and any(
-                        wt.weight for wt in
-                        pa.preferred_during_scheduling_ignored_during_execution
-                        or ()):
-                    raise NotImplementedError(
-                        "BatchScheduler: a batch with preferred inter-pod "
-                        "(anti-)affinity needs the in-scan soft-credit "
-                        "tables, which are not ported yet (ROADMAP: port "
-                        "slice 3)")
-        return None
+        idx = self.topology
+        dom, n_domains = idx.term_table(
+            tuple(tid for _, tid in plan["chan_list"]),
+            use_cache=self.topo_table_cache)
+        cap = self.mirror.t.capacity
+        base_rows = []
+        for rep in plan["tmpl_pods"]:
+            raw = idx.score_vector(rep, plan["hard_w"])
+            base_rows.append(raw if raw is not None
+                             else np.zeros((cap,), np.float32))
+        base = np.stack(base_rows)
+        n = len(pods)
+        K = plan["kmax"]
+        read_tids = np.full((n, K), -1, np.int32)
+        read_w = np.zeros((n, K), np.float32)
+        write_tids = np.full((n, K), -1, np.int32)
+        write_w = np.zeros((n, K), np.float32)
+        for i in range(n):
+            t = plan["tmpl_of"][i]
+            for j, (s, rw) in enumerate(plan["reads"][t]):
+                read_tids[i, j] = s
+                read_w[i, j] = rw
+            for j, (s, ww) in enumerate(plan["writes"][t]):
+                write_tids[i, j] = s
+                write_w[i, j] = ww
+        batch.set_soft_terms(dom, n_domains, base, plan["tmpl_of"],
+                             read_tids, read_w, write_tids, write_w,
+                             plan["weight"])
+        return (tuple(plan["chan_list"]), plan["tmpl_sigs"],
+                plan["kmax"], plan["weight"], plan["hard_w"],
+                n_domains, self.mirror.epoch, self.mirror.t.capacity)
 
     def _make_reassigner(self, batch: Optional[PodBatchTensors],
                          stale_winners):
@@ -954,7 +1351,7 @@ class BatchScheduler:
             raise NotImplementedError(
                 "BatchScheduler: KTPU_CLASS_SCAN=0 selects the classic "
                 "per-pod kernel, which is not ported yet (ROADMAP: port "
-                "slice 3)")
+                "slice 4)")
         if self.speculative:
             raise NotImplementedError(
                 "BatchScheduler: KTPU_SPECULATIVE=1 selects the speculative "
@@ -1024,7 +1421,7 @@ class BatchScheduler:
         batch.resource_weights[1] = w.get("BalancedResourceAllocation", 1)
         spread_sig = self._assign_spread_groups(pods, batch)
         topo_cover = self._assign_topology_terms(pods, batch, profiles)
-        self._assign_soft_terms(pods, batch)
+        soft_sig = self._assign_soft_terms(pods, batch)
         self.phase_stats["term_prep_s"] += _time.perf_counter() - t_prep
         if tr is not None:
             tr.record("scheduler", "tensorize", t_tz, tr.now(),
@@ -1033,15 +1430,16 @@ class BatchScheduler:
         static = self.scorer.static_scores(pods, batch)
         # hysteresis: while host-computed static scores are in play, later
         # launches refuse the chain up front instead of discarding work.
-        # In-scan spread tables do not force the flush: their running
+        # In-scan spread/soft tables do not force the flush: their running
         # counts CHAIN as carried device state (gated below)
         self._static_likely = static is not None
         if static is not None:
             if chaining:
                 return None  # host scores would lag the uncommitted chain
             batch.set_static_scores(*static)
-        if chaining and spread_sig is not None and \
-                not self._chain_carries(chain, batch, spread_sig):
+        if chaining and (spread_sig is not None or soft_sig is not None) \
+                and not self._chain_carries(chain, batch, spread_sig,
+                                            soft_sig):
             # the predecessor's carried counts don't structurally match
             # this batch's tables — relaunch sequentially from host truth
             return None
@@ -1063,34 +1461,43 @@ class BatchScheduler:
                             affinity_chainable=affinity_chainable,
                             chained=chaining,
                             usage_epoch=self.mirror.usage_epoch,
-                            spread_sig=spread_sig,
+                            spread_sig=spread_sig, soft_sig=soft_sig,
                             inscan_cover=(affinity_chainable
                                           and topo_cover != "fallback"))
 
     def _chain_carries(self, chain: "PendingBatch", batch: PodBatchTensors,
-                       spread_sig: Optional[Tuple]) -> bool:
-        """Gate for chaining THROUGH in-scan spread tables.
+                       spread_sig: Optional[Tuple],
+                       soft_sig: Optional[Tuple]) -> bool:
+        """Gate for chaining THROUGH in-scan spread/soft tables.
 
-        The kernel's spread counts ride the chained usage handle ("spread"
-        final), accumulating every in-chain winner over the ANCHOR batch's
-        base rows. A successor may consume them only when its own tables
-        resolve to the same STRUCTURE (group order, zones, weights — the
-        chain signature), so slot g means the same thing on both sides.
-        When the gate passes, this batch's freshly computed base rows are
-        REPLACED with the chain predecessor's (transitively the anchor's):
-        commits landing mid-chain fold those same winners into freshly
-        computed rows, and anchor-base + chained-counts already accounts
-        for every one of them exactly once."""
+        The kernel's spread counts and soft credit accumulators ride the
+        chained usage handle ("spread" / "soft_cnt" finals), accumulating
+        every in-chain winner over the ANCHOR batch's base rows. A
+        successor may consume them only when its own tables resolve to
+        the same STRUCTURE (group/channel/template order, zones, weights
+        — the chain signatures), so slot g/s means the same thing on both
+        sides. When the gate passes, this batch's freshly computed base
+        rows are REPLACED with the chain predecessor's (transitively the
+        anchor's): commits landing mid-chain fold those same winners into
+        freshly computed rows, and anchor-base + chained-counts already
+        accounts for every one of them exactly once — the sum equals the
+        sequential path's recompute, which is what the chained-vs-
+        unchained spread parity test pins."""
         nu = chain.new_usage
         if not isinstance(nu, dict):
             return False
         if spread_sig is not None and (
                 chain.spread_sig != spread_sig or "spread" not in nu):
             return False
+        if soft_sig is not None and (
+                chain.soft_sig != soft_sig or "soft_cnt" not in nu):
+            return False
         if spread_sig is not None:
             batch.spread_base = chain.batch.spread_base
             batch.spread_zone = chain.batch.spread_zone
             batch.spread_zinit = chain.batch.spread_zinit
+        if soft_sig is not None:
+            batch.soft_base = chain.batch.soft_base
         return True
 
     def schedule_finish(self, pending: "PendingBatch") -> List[ScheduleResult]:
@@ -1157,7 +1564,7 @@ class BatchScheduler:
                 raise NotImplementedError(
                     "BatchScheduler: nominated reservations need the "
                     "scan's phantom-usage overlay, which is not ported yet "
-                    "(ROADMAP: port slice 3)")
+                    "(ROADMAP: port slice 4)")
         return None
 
     # ------------------------------------------------ preemption, diagnosis
@@ -1167,7 +1574,7 @@ class BatchScheduler:
         (kernels/preempt.py price_nodes) are not ported yet."""
         raise NotImplementedError(
             "BatchScheduler.preempt: the victim-pricing kernels are not "
-            "ported yet (ROADMAP: Queue A item 4, preemption pricing)")
+            "ported yet (ROADMAP: Queue A item 3, preemption)")
 
     def preempt_gang(self, members: List[Pod], min_member: int,
                      topology_key: Optional[str]):
@@ -1175,7 +1582,7 @@ class BatchScheduler:
         ported yet."""
         raise NotImplementedError(
             "BatchScheduler.preempt_gang: the domain-pricing kernels are "
-            "not ported yet (ROADMAP: Queue A item 4, preemption pricing)")
+            "not ported yet (ROADMAP: Queue A item 3, preemption)")
 
     def _fits_predicates(self, pod: Pod) -> Dict[str, object]:
         """The predicate set a fit check runs (same assembly as the

@@ -10,25 +10,32 @@ programs on the main path have hand-written CUDA kernels (csrc/):
     schedule_batch -> K2  csrc/class_scan.cu      one launch per batch;
                           class_col, spread_score and tie_penalized are
                           its __device__ functions, pack_results its
-                          epilogue
+                          epilogue; the required (anti-)affinity carry
+                          (term_hits / topo_bad / topo_scatter) and the
+                          preferred credits (soft_raw / soft_score /
+                          soft_write) live in csrc/affinity.cuh
     apply_dirty    -> K3  csrc/apply_dirty.cu     dirty-row scatter
 
 Dispatch is by tensor device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (a build or launch failure raises; it
 never gives way to the plain version). LAUNCHES counts kernel launches,
 one per launch, so a run can show that its main path went through them.
+K2 is one template instantiated per set of carried terms (spread groups,
+topology counters, soft credits); each instance counts under its own
+name (scan_instance).
 
 State layout (host mirror: tensorize.TensorMirror):
   node_cfg: alloc [N,R] f32, max_pods [N] f32, node_ok/mem_pressure/
     valid [N] bool.
   usage: used [N,R], nonzero_used [N,2], pod_count [N] f32, plus the
-    "spread" [G,N] carry final when the batch had spread groups.
+    "spread" [G,N] and "soft_cnt" [Ts,Ds] carry finals when the batch had
+    spread groups or soft credit tables.
 schedule_batch returns post-batch usage in new tensors (the inputs are
 left as they were), so consecutive batches chain on the device.
 
-Routes outside this slice raise NotImplementedError: the classic per-pod
-branch, the in-scan (anti-)affinity and soft-credit tables, and the
-nominated-reservation overlay (ROADMAP, port slice 3).
+Routes outside the ported slices raise NotImplementedError: the classic
+per-pod branch and the nominated-reservation overlay (ROADMAP, port
+slice 4).
 """
 
 from __future__ import annotations
@@ -49,9 +56,19 @@ ZONE_WEIGHTING = 2.0 / 3.0
 COL_CPU = 0
 COL_MEM = 1
 
+
+def scan_instance(has_spread: bool, has_topo: bool, has_soft: bool) -> str:
+    """The name of the K2 instance that scans a batch with these carried
+    terms ("class_scan" when it carries none)."""
+    return "class_scan" + "_spread" * has_spread + "_topo" * has_topo \
+        + "_soft" * has_soft
+
+
 #: kernel launches by name; each wrapper adds one per launch
-LAUNCHES: Dict[str, int] = {"class_ms_init": 0, "class_scan": 0,
-                            "apply_dirty": 0}
+LAUNCHES: Dict[str, int] = {
+    "class_ms_init": 0, "apply_dirty": 0,
+    **{scan_instance(sp, tp, sf): 0 for sp in (False, True)
+       for tp in (False, True) for sf in (False, True)}}
 
 _CLASS_KEYS = ("class_req", "class_nz", "class_blocked", "class_mask_idx",
                "class_score_idx")
@@ -231,6 +248,89 @@ def tie_penalized(masked, rows, seq):
     return masked - h.to(torch.float32) * (0.5 / 65536.0)
 
 
+def term_hits(anti_dom, table, tids):
+    """[K, N] bool: the node's domain holds an in-batch hit for term
+    tids[k] in `table` (batch.py _term_hits; -1 is padding and never
+    hits, nor does a node outside the term's domains)."""
+    t = tids.clamp_min(0).long()
+    drow = anti_dom[t]                                        # [K, N]
+    at = torch.gather(table[t], 1, drow.clamp_min(0).long())  # [K, N]
+    return (tids[:, None] >= 0) & (drow >= 0) & (at > 0.0)
+
+
+def topo_bad(anti_dom, carry, anti_tids, aff_tids, cmatch_tids):
+    """[N] bool: rows this pod may not take because of earlier winners'
+    required (anti-)affinity (batch.py _topo_bad): direction 1 (the pod
+    carries an anti term a winner matches), direction 2 (the pod matches
+    an anti term a winner carries; `cmatch_tids` is None without the
+    carry table), and waived required affinity (once any winner matches
+    the term, later carriers must co-locate into its domain)."""
+    bad = term_hits(anti_dom, carry["topo_cnt"], anti_tids).any(dim=0)
+    if cmatch_tids is not None:
+        bad = bad | term_hits(anti_dom, carry["topo_carry"],
+                              cmatch_tids).any(dim=0)
+    need = (aff_tids >= 0) & \
+        (carry["topo_tot"][aff_tids.clamp_min(0).long()] > 0.0)
+    return bad | (need[:, None] & ~term_hits(
+        anti_dom, carry["topo_cnt"], aff_tids)).any(dim=0)
+
+
+def _scatter_counts(anti_dom, table, tids, best, ok, tot=None):
+    """Add 1.0 at (tids[k], domain of `best`) for every real entry, 0.0
+    at the clamped index otherwise, as .at[].add does."""
+    t = tids.clamp_min(0).long()
+    d = anti_dom[t, best]
+    val = ((tids >= 0) & (d >= 0) & ok).to(torch.float32)
+    table.index_put_((t, d.clamp_min(0).long()), val, accumulate=True)
+    if tot is not None:
+        tot.index_put_((t,), val, accumulate=True)
+
+
+def topo_scatter(anti_dom, carry, match_tids, canti_tids, best, ok):
+    """The winner's (term, domain) counter writes, in place (batch.py
+    _topo_scatter): match counts and totals, and with the direction-2
+    table (`canti_tids` not None) the carry counts."""
+    _scatter_counts(anti_dom, carry["topo_cnt"], match_tids, best, ok,
+                    tot=carry["topo_tot"])
+    if canti_tids is not None:
+        _scatter_counts(anti_dom, carry["topo_carry"], canti_tids, best,
+                        ok)
+
+
+def soft_raw(soft_dom, scnt, soft_base, read_tids, read_w, base_idx):
+    """One pod's [N] raw inter-pod score (batch.py _soft_raw): its
+    template's frozen base row plus the signed running credits of its
+    read channels at each node's domain. The reference's where, then
+    multiply: a negative weight on a zero count gives -0.0 there too."""
+    t = read_tids.clamp_min(0).long()
+    drow = soft_dom[t]                                        # [Ks, N]
+    at = torch.gather(scnt[t], 1, drow.clamp_min(0).long())   # [Ks, N]
+    valid = (read_tids[:, None] >= 0) & (drow >= 0)
+    delta = (read_w[:, None] * torch.where(valid, at, 0.0)).sum(dim=0)
+    return soft_base[base_idx.clamp_min(0).long()] + delta
+
+
+def soft_score(raw, fits, weight):
+    """Min-max normalisation over the feasible rows, floored with the
+    4e-6 epsilon (batch.py _soft_score); exactly 0.0 with no feasible row
+    or a flat row."""
+    mn = torch.where(fits, raw, float("inf")).min()
+    mx = torch.where(fits, raw, float("-inf")).max()
+    span_ok = (mx > mn) & torch.isfinite(mn)
+    norm = torch.floor(MAX_PRIORITY * (raw - mn)
+                       / torch.clamp_min(mx - mn, 1e-30) + 4e-6)
+    return torch.where(span_ok, weight * norm, 0.0)
+
+
+def soft_write(soft_dom, soft_cnt, write_tids, write_w, best, ok):
+    """The winner's credit writes at the chosen node's domains, in place
+    (batch.py _soft_write)."""
+    t = write_tids.clamp_min(0).long()
+    d = soft_dom[t, best]
+    val = torch.where((write_tids >= 0) & (d >= 0) & ok, write_w, 0.0)
+    soft_cnt.index_put_((t, d.clamp_min(0).long()), val, accumulate=True)
+
+
 def pack_results(assign: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     """[2, P] int32 — assign and the bits of the scores in one buffer, so
     a batch costs one device-to-host copy (batch.py pack_results). On the
@@ -293,46 +393,69 @@ def _check_slice(pod_batch: dict, nom) -> None:
         raise NotImplementedError(
             "schedule_batch: the classic per-pod branch (KTPU_CLASS_SCAN=0 "
             "or a batch without class tables) is not ported yet "
-            "(ROADMAP: port slice 3)")
-    if "anti_dom" in pod_batch:
-        raise NotImplementedError(
-            "schedule_batch: in-scan required (anti-)affinity tables "
-            "(_topo_bad/_topo_scatter) are not ported yet "
-            "(ROADMAP: port slice 3)")
-    if "soft_dom" in pod_batch:
-        raise NotImplementedError(
-            "schedule_batch: in-scan soft inter-pod credits "
-            "(_soft_raw/_soft_score/_soft_write) are not ported yet "
-            "(ROADMAP: port slice 3)")
+            "(ROADMAP: port slice 4)")
     if nom is not None:
         raise NotImplementedError(
             "schedule_batch: the nominated-reservation overlay is not "
-            "ported yet (ROADMAP: port slice 3)")
+            "ported yet (ROADMAP: port slice 4)")
+
+
+def _scan_terms(pod_batch: dict) -> Tuple[bool, bool, bool, bool]:
+    """(has_spread, has_topo, has_dir2, has_soft): the carried terms a
+    batch's tables install (batch.py _class_ctx)."""
+    has_topo = pod_batch.get("anti_dom") is not None
+    return (pod_batch.get("spread_base") is not None, has_topo,
+            has_topo and "cmatch_tids" in pod_batch,
+            pod_batch.get("soft_dom") is not None)
 
 
 def _scan_setup(node_cfg: dict, usage: dict, pod_batch: dict):
-    """(cls, rw, ms0, carry0, has_spread): the class tables, the initial
-    table (K1 on the card) and fresh copies of the carried state."""
+    """(cls, rw, ms0, carry, terms): the class tables, the initial table
+    (K1 on the card), fresh copies of the carried state and the batch's
+    _scan_terms. A chained launch seeds the spread and soft carries from
+    its predecessor's finals (core.schedule_launch gates this); the
+    topology counters start from the batch's own anti_cnt0."""
     cls = {k: pod_batch[k] for k in _CLASS_KEYS}
     rw = pod_batch["resource_weights"]
     ms0 = class_ms_init(node_cfg, usage, cls, pod_batch["unique_masks"],
                         pod_batch["unique_scores"], rw)
-    has_spread = pod_batch.get("spread_base") is not None
+    terms = _scan_terms(pod_batch)
+    has_spread, has_topo, has_dir2, has_soft = terms
     carry = {"used": usage["used"].clone(),
              "nonzero_used": usage["nonzero_used"].clone(),
              "pod_count": usage["pod_count"].clone()}
     if has_spread:
-        # a chained launch seeds the spread carry from its predecessor's
-        # finals (core.schedule_launch gates this)
         sp0 = usage.get("spread")
         carry["spread"] = (sp0 if sp0 is not None
                            else pod_batch["spread_base"]).clone()
-    return cls, rw, ms0, carry, has_spread
+    if has_topo:
+        cnt0 = pod_batch["anti_cnt0"]
+        carry["topo_cnt"] = cnt0.clone()
+        carry["topo_tot"] = torch.zeros((cnt0.shape[0],),
+                                        dtype=torch.float32,
+                                        device=cnt0.device)
+        if has_dir2:
+            carry["topo_carry"] = torch.zeros_like(cnt0)
+    if has_soft:
+        sc0 = usage.get("soft_cnt")
+        carry["soft_cnt"] = (sc0 if sc0 is not None
+                             else pod_batch["soft_cnt0"]).clone()
+    return cls, rw, ms0, carry, terms
 
 
-def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, has_spread):
+def _usage_out(carry: dict) -> dict:
+    """The post-batch usage from the scan's carry (batch.py
+    _class_usage_out): the spread and soft finals ride along for the
+    next chained launch; the topology counters end with the batch."""
+    return {k: v for k, v in carry.items()
+            if k in ("used", "nonzero_used", "pod_count", "spread",
+                     "soft_cnt")}
+
+
+def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms):
     """The serial scan in plain PyTorch (batch.py _class_pod_step over
     the pods in order); mutates `ms` and the `carry` copies."""
+    has_spread, has_topo, has_dir2, has_soft = terms
     unique_masks = pod_batch["unique_masks"]
     unique_scores = pod_batch["unique_scores"]
     used, nz, cnt = carry["used"], carry["nonzero_used"], carry["pod_count"]
@@ -350,13 +473,36 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, has_spread):
         zone_of = pod_batch["spread_zone"]
         zinit = pod_batch["spread_zinit"]
         sw = pod_batch["spread_weight"]
+    if has_topo:
+        anti_dom = pod_batch["anti_dom"]
+        anti_t, aff_t = pod_batch["anti_tids"], pod_batch["aff_tids"]
+        match_t = pod_batch["match_tids"]
+        cmatch_t = pod_batch["cmatch_tids"] if has_dir2 else None
+        canti_t = pod_batch["canti_tids"] if has_dir2 else None
+    if has_soft:
+        soft_dom, soft_base = pod_batch["soft_dom"], pod_batch["soft_base"]
+        base_idx = pod_batch["soft_base_idx"]
+        read_t, read_w = pod_batch["soft_read_tids"], \
+            pod_batch["soft_read_w"]
+        write_t, write_w = pod_batch["soft_write_tids"], \
+            pod_batch["soft_write_w"]
+        soft_w = pod_batch["soft_weight"]
     assign = torch.empty((P,), dtype=torch.int32, device=dev)
     scores = torch.empty((P,), dtype=torch.float32, device=dev)
     for p in range(P):
         u = class_idx[p]
         base = ms[u]
         fits = base > NEG_THRESHOLD
+        if has_topo:
+            fits = fits & ~topo_bad(
+                anti_dom, carry, anti_t[p], aff_t[p],
+                cmatch_t[p] if has_dir2 else None)
         score = base
+        if has_soft:
+            raw = soft_raw(soft_dom, carry["soft_cnt"], soft_base,
+                           read_t[p], read_w[p], base_idx[p])
+            score = score + torch.where(base_idx[p] >= 0,
+                                        soft_score(raw, fits, soft_w), 0.0)
         if has_spread:
             g = gidx[p]
             use_spread = torch.where(g >= 0, 1.0, 0.0)
@@ -374,15 +520,55 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, has_spread):
                                 rw, used[best], nz[best], cnt[best], best)
         if has_spread:
             spread[:, best] = spread[:, best] + smatch[p] * ok_f
+        if has_topo:
+            topo_scatter(anti_dom, carry, match_t[p],
+                         canti_t[p] if has_dir2 else None, best, ok)
+        if has_soft:
+            soft_write(soft_dom, carry["soft_cnt"], write_t[p], write_w[p],
+                       best, ok)
         assign[p] = torch.where(ok, best.to(torch.int32), -1)
         scores[p] = chosen
     return pack_results(assign, scores)
 
 
-def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, has_spread):
-    """Kernel K2: the whole batch in one launch; returns the [2, P]
-    packed results and mutates `ms` and the `carry` copies."""
+#: the pointer fields of K2's parameter block, in the order of
+#: KtpuScanParams in csrc/class_scan.cu; a term's pointers are null when
+#: the batch does not carry it
+_SCAN_PTRS = (
+    "alloc", "max_pods", "node_ok", "mem_pressure", "valid", "class_req",
+    "class_nz", "class_blocked", "class_mask_idx", "class_score_idx",
+    "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
+    "ms", "class_idx", "seq", "active",
+    "spread_gidx", "spread_match", "spread", "zone_of", "zinit",
+    "spread_w",
+    "anti_dom", "topo_cnt", "topo_tot", "topo_carry", "anti_tids",
+    "aff_tids", "match_tids", "cmatch_tids", "canti_tids",
+    "soft_dom", "soft_cnt", "soft_base", "soft_base_idx", "read_tids",
+    "read_w", "write_tids", "write_w", "soft_w",
+    "packed")
+#: the int fields that follow them
+_SCAN_INTS = ("N", "R", "C", "P", "G", "Z", "T", "D", "K", "Ts", "Ds", "Ks",
+              "Sb", "has_spread", "has_topo", "has_dir2", "has_soft")
+
+
+class _ScanParams(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_void_p) for k in _SCAN_PTRS] + \
+        [(k, ctypes.c_int) for k in _SCAN_INTS]
+
+
+def _need(t: torch.Tensor, shape: tuple, name: str) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, need "
+                         f"{tuple(shape)}")
+
+
+def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms):
+    """Kernel K2: the whole batch in one launch of the instance for its
+    carried terms; returns the [2, P] packed results and mutates `ms` and
+    the `carry` copies. Index values (class ids, term ids, domains) come
+    from tensorize, which builds them inside the tables' shapes."""
     from .build import check
+    has_spread, has_topo, has_dir2, has_soft = terms
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     alloc = node_cfg["alloc"]
     N, R = alloc.shape
@@ -391,65 +577,96 @@ def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, has_spread):
     dev = alloc.device
     _check_shapes(node_cfg, carry, cls, pod_batch["unique_masks"],
                   pod_batch["unique_scores"], rw)
-    if tuple(ms.shape) != (C, N):
-        raise ValueError(f"ms: shape {tuple(ms.shape)}, need {(C, N)}")
+    _need(ms, (C, N), "ms")
     for k in ("class_idx", "seq", "active"):
-        if tuple(pod_batch[k].shape) != (P,):
-            raise ValueError(f"{k}: shape {tuple(pod_batch[k].shape)}, "
-                             f"need ({P},)")
+        _need(pod_batch[k], (P,), k)
     packed = torch.empty((2, P), dtype=i32, device=dev)
-    null = ctypes.c_void_p(0)
+    prm = _ScanParams()
+    dims = dict.fromkeys(_SCAN_INTS, 0)
+    dims.update(N=N, R=R, C=C, P=P, has_spread=int(has_spread),
+                has_topo=int(has_topo), has_dir2=int(has_dir2),
+                has_soft=int(has_soft))
+    ptrs = {
+        "alloc": (alloc, f32), "max_pods": (node_cfg["max_pods"], f32),
+        "node_ok": (node_cfg["node_ok"], b8),
+        "mem_pressure": (node_cfg["mem_pressure"], b8),
+        "valid": (node_cfg["valid"], b8),
+        **{k: (cls[k], f32 if k in ("class_req", "class_nz") else
+               b8 if k == "class_blocked" else i32) for k in _CLASS_KEYS},
+        "unique_masks": (pod_batch["unique_masks"], b8),
+        "unique_scores": (pod_batch["unique_scores"], f32),
+        "rw": (rw, f32), "used": (carry["used"], f32),
+        "nz_used": (carry["nonzero_used"], f32),
+        "pod_count": (carry["pod_count"], f32), "ms": (ms, f32),
+        "class_idx": (pod_batch["class_idx"], i32),
+        "seq": (pod_batch["seq"], i32), "active": (pod_batch["active"], b8),
+        "packed": (packed, i32)}
     if has_spread:
         G = carry["spread"].shape[0]
         Z = pod_batch["spread_zinit"].shape[0]
-        want = {"spread": (G, N), "spread_gidx": (P,),
-                "spread_match": (P, G), "spread_zone": (N,)}
-        for k, shape in want.items():
-            t = carry[k] if k == "spread" else pod_batch[k]
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{k}: shape {tuple(t.shape)}, need "
-                                 f"{shape}")
         if Z * 4 > 48 * 1024:
             raise ValueError(f"class_scan: {Z} zones exceed the kernel's "
                              "48 KB of zone sums in shared memory")
-        sp = (_ptr(pod_batch["spread_gidx"], i32, "spread_gidx"),
-              _ptr(pod_batch["spread_match"], f32, "spread_match"),
-              _ptr(carry["spread"], f32, "spread"),
-              _ptr(pod_batch["spread_zone"], i32, "spread_zone"),
-              _ptr(pod_batch["spread_zinit"], f32, "spread_zinit"),
-              _ptr(pod_batch["spread_weight"].reshape(1), f32,
-                   "spread_weight"))
-    else:
-        G = Z = 0
-        sp = (null,) * 6
-    args = (_ptr(alloc, f32, "alloc"),
-            _ptr(node_cfg["max_pods"], f32, "max_pods"),
-            _ptr(node_cfg["node_ok"], b8, "node_ok"),
-            _ptr(node_cfg["mem_pressure"], b8, "mem_pressure"),
-            _ptr(node_cfg["valid"], b8, "valid"),
-            _ptr(cls["class_req"], f32, "class_req"),
-            _ptr(cls["class_nz"], f32, "class_nz"),
-            _ptr(cls["class_blocked"], b8, "class_blocked"),
-            _ptr(cls["class_mask_idx"], i32, "class_mask_idx"),
-            _ptr(cls["class_score_idx"], i32, "class_score_idx"),
-            _ptr(pod_batch["unique_masks"], b8, "unique_masks"),
-            _ptr(pod_batch["unique_scores"], f32, "unique_scores"),
-            _ptr(rw, f32, "resource_weights"),
-            _ptr(carry["used"], f32, "used"),
-            _ptr(carry["nonzero_used"], f32, "nonzero_used"),
-            _ptr(carry["pod_count"], f32, "pod_count"),
-            _ptr(ms, f32, "ms"),
-            _ptr(pod_batch["class_idx"], i32, "class_idx"),
-            _ptr(pod_batch["seq"], i32, "seq"),
-            _ptr(pod_batch["active"], b8, "active"),
-            *sp,
-            int(has_spread), N, R, C, P, G, Z,
-            _ptr(packed, i32, "packed"), _stream(alloc))
-    # 26 pointers; has_spread, N, R, C, P, G, Z; packed; stream
+        _need(carry["spread"], (G, N), "spread")
+        _need(pod_batch["spread_gidx"], (P,), "spread_gidx")
+        _need(pod_batch["spread_match"], (P, G), "spread_match")
+        _need(pod_batch["spread_zone"], (N,), "spread_zone")
+        dims.update(G=G, Z=Z)
+        ptrs.update(
+            spread_gidx=(pod_batch["spread_gidx"], i32),
+            spread_match=(pod_batch["spread_match"], f32),
+            spread=(carry["spread"], f32),
+            zone_of=(pod_batch["spread_zone"], i32),
+            zinit=(pod_batch["spread_zinit"], f32),
+            spread_w=(pod_batch["spread_weight"].reshape(1), f32))
+    if has_topo:
+        T, D = carry["topo_cnt"].shape
+        K = pod_batch["anti_tids"].shape[1]
+        _need(pod_batch["anti_dom"], (T, N), "anti_dom")
+        _need(carry["topo_tot"], (T,), "topo_tot")
+        lists = ["anti_tids", "aff_tids", "match_tids"]
+        if has_dir2:
+            _need(carry["topo_carry"], (T, D), "topo_carry")
+            ptrs["topo_carry"] = (carry["topo_carry"], f32)
+            lists += ["cmatch_tids", "canti_tids"]
+        for k in lists:
+            _need(pod_batch[k], (P, K), k)
+            ptrs[k] = (pod_batch[k], i32)
+        dims.update(T=T, D=D, K=K)
+        ptrs.update(anti_dom=(pod_batch["anti_dom"], i32),
+                    topo_cnt=(carry["topo_cnt"], f32),
+                    topo_tot=(carry["topo_tot"], f32))
+    if has_soft:
+        Ts, Ds = carry["soft_cnt"].shape
+        Sb = pod_batch["soft_base"].shape[0]
+        Ks = pod_batch["soft_read_tids"].shape[1]
+        _need(pod_batch["soft_dom"], (Ts, N), "soft_dom")
+        _need(pod_batch["soft_base"], (Sb, N), "soft_base")
+        _need(pod_batch["soft_base_idx"], (P,), "soft_base_idx")
+        for k in ("soft_read_tids", "soft_read_w", "soft_write_tids",
+                  "soft_write_w"):
+            _need(pod_batch[k], (P, Ks), k)
+        dims.update(Ts=Ts, Ds=Ds, Ks=Ks, Sb=Sb)
+        ptrs.update(
+            soft_dom=(pod_batch["soft_dom"], i32),
+            soft_cnt=(carry["soft_cnt"], f32),
+            soft_base=(pod_batch["soft_base"], f32),
+            soft_base_idx=(pod_batch["soft_base_idx"], i32),
+            read_tids=(pod_batch["soft_read_tids"], i32),
+            read_w=(pod_batch["soft_read_w"], f32),
+            write_tids=(pod_batch["soft_write_tids"], i32),
+            write_w=(pod_batch["soft_write_w"], f32),
+            soft_w=(pod_batch["soft_weight"].reshape(1), f32))
+    for k, (t, dtype) in ptrs.items():
+        setattr(prm, k, _ptr(t, dtype, k).value)
+    for k, v in dims.items():
+        setattr(prm, k, v)
     rc = _fn("class_scan", "ktpu_class_scan",
-             [_P] * 26 + [_I] * 7 + [_P] * 2)(*args)
-    check(rc, "class_scan")
-    LAUNCHES["class_scan"] += 1
+             [ctypes.POINTER(_ScanParams), _P])(ctypes.byref(prm),
+                                                _stream(alloc))
+    name = scan_instance(has_spread, has_topo, has_soft)
+    check(rc, name)
+    LAUNCHES[name] += 1
     return packed
 
 
@@ -459,12 +676,11 @@ def schedule_batch_packed(node_cfg: dict, usage: dict, pod_batch: dict,
     _schedule_batch_classes). Returns ([2, P] int32 packed assign +
     score bits, post-batch usage). Plain on the CPU; K1 + K2 on CUDA."""
     _check_slice(pod_batch, nom)
-    cls, rw, ms, carry, has_spread = _scan_setup(node_cfg, usage,
-                                                 pod_batch)
+    cls, rw, ms, carry, terms = _scan_setup(node_cfg, usage, pod_batch)
     scan = _class_scan_cuda if _on_cuda(node_cfg["alloc"]) \
         else _class_scan_plain
-    packed = scan(node_cfg, pod_batch, cls, rw, ms, carry, has_spread)
-    return packed, carry
+    packed = scan(node_cfg, pod_batch, cls, rw, ms, carry, terms)
+    return packed, _usage_out(carry)
 
 
 def schedule_batch(node_cfg: dict, usage: dict, pod_batch: dict,
@@ -475,6 +691,14 @@ def schedule_batch(node_cfg: dict, usage: dict, pod_batch: dict,
     packed, new_usage = schedule_batch_packed(node_cfg, usage, pod_batch,
                                               nom)
     return packed[0], packed[1].view(torch.float32), new_usage
+
+
+def filter_score(node_cfg: dict, usage: dict, pod_batch: dict):
+    """The vmapped [P, N] fits mask and score matrix (batch.py
+    filter_score): not ported yet."""
+    raise NotImplementedError(
+        "filter_score: the [P, N] fits and scores kernel is not ported yet "
+        "(ROADMAP: port slice 4)")
 
 
 # ------------------------------------------------------------ K3

@@ -125,7 +125,7 @@ class Scheduler:
         if extenders:
             raise NotImplementedError(
                 "Scheduler: scheduler extenders (scheduler/extender.py) are "
-                "not ported yet (ROADMAP: Queue A item 8, harnesses and "
+                "not ported yet (ROADMAP: Queue A item 6, harnesses and "
                 "commands)")
         self.extenders = []
         # ---- pipelined-drain state (drain_pipelined) ----
@@ -1519,7 +1519,7 @@ class Scheduler:
         preempt_gang raise NotImplementedError, and the port lets it
         through where the reference prints an exception and carries on.
         The nominate/evict half of the reference follows the kernels in
-        (ROADMAP, Queue A item 4)."""
+        (ROADMAP, Queue A item 3)."""
         if self.disable_preemption:
             return
         if self.gang is not None and self.gang.is_member(pod):

@@ -31,8 +31,8 @@ of two), as in the JAX reference, so both packages see identical shapes.
 
 Port of kubernetes_tpu/scheduler/tensorize.py: the host side is unchanged;
 device tensors are torch tensors on the mirror's explicit device (no mesh).
-The in-scan (anti-)affinity, soft-credit and speculative tables are not
-part of this slice (ROADMAP, port slice 3).
+The in-scan required (anti-)affinity and soft-credit tables ship with the
+batch; the speculative cohort vectors are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -676,6 +676,106 @@ class PodBatchTensors:
         self.spread_match: Optional[np.ndarray] = None  # [P, G] f32
         self.spread_weight = 0.0
 
+        # in-scan required (anti-)affinity term tables
+        # (core._assign_topology_terms)
+        self.anti_dom: Optional[np.ndarray] = None      # [T, N] int32
+        self.anti_cnt0: Optional[np.ndarray] = None     # [T, D] f32 zeros
+        self.anti_tids: Optional[np.ndarray] = None     # [P, K] int32 (-1 pad)
+        self.aff_tids: Optional[np.ndarray] = None      # [P, K] int32
+        self.match_tids: Optional[np.ndarray] = None    # [P, K] int32
+        self.cmatch_tids: Optional[np.ndarray] = None   # [P, K] int32
+        self.canti_tids: Optional[np.ndarray] = None    # [P, K] int32
+
+        # in-scan preferred (anti-)affinity credit tables
+        # (core._assign_soft_terms)
+        self.soft_dom: Optional[np.ndarray] = None       # [Ts, N] int32
+        self.soft_cnt0: Optional[np.ndarray] = None      # [Ts, Ds] f32 zeros
+        self.soft_base: Optional[np.ndarray] = None      # [Sb, N] f32
+        self.soft_base_idx: Optional[np.ndarray] = None  # [P] int32 (-1 off)
+        self.soft_read_tids: Optional[np.ndarray] = None   # [P, Ks] int32
+        self.soft_read_w: Optional[np.ndarray] = None      # [P, Ks] f32
+        self.soft_write_tids: Optional[np.ndarray] = None  # [P, Ks] int32
+        self.soft_write_w: Optional[np.ndarray] = None     # [P, Ks] f32
+        self.soft_weight = 0.0
+
+    def set_topology_terms(self, dom: np.ndarray, n_domains: int,
+                           anti_tids: np.ndarray, aff_tids: np.ndarray,
+                           match_tids: np.ndarray,
+                           cmatch_tids: Optional[np.ndarray] = None,
+                           canti_tids: Optional[np.ndarray] = None) -> None:
+        """Install in-scan term tables; T, D, and the per-pod K axis all
+        bucketed to powers of two (padded term rows carry dom=-1
+        everywhere: never conflict, never bump), as in the reference, so
+        both packages see identical shapes. The per-pod [K]-term lists
+        keep the scan O(K*N) per step."""
+        T = _bucket(dom.shape[0], minimum=8)
+        P = self.req.shape[0]
+        dom_p = np.full((T, dom.shape[1]), -1, np.int32)
+        dom_p[:dom.shape[0]] = dom
+        self.anti_dom = dom_p
+        self.anti_cnt0 = np.zeros((T, _bucket(max(n_domains, 1),
+                                              minimum=64)), np.float32)
+        K = _bucket(max(anti_tids.shape[1], aff_tids.shape[1],
+                        match_tids.shape[1], 1), minimum=1)
+
+        def pad(m):
+            out = np.full((P, K), -1, np.int32)
+            out[:m.shape[0], :m.shape[1]] = m
+            return out
+        self.anti_tids = pad(anti_tids)
+        self.aff_tids = pad(aff_tids)
+        self.match_tids = pad(match_tids)
+        # direction-2 lists (winner carries / pod matches), present only
+        # when some pure matcher in the batch needs them — their absence
+        # drops the whole carry-counter table from the scan
+        self.cmatch_tids = pad(cmatch_tids) if cmatch_tids is not None \
+            else None
+        self.canti_tids = pad(canti_tids) if canti_tids is not None \
+            else None
+
+    def set_soft_terms(self, dom: np.ndarray, n_domains: int,
+                       base: np.ndarray, base_idx: np.ndarray,
+                       read_tids: np.ndarray, read_w: np.ndarray,
+                       write_tids: np.ndarray, write_w: np.ndarray,
+                       weight: float) -> None:
+        """Install in-scan preferred inter-pod (anti-)affinity credit
+        tables (core._assign_soft_terms): per-(term slot, domain) weight
+        accumulators start at zero (pre-batch credits live in the per-class
+        `base` raw rows); each pod reads its slot list at its nodes'
+        domains (signed weights) and a winner writes its slot list at the
+        chosen node's domain. Ts/Ds/Ks/Sb bucketed like the required-term
+        tables."""
+        Ts = _bucket(dom.shape[0], minimum=8)
+        P = self.req.shape[0]
+        dom_p = np.full((Ts, dom.shape[1]), -1, np.int32)
+        dom_p[:dom.shape[0]] = dom
+        self.soft_dom = dom_p
+        self.soft_cnt0 = np.zeros((Ts, _bucket(max(n_domains, 1),
+                                               minimum=64)), np.float32)
+        Sb = _bucket(base.shape[0], minimum=1)
+        base_p = np.zeros((Sb, base.shape[1]), np.float32)
+        base_p[:base.shape[0]] = base
+        self.soft_base = base_p
+        self.soft_base_idx = np.full((P,), -1, np.int32)
+        self.soft_base_idx[:len(base_idx)] = base_idx
+        Ks = _bucket(max(read_tids.shape[1], write_tids.shape[1], 1),
+                     minimum=1)
+
+        def pad_i(m):
+            out = np.full((P, Ks), -1, np.int32)
+            out[:m.shape[0], :m.shape[1]] = m
+            return out
+
+        def pad_f(m):
+            out = np.zeros((P, Ks), np.float32)
+            out[:m.shape[0], :m.shape[1]] = m
+            return out
+        self.soft_read_tids = pad_i(read_tids)
+        self.soft_read_w = pad_f(read_w)
+        self.soft_write_tids = pad_i(write_tids)
+        self.soft_write_w = pad_f(write_w)
+        self.soft_weight = float(weight)
+
     def enable_class_scan(self) -> None:
         """Build the (template, score-row) class tables for the kernel's
         incremental class-indexed scan (kernels/batch.py
@@ -779,6 +879,19 @@ class PodBatchTensors:
             out["spread_zone"] = put(self.spread_zone)
             out["spread_zinit"] = put(self.spread_zinit)
             out["spread_weight"] = put(np.float32(self.spread_weight))
+        if self.anti_dom is not None:
+            for k in ("anti_dom", "anti_cnt0", "anti_tids", "aff_tids",
+                      "match_tids"):
+                out[k] = put(getattr(self, k))
+            if self.cmatch_tids is not None:
+                out["cmatch_tids"] = put(self.cmatch_tids)
+                out["canti_tids"] = put(self.canti_tids)
+        if self.soft_dom is not None:
+            for k in ("soft_dom", "soft_cnt0", "soft_base", "soft_base_idx",
+                      "soft_read_tids", "soft_read_w", "soft_write_tids",
+                      "soft_write_w"):
+                out[k] = put(getattr(self, k))
+            out["soft_weight"] = put(np.float32(self.soft_weight))
         if self._class_tables is not None:
             for k, v in self._class_tables.items():
                 out[k] = put(v)

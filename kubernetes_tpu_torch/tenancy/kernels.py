@@ -75,9 +75,13 @@ def neg_wrap(prio: torch.Tensor) -> torch.Tensor:
 def drf_order_plain(prio: torch.Tensor, shares: torch.Tensor,
                     tidx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """_order_kernel, jnp.lexsort((pos, shares[tidx], -prio)), as stable
-    sorts from the last key to the first."""
+    sorts from the last key to the first. Every NaN share becomes the one
+    positive NaN first: lexsort puts all NaNs last as equals, while the
+    card's stable sort (a radix sort on the bits) would put a NaN with
+    the sign bit set first."""
     perm = torch.sort(pos, stable=True).indices
     share = shares[tidx.long()]
+    share = torch.where(torch.isnan(share), float("nan"), share)
     perm = perm[torch.sort(share[perm], stable=True).indices]
     perm = perm[torch.sort(neg_wrap(prio)[perm], stable=True).indices]
     return perm.to(torch.int32)

@@ -1,15 +1,21 @@
 """The scheduler_perf-shaped cluster and pods of the batch drain.
 
 The same shapes as the repository's bench.py (make_node / make_pod, its
-`uniform`, `node-affinity`, `taints` and `spread` variants): nodes of 4
-CPU, 32Gi and 110 pods in 16 zones; pods of three request shapes. Every
-builder takes the API module to build with, so one seeded fixture can
-be built in this package's types and in the reference package's.
+`uniform`, `node-affinity`, `taints` and `spread` variants, and the
+inter-pod ones `pod-affinity`, `pod-anti-affinity` and
+`preferred-affinity`): nodes of 4 CPU, 32Gi and 110 pods in 16 zones;
+pods of three request shapes. Every function here takes the API module to
+build with, so one seeded fixture can be built in this package's types
+and in the reference package's.
 """
 
 from __future__ import annotations
 
 VARIANTS = ("uniform", "node-affinity", "taints", "spread")
+#: the inter-pod (anti-)affinity variants: their batches carry the
+#: scan's topology counters or soft credit tables
+AFFINITY_VARIANTS = ("pod-affinity", "pod-anti-affinity",
+                     "preferred-affinity")
 
 
 def make_node(api, i: int, variant: str = "uniform", zones: int = 16):
@@ -51,6 +57,38 @@ def make_pod(api, i: int, variant: str = "uniform", shape: int = None):
                     match_expressions=[api.NodeSelectorRequirement(
                         key=api.wellknown.LABEL_ZONE, operator="In",
                         values=[f"zone-{z}" for z in range(8)])])])))
+    elif variant == "pod-affinity":
+        # required affinity to pods sharing the app label, zone topology
+        pod.spec.affinity = api.Affinity(pod_affinity=api.PodAffinity(
+            required_during_scheduling_ignored_during_execution=[
+                api.PodAffinityTerm(
+                    label_selector=api.LabelSelector(
+                        match_labels={"app": "bench"}),
+                    topology_key=api.wellknown.LABEL_ZONE)]))
+    elif variant == "pod-anti-affinity":
+        # required anti-affinity within one of 100 colors, hostname
+        # topology: no two pods of a color on one node
+        pod.metadata.labels["color"] = f"c{i % 100}"
+        pod.spec.affinity = api.Affinity(
+            pod_anti_affinity=api.PodAntiAffinity(
+                required_during_scheduling_ignored_during_execution=[
+                    api.PodAffinityTerm(
+                        label_selector=api.LabelSelector(
+                            match_labels={"color": f"c{i % 100}"}),
+                        topology_key=api.wellknown.LABEL_HOSTNAME)]))
+    elif variant == "preferred-affinity":
+        # preferred anti-affinity (weight 10) within one of 16 groups,
+        # hostname topology: the soft credit workload
+        pod.metadata.labels["grp"] = f"g{i % 16}"
+        pod.spec.affinity = api.Affinity(
+            pod_anti_affinity=api.PodAntiAffinity(
+                preferred_during_scheduling_ignored_during_execution=[
+                    api.WeightedPodAffinityTerm(
+                        weight=10,
+                        pod_affinity_term=api.PodAffinityTerm(
+                            label_selector=api.LabelSelector(
+                                match_labels={"grp": f"g{i % 16}"}),
+                            topology_key=api.wellknown.LABEL_HOSTNAME))]))
     elif variant == "taints":
         # two thirds tolerate the dedicated taint; one third is confined
         # to the untainted half
@@ -59,6 +97,20 @@ def make_pod(api, i: int, variant: str = "uniform", shape: int = None):
                 key="dedicated", operator="Equal", value="gpu",
                 effect="NoSchedule")]
     return pod
+
+
+def seed_pods(api, variant: str, n_nodes: int):
+    """The bound pods bench.py's run_config places before a drain of an
+    inter-pod variant: one pod of each of the first 100 colors on nodes
+    0..99 for `pod-anti-affinity`, one affine pod on node 0 for
+    `pod-affinity`, none otherwise."""
+    n = {"pod-anti-affinity": 100, "pod-affinity": 1}.get(variant, 0)
+    out = []
+    for i in range(min(n, n_nodes)):
+        pod = make_pod(api, 3_000_000 + i, variant)
+        pod.spec.node_name = f"node-{i}"
+        out.append(pod)
+    return out
 
 
 def spread_service(api):

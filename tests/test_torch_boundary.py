@@ -34,6 +34,11 @@ SLICE_MODULES = [
     "kubernetes_tpu_torch.scheduler", "kubernetes_tpu_torch.scheduler.core",
     "kubernetes_tpu_torch.scheduler.tensorize",
     "kubernetes_tpu_torch.scheduler.topology",
+    "kubernetes_tpu_torch.scheduler.priorities",
+    "kubernetes_tpu_torch.scheduler.predicates",
+    "kubernetes_tpu_torch.scheduler.nodeinfo",
+    "kubernetes_tpu_torch.scheduler.cache",
+    "kubernetes_tpu_torch.scheduler.metrics",
     "kubernetes_tpu_torch.scheduler.scorer",
     "kubernetes_tpu_torch.scheduler.volumebinder",
     "kubernetes_tpu_torch.scheduler.queue",
@@ -113,20 +118,19 @@ def _sched(**kw):
     return sched
 
 
-def test_required_anti_affinity_batch_raises():
-    pod = workload.make_pod(tapi, 0)
+def _anti_pod(i):
+    pod = workload.make_pod(tapi, i)
     pod.spec.affinity = tapi.Affinity(pod_anti_affinity=tapi.PodAntiAffinity(
         required_during_scheduling_ignored_during_execution=[
             tapi.PodAffinityTerm(
                 label_selector=tapi.LabelSelector(
                     match_labels={"app": "bench"}),
                 topology_key=tapi.wellknown.LABEL_HOSTNAME)]))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        _sched().schedule([pod, workload.make_pod(tapi, 1)])
+    return pod
 
 
-def test_preferred_pod_affinity_batch_raises():
-    pod = workload.make_pod(tapi, 0)
+def _preferred_pod(i):
+    pod = workload.make_pod(tapi, i)
     pod.spec.affinity = tapi.Affinity(pod_anti_affinity=tapi.PodAntiAffinity(
         preferred_during_scheduling_ignored_during_execution=[
             tapi.WeightedPodAffinityTerm(
@@ -134,15 +138,38 @@ def test_preferred_pod_affinity_batch_raises():
                     label_selector=tapi.LabelSelector(
                         match_labels={"app": "bench"}),
                     topology_key=tapi.wellknown.LABEL_HOSTNAME))]))
-    with pytest.raises(NotImplementedError, match="soft"):
-        _sched().schedule([pod])
+    return pod
+
+
+def test_required_anti_affinity_batch_raises(monkeypatch):
+    """Ported in slice 3: the batch schedules on the class route, with
+    the counters in the scan (one pod per hostname). Only the classic
+    per-pod branch (slice 4) still raises for it."""
+    res = _sched().schedule([_anti_pod(i) for i in range(4)])
+    nodes = [r.node_name for r in res]
+    assert None not in nodes and len(set(nodes)) == 4
+    monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        _sched().schedule([_anti_pod(0), _anti_pod(1)])
+
+
+def test_preferred_pod_affinity_batch_raises(monkeypatch):
+    """Ported in slice 3: the soft credit tables ride the class scan.
+    Only the classic per-pod branch (slice 4) still raises for it."""
+    sched = _sched()
+    pods = [_preferred_pod(i) for i in range(4)]
+    assert sched._soft_plan(pods) is not None
+    assert all(r.node_name for r in sched.schedule(pods))
+    monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        _sched().schedule([_preferred_pod(0)])
 
 
 def test_nominated_reservation_raises():
     nominated = NominatedPodMap()
     ghost = workload.make_pod(tapi, 99)
     nominated.add(ghost, "node-0")
-    with pytest.raises(NotImplementedError, match="nominated"):
+    with pytest.raises(NotImplementedError, match="nominated.*slice 4"):
         _sched(nominated=nominated).schedule([workload.make_pod(tapi, 0)])
 
 

@@ -97,6 +97,34 @@ def test_order_negative_zero_ties_with_zero():
     assert got.tolist() == want.tolist() == [0, 1, 2, 3]
 
 
+@pytest.mark.parametrize("case", ["repro", "mixed"])
+def test_order_nan_shares_sort_last_like_jax(case):
+    """A NaN dominant share (an inf - inf usage row) sorts after every
+    number, and NaNs tie with one another so position decides; -0.0
+    still ties with 0.0. K5 compares shares under this order too
+    (tests/test_torch_gpu.py holds it against this plain version)."""
+    if case == "repro":
+        prio = np.zeros(4, np.int32)
+        shares = np.array([0.5, np.nan, 0.1, 0.5], np.float32)
+        tidx = np.arange(4, dtype=np.int32)
+        pos = np.arange(4, dtype=np.int32)
+    else:
+        rng = np.random.default_rng(11)
+        P = 200
+        prio = rng.choice(np.array([0, 1000], np.int32), P)
+        shares = np.array([np.nan, 0.0, -0.0, 0.25, np.nan, 0.25, -np.nan,
+                           1e-3], np.float32)
+        tidx = rng.integers(0, len(shares), P).astype(np.int32)
+        pos = rng.permutation(P).astype(np.int32)
+    want = _jax(jdrf._order_kernel, prio, shares[tidx], pos)
+    got = tk.drf_order(_t(prio), _t(shares), _t(tidx), _t(pos)).numpy()
+    assert got.tolist() == want.tolist()
+    assert sorted(got.tolist()) == list(range(len(prio)))
+    assert got.tolist() == np.lexsort((pos, shares[tidx], -prio)).tolist()
+    if case == "repro":
+        assert got.tolist() == [2, 0, 3, 1]
+
+
 def test_order_int32_min_wraps_like_jax():
     """-INT32_MIN wraps to INT32_MIN: the lowest priority sorts FIRST in
     the reference, ahead of the system class."""

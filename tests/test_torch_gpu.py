@@ -80,22 +80,106 @@ def _plain(fn, *args):
         kb.class_ms_init, kb._class_scan_cuda = saved
 
 
-@pytest.mark.parametrize("spread", [False, True])
-def test_scan_kernels_match_plain(cuda, spread):
+def _lists(rng, n_terms, P, K, frac):
+    out = rng.integers(0, n_terms, (P, K)).astype(np.int32)
+    out[rng.random((P, K)) >= frac] = -1
+    return out
+
+
+def _dom(rng, n_terms, T, N):
+    """Even terms on hostname (domain = row), odd ones on 16 zones; a
+    tenth of the nodes lack the label; pad term rows are -1."""
+    dom = np.full((T, N), -1, np.int32)
+    for t in range(n_terms):
+        dom[t] = np.arange(N) if t % 2 == 0 else np.arange(N) % 16
+        dom[t, rng.random(N) < 0.1] = -1
+    return dom
+
+
+def _affinity(pb, seed, topo=False, dir2=False, soft=False):
+    """The in-scan tables of tests/test_torch_affinity.py at the card's
+    size: 100 self-anti colors (T 128, D 1024, K 2) with waived affinity
+    and direction-2 lists; 16 soft channels (Ts 16, Ds 1024, Ks 2) with
+    signed read weights."""
+    rng = np.random.default_rng(seed + 50)
+    P, N = pb["class_idx"].shape[0], pb["unique_masks"].shape[1]
+    if topo:
+        color = rng.integers(0, 100, P).astype(np.int32)
+        anti = _lists(rng, 100, P, 2, 0.0)
+        anti[:, 0] = np.where(rng.random(P) < 0.8, color, -1)
+        match = _lists(rng, 100, P, 2, 0.3)
+        match[:, 0] = color
+        pb.update({"anti_dom": _dom(rng, 100, 128, N),
+                   "anti_cnt0": np.zeros((128, 1024), np.float32),
+                   "anti_tids": anti, "aff_tids": _lists(rng, 100, P, 2,
+                                                         0.1),
+                   "match_tids": match})
+        if dir2:
+            pb["cmatch_tids"] = _lists(rng, 100, P, 2, 0.2)
+            pb["canti_tids"] = _lists(rng, 100, P, 2, 0.2)
+    if soft:
+        base_idx = rng.integers(0, 3, P).astype(np.int32)
+        base_idx[::5] = -1
+        pb.update({
+            "soft_dom": _dom(rng, 16, 16, N),
+            "soft_cnt0": np.zeros((16, 1024), np.float32),
+            "soft_base": rng.integers(-20, 21, (4, N)).astype(np.float32),
+            "soft_base_idx": base_idx,
+            "soft_read_tids": _lists(rng, 16, P, 2, 0.7),
+            "soft_read_w": rng.choice([10.0, -10.0, 1.0, -1.0], (P, 2))
+            .astype(np.float32),
+            "soft_write_tids": _lists(rng, 16, P, 2, 0.7),
+            "soft_write_w": rng.choice([1.0, 10.0], (P, 2)).astype(
+                np.float32),
+            "soft_weight": np.float32(2.0)})
+    return pb
+
+
+#: (spread, topo, dir2, soft): every K2 instance, dir2 with and without
+INSTANCES = [(False, False, False, False), (True, False, False, False),
+             (False, True, False, False), (False, True, True, False),
+             (False, False, False, True), (True, False, False, True),
+             (False, True, True, True), (True, True, False, False),
+             (True, True, True, True)]
+
+
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+def test_scan_kernels_match_plain(cuda, spread, topo, dir2, soft):
     node_cfg, usage, pb = _state(1)
     if not spread:
         pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, 1, topo, dir2, soft)
     tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    name = kb.scan_instance(spread, topo, soft)
     before = dict(kb.LAUNCHES)
     packed, new_usage = kb.schedule_batch_packed(tc, tu, tpb)
-    assert kb.LAUNCHES["class_scan"] == before["class_scan"] + 1
+    assert kb.LAUNCHES[name] == before[name] + 1
     assert kb.LAUNCHES["class_ms_init"] == before["class_ms_init"] + 1
     ref, ref_usage = _plain(kb.schedule_batch_packed, tc, tu, tpb)
     torch.cuda.synchronize()
     assert torch.equal(packed, ref)
+    assert set(new_usage) == set(ref_usage)
     for k in ref_usage:
         assert torch.equal(new_usage[k].view(torch.int32),
                            ref_usage[k].view(torch.int32)), k
+    assert (packed[0] >= 0).sum() > 1000
+
+
+def test_soft_chained_launch_matches_plain(cuda):
+    """A second launch seeded from the first one's soft credit finals."""
+    node_cfg, usage, pb = _state(2)
+    pb = _affinity(pb, 2, soft=True)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    _, use1 = kb.schedule_batch_packed(tc, tu, tpb)
+    assert use1["soft_cnt"].any()
+    tpb2 = dict(tpb, seq=tpb["seq"] + tpb["seq"].shape[0])
+    packed, use2 = kb.schedule_batch_packed(tc, use1, tpb2)
+    ref, ref2 = _plain(kb.schedule_batch_packed, tc, use1, tpb2)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, ref)
+    for k in ref2:
+        assert torch.equal(use2[k].view(torch.int32),
+                           ref2[k].view(torch.int32)), k
 
 
 def test_apply_dirty_kernel_matches_plain(cuda):
@@ -166,6 +250,30 @@ def test_drf_order_kernel_matches_plain(cuda, P):
     # the CPU plain version agrees too
     assert torch.equal(got.cpu(), tk.drf_order_plain(
         prio.cpu(), shares.cpu(), tidx.cpu(), pos.cpu()))
+
+
+@pytest.mark.parametrize("P", [4, 64, 1000])
+def test_drf_order_kernel_nan_shares_give_a_permutation(cuda, P):
+    """NaN shares sort after every number and tie with one another; the
+    result is a permutation equal to the plain version's (which the CPU
+    tests hold against JAX's lexsort)."""
+    from kubernetes_tpu_torch.tenancy import kernels as tk
+    if P == 4:
+        prio = np.zeros(4, np.int32)
+        shares = np.array([0.5, np.nan, 0.1, 0.5], np.float32)
+        tidx = np.arange(4, dtype=np.int32)
+    else:
+        prio, _, tidx, _ = _drf_inputs(P, P, 9)
+        shares = np.array([np.nan, 0.0, -0.0, 0.25, np.nan, 0.25, -np.nan,
+                           1e-3, 0.5], np.float32)
+    pos = np.arange(P, dtype=np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (prio, shares, tidx, pos)]
+    got = tk.drf_order(*args)
+    want = tk.drf_order_plain(*args)
+    assert sorted(got.cpu().tolist()) == list(range(P))
+    assert torch.equal(got, want)
+    if P == 4:
+        assert got.cpu().tolist() == [2, 0, 3, 1]
 
 
 def test_drf_order_kernel_single_tenant_keeps_pop_order(cuda):

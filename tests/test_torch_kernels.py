@@ -261,17 +261,18 @@ def test_schedule_batch_chained_launch_bit_exact(spread):
 
 
 def test_schedule_batch_routes_outside_the_slice_raise():
+    """The classic per-pod branch, the nominated overlay and filter_score
+    are port slice 4 (the in-scan affinity tables are ported:
+    tests/test_torch_affinity.py)."""
     node_cfg, usage, pb = _batch(0, False, P=64)
     tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, "cpu")
     classic = {k: v for k, v in tpb.items() if k not in CLASS_KEYS}
-    with pytest.raises(NotImplementedError, match="classic"):
+    with pytest.raises(NotImplementedError, match="classic.*slice 4"):
         tb.schedule_batch(tc, tu, classic)
-    with pytest.raises(NotImplementedError, match="anti"):
-        tb.schedule_batch(tc, tu, dict(tpb, anti_dom=torch.zeros(8, 256)))
-    with pytest.raises(NotImplementedError, match="soft"):
-        tb.schedule_batch(tc, tu, dict(tpb, soft_dom=torch.zeros(8, 256)))
-    with pytest.raises(NotImplementedError, match="nominated"):
+    with pytest.raises(NotImplementedError, match="nominated.*slice 4"):
         tb.schedule_batch(tc, tu, tpb, nom={"used": tu["used"]})
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tb.filter_score(tc, tu, tpb)
 
 
 # ------------------------------------------------------------ K3 + packing
