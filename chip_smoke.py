@@ -31,24 +31,54 @@ one process per source, all started together), then:
        weight) pods: 10,000 pods onto 1,000 nodes, BASELINE.json's
        configs 3 and 4. Their batches carry K2's topology counters and
        soft credits (the class_scan_topo and class_scan_soft instances).
+     - `nominated`: the same scheduler loop over bench.py's `nominated`
+       variant at its own size, 5,000 uniform pods onto 5,000 nodes with a
+       ghost preemptor nominated to every fourth node: K1 folds the
+       phantom reservations into feasibility and K2 runs its nominated
+       instance (class_scan_nom) on every batch;
+     - `storm`: bench.py preempt_main's preemption storm at 5,000 nodes
+       (3 bound victims of priority 0/10/100 on every node, a PodGroup
+       member on every fourth, a PodDisruptionBudget over band b0): 150
+       preemptors of 2 CPU / 3Gi at priority 1000 through
+       BatchScheduler.preempt, each plan's victims removed from the cache
+       (K6 price_nodes prices every candidate node on each), then the same
+       storm through the serial reprieve control (KTPU_PREEMPT_KERNEL=0),
+       plans/s of both printed;
+     - `preemption`: the same cluster created through the port's Client
+       (with the PDB object), 150 preemptors created pending, and
+       Scheduler.drain_pipelined with preemption on until nothing is
+       pending: each preemptor is priced (K6), nominated, evicts its
+       victims, and lands through the nominated overlay (K1's fold, K2's
+       class_scan_nom with the nominee's own row exempt). The informer
+       events are delivered on the drain's thread (workload.InformerPump)
+       and a FakeClock steps past backoffs.
      Every pod must bind (in the store, for the scheduler loops), no
-     node's usage recomputed from the binds may exceed its allocatable,
-     and on `anti-affinity` no two pods of a color may share a node;
+     node's usage recomputed from the binds (the ghost reservations
+     counted on `nominated`) may exceed its allocatable, on
+     `anti-affinity` no two pods of a color may share a node, and on
+     `preemption` every evicted victim must rank below its preemptor and
+     preemption_attempts must equal the plans made;
   2. kernel phase: each kernel on the inputs the main paths gave it, held
      bit for bit against its plain PyTorch version on the card, and
      timed with CUDA events beside the plain version and, where one
      PyTorch call computes the same function, that call. Each K2
-     instance is held on a whole batch of its path;
-  3. the `uniform`, `spread`, `anti-affinity` and `preferred` drains
-     with the plain versions on the card (the kernels patched out in
-     this script only): the binds must be equal. `uniform` and `spread`
-     are cut to their first two batches here (PLAIN_PODS), which bind
-     as in the whole drain, to keep the script well inside its time;
+     instance is held on a whole batch of its path; every launch of the
+     nominated instance on the `nominated` and `preemption` paths, and
+     every one of the storm's 150 K6 decisions (winner, chosen units,
+     prefix lengths, PDB violations), is held against its plain version;
+  3. the `uniform`, `spread`, `anti-affinity`, `preferred` and
+     `nominated` drains with the plain versions on the card (the kernels
+     patched out in this script only): the binds must be equal. `uniform`
+     and `spread` are cut to their first two batches here (PLAIN_PODS),
+     which bind as in the whole drain, to keep the script well inside its
+     time;
   4. small drains (128 nodes, 1,024 pods) on the card against the same
      drains on the CPU: for `uniform` and `spread` the binds and score
      bits must be equal; for the nine-tenant scheduler loop (with
      KTPU_COMMIT_THREAD=0, the only setting whose multi-tenant order does
-     not depend on thread timing) the binds and the DRF shares' bits.
+     not depend on thread timing) the binds and the DRF shares' bits;
+     for the preemption loop (400 nodes, 30 preemptors, the same
+     setting) the binds, the evicted victims and the nominations.
 
 It prints a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and as its last line
@@ -76,9 +106,20 @@ SMALL_NODES, SMALL_PODS, SMALL_BATCH = 128, 1024, 256
 PLAIN_PODS = 2 * BATCH
 #: BASELINE.json configs 3 and 4: 10k pods onto 1k nodes
 AFF_NODES, AFF_PODS = 1000, 10_000
-#: the inter-pod paths and the bench.py variant each drains
-AFF_PATHS = {"anti-affinity": "pod-anti-affinity",
-             "preferred": "preferred-affinity"}
+#: bench.py's `nominated` variant at its own size (its AFF_NODES and
+#: AFF_PODS), ghost nominations on every fourth node
+NOM_NODES, NOM_PODS = 5000, 5000
+#: the scheduler-loop paths: bench.py variant, nodes, pods
+SCHED_PATHS = {"anti-affinity": ("pod-anti-affinity", AFF_NODES, AFF_PODS),
+               "preferred": ("preferred-affinity", AFF_NODES, AFF_PODS),
+               "nominated": ("nominated", NOM_NODES, NOM_PODS)}
+#: bench.py preempt_main's storm at BASELINE.json's north-star cluster
+#: (5,000 nodes in place of the bench's default 400), and the small
+#: version held between the card and the CPU
+STORM_NODES, STORM_PODS = 5000, 150
+SMALL_STORM_NODES, SMALL_STORM_PODS = 400, 30
+#: the storm's preemptor priority (workload.storm_preemptor)
+PREEMPTOR_PRIORITY = 1000
 #: the scheduler path's tenants (bench.py tenancy_main's nine steady
 #: tenants) and its priority mix (every fourth pod at 1000)
 N_TENANTS = 9
@@ -89,12 +130,17 @@ PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "scheduler": ("class_ms_init", "class_scan", "drf_dominant",
                               "drf_order"),
                 "anti-affinity": ("class_ms_init", "class_scan_topo"),
-                "preferred": ("class_ms_init", "class_scan_soft")}
+                "preferred": ("class_ms_init", "class_scan_soft"),
+                "nominated": ("class_ms_init", "class_scan_nom"),
+                "storm": ("price_nodes",),
+                "preemption": ("price_nodes", "class_ms_init",
+                               "class_scan_nom")}
 #: the K2 instances, each timed and held on a batch of the path named
 SCAN_ROWS = (("class_scan", "uniform", "batch.py:596"),
              ("class_scan_spread", "spread", "batch.py:163"),
              ("class_scan_topo", "anti-affinity", "batch.py:366"),
-             ("class_scan_soft", "preferred", "batch.py:254"))
+             ("class_scan_soft", "preferred", "batch.py:254"),
+             ("class_scan_nom", "nominated", "batch.py:515"))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 #: outside the tensor cores; the bound of a kernel is the larger of its
 #: bytes over the first and its f32 operations over the second
@@ -129,6 +175,7 @@ class Port:
         from kubernetes_tpu_torch.scheduler.cache import Cache
         from kubernetes_tpu_torch.scheduler.core import BatchScheduler
         from kubernetes_tpu_torch.scheduler.kernels import batch as kb
+        from kubernetes_tpu_torch.scheduler.kernels import preempt as pk
         from kubernetes_tpu_torch.scheduler.nodeinfo import (NodeInfo,
                                                               pod_resource)
         from kubernetes_tpu_torch.scheduler.priorities import SpreadListers
@@ -138,7 +185,9 @@ class Port:
         from kubernetes_tpu_torch.state import Client
         from kubernetes_tpu_torch.tenancy import TENANT_LABEL
         from kubernetes_tpu_torch.tenancy import kernels as tk
+        from kubernetes_tpu_torch.utils.clock import FakeClock
         self.Scheduler, self.Client, self.tk = Scheduler, Client, tk
+        self.pk, self.FakeClock = pk, FakeClock
         self.precompute = precompute_pod_features
         self.TENANT_LABEL = TENANT_LABEL
         self.torch, self.api, self.wl = torch, api, workload
@@ -164,11 +213,12 @@ class Port:
         return pod
 
     def launches(self):
-        return {**self.kb.LAUNCHES, **self.tk.LAUNCHES}
+        return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES}
 
     def reset_launches(self):
         self.kb.reset_launches()
         self.tk.reset_launches()
+        self.pk.reset_launches()
 
 
 class Recorder:
@@ -179,12 +229,21 @@ class Recorder:
     unchanged."""
 
     def __init__(self, port):
-        self.kb, self.tk = port.kb, port.tk
+        self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
+        #: paths whose every nominated scan launch is kept (inputs and
+        #: outputs) to be held against the plain versions after the drain
+        self.nom_paths = ("nominated", "preemption")
+        #: (path, (node_cfg, usage, pod batch, nom), packed, new usage)
+        self.nom_launches = []
+        #: while a list: every price_nodes call's (inputs, outputs)
+        self.price_log = None
+        #: the kernel storm's price_nodes calls (price_log of that run)
+        self.storm_price = []
         #: the inputs of the largest drf_dominant / drf_order call (the
         #: last one at that size, when shares have built up)
         self.dominant_inputs = None
         self.order_inputs = None
-        #: variant -> its first batch's (node_cfg, usage, pod batch)
+        #: variant -> its first batch's (node_cfg, usage, pod batch, nom)
         self.scan_inputs = {}
         self.variant = None
         self.dirty_inputs = None    # largest apply_dirty call's inputs
@@ -200,7 +259,7 @@ class Recorder:
                                  self._orig["apply_dirty"])
 
         def clone(d):
-            return {k: v.clone() for k, v in d.items()}
+            return None if d is None else {k: v.clone() for k, v in d.items()}
 
         def timed(fn, *args):
             import torch
@@ -213,10 +272,19 @@ class Recorder:
             return out
 
         def scan(node_cfg, usage, pod_batch, nom=None):
+            inputs = None
+            if self.variant not in self.scan_inputs or (
+                    nom is not None and self.variant in self.nom_paths):
+                inputs = (clone(node_cfg), clone(usage), clone(pod_batch),
+                          clone(nom))
             if self.variant not in self.scan_inputs:
-                self.scan_inputs[self.variant] = (
-                    clone(node_cfg), clone(usage), clone(pod_batch))
-            return timed(orig_scan, node_cfg, usage, pod_batch, nom)
+                self.scan_inputs[self.variant] = inputs
+            packed, new_usage = timed(orig_scan, node_cfg, usage, pod_batch,
+                                      nom)
+            if nom is not None and self.variant in self.nom_paths:
+                self.nom_launches.append((self.variant, inputs,
+                                          packed.clone(), clone(new_usage)))
+            return packed, new_usage
 
         def dirty(node_cfg, usage, idx, cfg_rows, usage_rows):
             if self.dirty_inputs is None or \
@@ -247,6 +315,17 @@ class Recorder:
             return timed(orig_ord, prio, shares, tidx, pos)
         tk.drf_dominant = dominant
         tk.drf_order = order
+        pk = self.pk
+        self._orig_pk = pk.price_nodes
+        orig_price = pk.price_nodes
+
+        def price(*args):
+            out = timed(orig_price, *args)
+            if self.price_log is not None:
+                self.price_log.append((tuple(a.clone() for a in args),
+                                       tuple(o.clone() for o in out)))
+            return out
+        pk.price_nodes = price
         return self
 
     def __exit__(self, *exc):
@@ -254,6 +333,7 @@ class Recorder:
             setattr(self.kb, k, v)
         for k, v in self._orig_tk.items():
             setattr(self.tk, k, v)
+        self.pk.price_nodes = self._orig_pk
 
 
 class PlainOnCard:
@@ -262,17 +342,18 @@ class PlainOnCard:
     PyTorch versions. The package itself has no such switch."""
 
     def __init__(self, port):
-        self.kb, self.tk = port.kb, port.tk
+        self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
         self._orig = []
 
     def __enter__(self):
-        kb, tk = self.kb, self.tk
+        kb, tk, pk = self.kb, self.tk, self.pk
         for mod, name, plain in (
                 (kb, "class_ms_init", kb.class_ms_init_plain),
                 (kb, "_class_scan_cuda", kb._class_scan_plain),
                 (kb, "apply_dirty", kb.apply_dirty_plain),
                 (tk, "drf_dominant", tk.drf_dominant_plain),
-                (tk, "drf_order", tk.drf_order_plain)):
+                (tk, "drf_order", tk.drf_order_plain),
+                (pk, "price_nodes", pk.price_nodes_plain)):
             self._orig.append((mod, name, getattr(mod, name)))
             setattr(mod, name, plain)
         return self
@@ -291,7 +372,9 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
     precomputed, as the informer thread does) to the queue; bench.py's
     compile warm-up batches are left out (nothing here compiles per
     shape). `variant` "tenants" is the nine-tenant mix, any other a
-    bench.py pod variant. Returns the drain's numbers; host phases and
+    bench.py pod variant (`nominated` installs its ghost nominations, as
+    bench.py's _install_variant_extras does). Returns the drain's
+    numbers; host phases and
     the launch-to-committed latency of each batch are taken by wrapping
     the drain's own methods here (the package has no such hooks)."""
     client = port.Client(validate=False)
@@ -304,6 +387,8 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
     seeds = port.wl.seed_pods(port.api, variant, n_nodes)
     for pod in seeds:
         sched.cache.add_pod(pod)
+    if variant == "nominated":
+        port.wl.install_nominated(port.api, sched.queue.nominated, n_nodes)
     make = port.tenant_pod if variant == "tenants" else \
         (lambda i: port.wl.make_pod(port.api, i, variant))
     pods = [client.pods().create(make(i)) for i in range(n_pods)]
@@ -372,9 +457,10 @@ def run_drain(port, variant, device, n_nodes, n_pods, batch, chain):
     return sched, pods, res, wall
 
 
-def check_capacity(port, variant, n_nodes, pods, binds):
+def check_capacity(port, variant, n_nodes, pods, binds, reserved=()):
     """Every pod bound, and per node the recomputed requests (cpu,
-    memory, pod count) within allocatable."""
+    memory, pod count) within allocatable, counting `reserved` (pod,
+    node) pairs as if bound there (the nominated path's ghosts)."""
     unbound = [k for k, v in binds.items() if v is None]
     if len(binds) != len(pods) or unbound:
         fail(f"{variant}: {len(pods) - len(binds) + len(unbound)} of "
@@ -384,8 +470,8 @@ def check_capacity(port, variant, n_nodes, pods, binds):
         node = port.wl.make_node(port.api, i, variant)
         alloc[node.metadata.name] = port.NodeInfo(node).allocatable
     used = {}
-    for pod in pods:
-        node = binds[pod.metadata.key()]
+    for pod, node in [(p, binds[p.metadata.key()]) for p in pods] + \
+            list(reserved):
         r = port.pod_resource(pod)
         u = used.setdefault(node, [0, 0, 0])
         u[0] += r.milli_cpu
@@ -402,14 +488,21 @@ def check_capacity(port, variant, n_nodes, pods, binds):
 
 def check_affinity_drain(port, path, r):
     """Every pod bound in the store, capacity held with the seeded pods
-    counted, and on `anti-affinity` no two pods of a color (seeds
-    included) on one node."""
-    if r["bound"] != AFF_PODS:
-        fail(f"{path}: drain_pipelined bound {r['bound']} of {AFF_PODS}")
+    (and on `nominated` the ghost reservations) counted, and on
+    `anti-affinity` no two pods of a color (seeds included) on one
+    node."""
+    _, n_nodes, n_pods = SCHED_PATHS[path]
+    if r["bound"] != n_pods:
+        fail(f"{path}: drain_pipelined bound {r['bound']} of {n_pods}")
     binds = dict(r["binds"])
     binds.update({p.metadata.key(): p.spec.node_name for p in r["seeds"]})
     pods = list(r["pods"]) + list(r["seeds"])
-    check_capacity(port, path, AFF_NODES, pods, binds)
+    ghosts = [(g, node) for node, gs in
+              r["sched"].queue.nominated.by_node().items() for g in gs]
+    if path == "nominated" and len(ghosts) != n_nodes // 4:
+        fail(f"nominated: {len(ghosts)} ghost reservations, not "
+             f"{n_nodes // 4}")
+    check_capacity(port, path, n_nodes, pods, binds, reserved=ghosts)
     if path == "anti-affinity":
         seen = {}
         for pod in pods:
@@ -474,15 +567,19 @@ def bits_equal(torch, a, b):
     return torch.equal(a, b)
 
 
-def check_scan(port, node_cfg, usage, pb, label):
-    """K1 + K2 against their plain versions on one whole batch's inputs;
-    returns (packed, post-batch usage, max abs error, ms of the plain
-    versions on the card, host clock)."""
+def check_scan(port, node_cfg, usage, pb, label, nom=None, packed_k=None,
+               use_k=None):
+    """K1 + K2 against their plain versions on one whole batch's inputs
+    (the kernels' outputs are computed here unless given); returns
+    (packed, post-batch usage, max abs error, ms of the plain versions on
+    the card, host clock)."""
     torch, kb = port.torch, port.kb
-    packed_k, use_k = kb.schedule_batch_packed(node_cfg, usage, pb)
+    if packed_k is None:
+        packed_k, use_k = kb.schedule_batch_packed(node_cfg, usage, pb, nom)
     with PlainOnCard(port):
         plain_ms, (packed_p, use_p) = time_host(
-            torch, lambda: kb.schedule_batch_packed(node_cfg, usage, pb))
+            torch, lambda: kb.schedule_batch_packed(node_cfg, usage, pb,
+                                                    nom))
     torch.cuda.synchronize()
     if not torch.equal(packed_k, packed_p):
         fail(f"K2 class_scan disagrees with its plain version on the "
@@ -503,7 +600,7 @@ def check_scan(port, node_cfg, usage, pb, label):
 
 def kernel_phase(port, rec, launches):
     torch, kb = port.torch, port.kb
-    node_cfg, usage, pb = rec.scan_inputs["uniform"]
+    node_cfg, usage, pb, _ = rec.scan_inputs["uniform"]
     cls = {k: pb[k] for k in kb._CLASS_KEYS}
     rw, um, us = pb["resource_weights"], pb["unique_masks"], \
         pb["unique_scores"]
@@ -591,6 +688,7 @@ def kernel_phase(port, rec, launches):
                  "bytes": k3_bytes, "ops": 0,
                  "shape": f"D={D} ({n_live} rows) N={cap}"})
     rows.extend(drf_rows(port, rec, launches))
+    rows.append(price_row(port, rec, launches))
     return rows
 
 
@@ -598,21 +696,21 @@ def scan_row(port, rec, launches, name, path, line):
     torch, kb = port.torch, port.kb
     if path not in rec.scan_inputs:
         fail(f"the {path} path never reached the class scan")
-    node_cfg, usage, pb = rec.scan_inputs[path]
+    node_cfg, usage, pb, nom = rec.scan_inputs[path]
     spread, topo, dir2, soft = kb._scan_terms(pb)
-    if kb.scan_instance(spread, topo, soft) != name:
-        fail(f"the {path} batch runs {kb.scan_instance(spread, topo, soft)}"
-             f", not {name}")
+    runs_name = kb.scan_instance(spread, topo, soft, nom is not None)
+    if runs_name != name:
+        fail(f"the {path} batch runs {runs_name}, not {name}")
     packed_k, use_k, err, plain_ms = check_scan(port, node_cfg, usage, pb,
-                                                path)
+                                                path, nom)
     cls = {k: pb[k] for k in kb._CLASS_KEYS}
     rw = pb["resource_weights"]
 
     def scan_only():
         # a fresh table and carry for each run; only the scan is timed
-        _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb)
+        _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb, nom)
         return lambda: kb._class_scan_cuda(node_cfg, pb, cls, rw, ms0,
-                                           carry, terms)
+                                           carry, terms, nom)
     runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
     ms = sum(runs[1:]) / 2   # the first run pays the library load
     N, R = node_cfg["alloc"].shape
@@ -664,6 +762,14 @@ def scan_row(port, rec, launches, name, path, line):
         scored = int((pb["soft_base_idx"] >= 0).sum())
         writes = int((pb["soft_write_tids"] >= 0).sum())
         term_ops += 4 * reads * N + 12 * scored * N + writes
+    selfs = 0
+    if nom is not None:
+        bytes_ += nbytes(*nom.values(), pb["nom_row"])
+        # the winner column's R + 1 reservation adds per pod; each
+        # nominee's own row: 2R + 2 folds and one class score
+        selfs = int((pb["nom_row"] >= 0).sum())
+        per_pod += R + 1
+        term_ops += selfs * (2 * R + 30)
     ops = P * (N * per_node + per_pod) + term_ops
     b = bound(bytes_, ops)
     return {"name": name, "route": "cuda",
@@ -676,7 +782,9 @@ def scan_row(port, rec, launches, name, path, line):
             "library_ms": None, "match": True,
             "bytes": bytes_, "ops": ops,
             "shape": f"P={P} C={C} N={N} R={R} G={G} K={K} Ks={Ks}"
-                     f"{' dir2' if dir2 else ''} ({path} batch)"}
+                     f"{' dir2' if dir2 else ''}"
+                     f"{f' nominees={selfs}' if nom is not None else ''}"
+                     f" ({path} batch)"}
 
 
 def drf_rows(port, rec, launches):
@@ -761,6 +869,195 @@ def drf_rows(port, rec, launches):
     return rows
 
 
+def price_vectorized(torch, a):
+    """price_nodes as one plain PyTorch expression (torch.cumsum and
+    whole-tensor reductions, no loop over the units): the yardstick
+    beside K6. Its sums run in PyTorch's own order, so it is timed, not
+    held bit for bit."""
+    (free0, cfree0, need, need_cnt, freed, fcnt, valid, pdb, top, psum,
+     gcnt, startr, row_valid) = a
+    V = valid.shape[1]
+    fit0 = (free0 >= need).all(1) & (cfree0 >= need_cnt)
+    elig = ((free0[:, None, :] + torch.cumsum(freed, 1)) >= need).all(2) \
+        & ((cfree0[:, None] + torch.cumsum(fcnt, 1)) >= need_cnt) & valid
+    kidx = elig.to(torch.int32).argmax(1)
+    feasible = elig.any(1) & ~fit0 & row_valid
+    chosen = valid & (torch.arange(V, device=valid.device)[None, :]
+                      <= kidx[:, None]) & feasible[:, None]
+    nviol = (chosen & pdb).sum(1)
+    topv = torch.where(chosen, top, -2**31).amax(1)
+    psumv = torch.where(chosen, psum, 0.0).sum(1)
+    cntv = torch.where(chosen, gcnt, 0).sum(1)
+    startv = torch.where(chosen & (top == topv[:, None]), startr, -1).amax(1)
+    m = feasible
+    for vals in (nviol, topv, psumv, cntv, -startv):
+        big = float("inf") if vals.dtype == torch.float32 else 2**31 - 1
+        m = m & (vals == torch.where(m, vals, big).min())
+    winner = torch.where(m.any(), m.to(torch.int32).argmax(), -1)
+    return winner, chosen, kidx + 1, nviol, elig.any(1)
+
+
+def decisions_equal(torch, got, ref):
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(got, ref))
+
+
+def price_row(port, rec, launches):
+    """K6 on the storm's last decision's inputs: timed beside the plain
+    version and the one-expression yardstick."""
+    torch, pk = port.torch, port.pk
+    if not rec.storm_price:
+        fail("the storm never reached price_nodes (K6)")
+    args, _ = rec.storm_price[-1]
+    got = pk.price_nodes(*args)
+    ref = pk.price_nodes_plain(*args)
+    torch.cuda.synchronize()
+    if not decisions_equal(torch, got, ref):
+        fail("K6 price_nodes disagrees with its plain version")
+    ms = time_cuda(torch, lambda: pk.price_nodes(*args), reps=200, warm=5)
+    plain_ms, _ = time_host(torch, lambda: pk.price_nodes_plain(*args))
+    lib_ms = time_cuda(torch, lambda: price_vectorized(torch, args),
+                       reps=50, warm=3)
+    N, V, R = args[4].shape
+    any_elig = price_vectorized(torch, args)[4]
+    # pass 1 walks each row's units until the first fitting one (all V
+    # where none fits), each unit R + 1 adds, R + 1 adds of the free
+    # space and R + 1 compares; then one pass over V for the costs and
+    # five narrowing passes over the rows
+    walked = int(torch.where(any_elig, got[2], V).sum())
+    ops = walked * 3 * (R + 1) + N * V * 6 + 6 * N
+    bytes_ = nbytes(*args, *got)
+    b = bound(bytes_, ops)
+    return {"name": "price_nodes", "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/price_nodes.cu",
+            "replaces": "kubernetes_tpu/scheduler/kernels/preempt.py:359",
+            "launches": launches["price_nodes"], "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms, "match": True,
+            "library_call": "the plain expression with torch.cumsum and "
+                            "whole-tensor reductions (no one library call "
+                            "prices victims)",
+            "bytes": bytes_, "ops": ops,
+            "shape": f"N={N} V={V} R={R} ({int(args[12].sum())} candidate "
+                     "rows, storm's last decision)"}
+
+
+def verify_nom_launches(port, rec):
+    """Every nominated scan launch kept on the nominated and preemption
+    paths, held against the plain versions on the same inputs. Returns
+    {path: (launches, launches with a nominee's own row)}."""
+    torch = port.torch
+    out = {}
+    for path, inputs, packed, new_usage in rec.nom_launches:
+        node_cfg, usage, pb, nom = inputs
+        check_scan(port, node_cfg, usage, pb, f"{path} nominated", nom,
+                   packed, new_usage)
+        n, selfs = out.get(path, (0, 0))
+        out[path] = (n + 1, selfs + int(bool((pb["nom_row"] >= 0).any())))
+    torch.cuda.synchronize()
+    return out
+
+
+def run_storm(port, device, n_nodes, n_pods, kernel):
+    """bench.py run_storm: the storm cluster straight into a cache, the
+    preemptors through BatchScheduler.preempt one by one, each plan's
+    victims removed from the cache. `kernel` False is the serial
+    reprieve control (KTPU_PREEMPT_KERNEL=0)."""
+    cache, pdbs = port.wl.storm_cache(port.api, port.Cache, n_nodes)
+    sched = port.BatchScheduler(cache, pdb_lister=lambda: pdbs,
+                                device=device)
+    sched.preempt_kernel = kernel
+    plans = []
+    t0 = time.perf_counter()
+    for i in range(n_pods):
+        plan = sched.preempt(port.wl.storm_preemptor(port.api, i))
+        if plan is not None:
+            plans.append((plan.node_name,
+                          [v.metadata.key() for v in plan.victims],
+                          plan.num_pdb_violations))
+            for v in plan.victims:
+                cache.remove_pod(v)
+    elapsed = time.perf_counter() - t0
+    return {"plans": plans, "elapsed": elapsed,
+            "victims": sum(len(p[1]) for p in plans),
+            "pdb_violations": sum(p[2] for p in plans)}
+
+
+def run_preemption_loop(port, device, n_nodes, n_pods, batch):
+    """The storm cluster created through the port's Client (nodes, bound
+    victims, the PDB object), n_pods preemptors created pending, and
+    Scheduler.drain_pipelined with preemption on until nothing is
+    pending (workload.drain_until_idle: the informer events delivered on
+    this thread, a FakeClock stepped past backoffs)."""
+    clock = port.FakeClock()
+    client = port.Client(validate=False)
+    t0 = time.perf_counter()
+    victims = port.wl.storm_client(port.api, client, n_nodes)
+    sched = port.Scheduler(client, batch_size=batch, device=device,
+                           clock=clock)
+    pump = port.wl.InformerPump(sched.informers)
+    for i in range(n_pods):
+        client.pods().create(port.wl.storm_preemptor(port.api, i))
+    pump.pump()
+    setup_s = time.perf_counter() - t0
+    algo = sched.algorithm
+    plans = []
+    preempt = algo.preempt
+
+    def counted(pod):
+        plan = preempt(pod)
+        if plan is not None:
+            plans.append(pod.metadata.key())
+        return plan
+    algo.preempt = counted
+    t0 = time.perf_counter()
+    try:
+        bound = port.wl.drain_until_idle(sched, pump, clock)
+    finally:
+        del algo.preempt
+        pump.close()
+    wall = time.perf_counter() - t0
+    sched.stop()
+    pods = {p.metadata.key(): p for p in client.pods().list()}
+    return {"sched": sched, "bound": bound, "wall": wall,
+            "setup_s": setup_s, "plans": plans,
+            "victims": victims, "pods": pods,
+            "binds": {k: p.spec.node_name or None for k, p in pods.items()},
+            "evicted": sorted(v.metadata.key() for v in victims
+                              if v.metadata.key() not in pods),
+            "nominated": {k: p.status.nominated_node_name
+                          for k, p in pods.items()
+                          if p.metadata.name.startswith("hi")},
+            "attempts": sched.metrics.preemption_attempts.value(),
+            "evictions": sched.metrics.preemption_victims.value(),
+            "commit_thread": sched._commit_async}
+
+
+def check_preemption_loop(port, label, r, n_nodes, n_pods):
+    """Every preemptor bound, every evicted victim below its preemptor's
+    priority, no node over capacity, and preemption_attempts equal to
+    the plans made."""
+    hi = {k: p for k, p in r["pods"].items()
+          if p.metadata.name.startswith("hi")}
+    unbound = [k for k, p in hi.items() if not p.spec.node_name]
+    if len(hi) != n_pods or unbound:
+        fail(f"{label}: {len(unbound)} of {n_pods} preemptors did not bind")
+    prio = {v.metadata.key(): v.spec.priority for v in r["victims"]}
+    above = [k for k in r["evicted"] if prio[k] >= PREEMPTOR_PRIORITY]
+    if above:
+        fail(f"{label}: evicted victims at or above the preemptors' "
+             f"priority: {above[:5]}")
+    if not r["evicted"]:
+        fail(f"{label}: no victim was evicted")
+    pods = list(r["pods"].values())
+    check_capacity(port, label, n_nodes, pods,
+                   {p.metadata.key(): p.spec.node_name for p in pods})
+    if r["attempts"] != len(r["plans"]):
+        fail(f"{label}: preemption_attempts {r['attempts']} != "
+             f"{len(r['plans'])} plans made")
+
+
 def main() -> None:
     try:
         import torch
@@ -814,12 +1111,27 @@ def main() -> None:
         sp = run_scheduler_drain(port, dev, N_NODES, N_PODS, BATCH)
         per_path["scheduler"] = port.launches()
         aff = {}
-        for path, variant in AFF_PATHS.items():
+        for path, (variant, n_nodes, n_pods) in SCHED_PATHS.items():
             rec.variant = path
             port.reset_launches()
-            aff[path] = run_scheduler_drain(port, dev, AFF_NODES, AFF_PODS,
+            aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
                                             BATCH, variant)
             per_path[path] = port.launches()
+        rec.variant = "storm"
+        rec.price_log = rec.storm_price
+        port.reset_launches()
+        storm = run_storm(port, dev, STORM_NODES, STORM_PODS, True)
+        per_path["storm"] = port.launches()
+        rec.price_log = None
+        rec.variant = "preemption"
+        port.reset_launches()
+        loop = run_preemption_loop(port, dev, STORM_NODES, STORM_PODS, BATCH)
+        per_path["preemption"] = port.launches()
+    # the serial control: no kernel prices it
+    port.reset_launches()
+    serial = run_storm(port, dev, STORM_NODES, STORM_PODS, False)
+    if port.launches()["price_nodes"]:
+        fail("the serial storm (KTPU_PREEMPT_KERNEL=0) launched K6")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             if per_path[path][k] == 0:
@@ -881,11 +1193,13 @@ def main() -> None:
         busy = sum(a.elapsed_time(b) for v, a, b in rec.events
                    if v == path)
         wall = r["wall"]
-        print(f"main path: {path} drain_pipelined of {AFF_PODS} pods "
-              f"(bench.py {AFF_PATHS[path]}, {len(r['seeds'])} seeded "
-              f"pods) onto {AFF_NODES} nodes, batches of {BATCH}, commit "
+        variant, n_nodes, n_pods = SCHED_PATHS[path]
+        print(f"main path: {path} drain_pipelined of {n_pods} pods "
+              f"(bench.py {variant}, {len(r['seeds'])} seeded pods, "
+              f"{len(r['sched'].queue.nominated.by_node())} ghost-nominated "
+              f"nodes) onto {n_nodes} nodes, batches of {BATCH}, commit "
               f"thread {'on' if r['commit_thread'] else 'off'}: all bound "
-              f"in the store, capacity held; {wall} s = {AFF_PODS / wall} "
+              f"in the store, capacity held; {wall} s = {n_pods / wall} "
               f"pods/s; batch latency (launch to committed) p50 "
               f"{pct(lat, 0.5)} ms p99 {pct(lat, 0.99)} ms over {len(lat)} "
               f"batches; launches {per_path[path]}; host phases (s): "
@@ -895,6 +1209,62 @@ def main() -> None:
               f"{r['setup_s']} s; device busy in the kernel calls {busy} "
               f"ms of {wall * 1e3} ms wall, idle share "
               f"{1 - busy / (wall * 1e3)} {tag}")
+
+    # ---- the storm: every K6 decision against the plain version
+    bad = 0
+    for args, got in rec.storm_price:
+        if not decisions_equal(torch, got, port.pk.price_nodes_plain(*args)):
+            bad += 1
+    torch.cuda.synchronize()
+    if bad or len(rec.storm_price) != STORM_PODS:
+        fail(f"storm: {bad} of {len(rec.storm_price)} K6 decisions differ "
+             f"from price_nodes_plain (or fewer than {STORM_PODS} priced)")
+    if len(storm["plans"]) != STORM_PODS:
+        fail(f"storm: {len(storm['plans'])} plans for {STORM_PODS} "
+             "preemptors")
+    busy = sum(a.elapsed_time(b) for v, a, b in rec.events if v == "storm")
+    shape = tuple(rec.storm_price[-1][0][4].shape)
+    print(f"main path: storm of {STORM_PODS} preemptors through "
+          f"BatchScheduler.preempt on {STORM_NODES} nodes "
+          f"({3 * STORM_NODES} bound victims, PDB over band b0): kernel "
+          f"route {len(storm['plans'])} plans, {storm['victims']} victims, "
+          f"{storm['pdb_violations']} PDB violations in {storm['elapsed']} "
+          f"s = {len(storm['plans']) / storm['elapsed']} plans/s, K6 over "
+          f"[N, V, R] = {list(shape)}, all {len(rec.storm_price)} decisions "
+          f"equal to price_nodes_plain on the card, device busy in K6 "
+          f"{busy} ms; serial control (KTPU_PREEMPT_KERNEL=0) "
+          f"{len(serial['plans'])} plans, {serial['victims']} victims, "
+          f"{serial['pdb_violations']} PDB violations in "
+          f"{serial['elapsed']} s = "
+          f"{len(serial['plans']) / serial['elapsed']} plans/s; "
+          f"launches {per_path['storm']} {tag}")
+    # ---- the preemption loop
+    check_preemption_loop(port, "preemption", loop, STORM_NODES, STORM_PODS)
+    if loop["bound"] != STORM_PODS:
+        fail(f"preemption: drain_until_idle bound {loop['bound']} of "
+             f"{STORM_PODS}")
+    nom_checked = verify_nom_launches(port, rec)
+    for path in rec.nom_paths:
+        if not nom_checked.get(path, (0, 0))[0]:
+            fail(f"{path}: no nominated scan launch to hold")
+    if not nom_checked["preemption"][1]:
+        fail("preemption: no nominated launch carried a nominee's own row")
+    busy = sum(a.elapsed_time(b) for v, a, b in rec.events
+               if v == "preemption")
+    wall = loop["wall"]
+    print(f"main path: preemption drain_pipelined of {STORM_PODS} "
+          f"preemptors on the storm cluster ({STORM_NODES} nodes, created "
+          f"through the Client with the PDB), commit thread "
+          f"{'on' if loop['commit_thread'] else 'off'}: all bound in the "
+          f"store, capacity held, {len(loop['evicted'])} victims evicted, "
+          f"all below priority {PREEMPTOR_PRIORITY}, preemption_attempts "
+          f"{loop['attempts']} = plans made; {wall} s; cluster set-up "
+          f"{loop['setup_s']} s; launches {per_path['preemption']}; "
+          f"nominated launches held against plain (path: launches, with a "
+          f"nominee's own row) {nom_checked}; phase stats "
+          f"{loop['sched'].algorithm.phase_stats}; device busy in the "
+          f"kernel calls {busy} ms of {wall * 1e3} ms wall, idle share "
+          f"{1 - busy / (wall * 1e3)} {tag}")
 
     # ---- kernel phase (on the main path's own inputs)
     rows = kernel_phase(port, rec, launches)
@@ -923,10 +1293,10 @@ def main() -> None:
         print(f"plain versions on the card: {variant} drain of the first "
               f"{PLAIN_PODS} pods binds them as the kernels' drain did "
               f"({pwall} s) {tag}")
-    for path, variant in AFF_PATHS.items():
+    for path, (variant, n_nodes, n_pods) in SCHED_PATHS.items():
         port.reset_launches()
         with PlainOnCard(port):
-            pr = run_scheduler_drain(port, dev, AFF_NODES, AFF_PODS, BATCH,
+            pr = run_scheduler_drain(port, dev, n_nodes, n_pods, BATCH,
                                      variant)
         if any(port.launches().values()):
             fail(f"the plain {path} drain launched kernels")
@@ -982,6 +1352,30 @@ def main() -> None:
           f"tenants, {SMALL_NODES} nodes, batches of {SMALL_BATCH}, "
           "KTPU_COMMIT_THREAD=0): card equals CPU, binds and DRF share "
           "bits")
+
+    # ---- small preemption loop: card against CPU, commit stage inline
+    os.environ["KTPU_COMMIT_THREAD"] = "0"
+    try:
+        small = [run_preemption_loop(port, d, SMALL_STORM_NODES,
+                                     SMALL_STORM_PODS, SMALL_BATCH)
+                 for d in (dev, "cpu")]
+    finally:
+        if saved is None:
+            del os.environ["KTPU_COMMIT_THREAD"]
+        else:
+            os.environ["KTPU_COMMIT_THREAD"] = saved
+    for r, d in zip(small, ("card", "CPU")):
+        check_preemption_loop(port, f"small preemption ({d})", r,
+                              SMALL_STORM_NODES, SMALL_STORM_PODS)
+    g, c = small
+    for key in ("binds", "evicted", "nominated", "attempts", "evictions"):
+        if g[key] != c[key]:
+            fail(f"small preemption loop: the card's {key} differ from the "
+                 "CPU's")
+    print(f"small preemption loop ({SMALL_STORM_PODS} preemptors, "
+          f"{SMALL_STORM_NODES} nodes, KTPU_COMMIT_THREAD=0): card equals "
+          f"CPU, binds, {len(g['evicted'])} evicted victims and "
+          "nominations")
 
     print(json.dumps({"kernels": rows}))
     print(card)

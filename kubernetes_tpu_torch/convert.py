@@ -2,10 +2,13 @@
 
 The JAX package holds its state as numpy arrays before upload: the mirror's
 TensorMirror.t.cfg_arrays() / usage_arrays() and a PodBatchTensors batch's
-fields (its device() dict under the same keys). tables_from_numpy turns
-such dicts into torch tensors on one device with the same keys, shapes,
-dtypes (float32 / int32 / bool) and padding, so the two packages can be
-fed identical state. It is the port's stand-in for loading weights.
+fields (its device() dict under the same keys), the victim-pricing tables
+of kernels/preempt.py (VictimTables.arrays) and the nominated
+reservations ({used, count}). tables_from_numpy, victim_tables_from_numpy
+and nom_from_numpy turn such dicts into torch tensors on one device with
+the same keys, shapes, dtypes (float32 / int32 / bool) and padding, so the
+two packages can be fed identical state. It is the port's stand-in for
+loading weights.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ def to_tensor(arr, device) -> torch.Tensor:
     if a.dtype not in _DTYPES:
         raise TypeError(f"state arrays are float32, int32 or bool; "
                         f"got {a.dtype}")
-    return torch.tensor(np.ascontiguousarray(a), dtype=_DTYPES[a.dtype],
-                        device=device)
+    # ascontiguousarray would turn a 0-d array into shape (1,)
+    return torch.tensor(np.ascontiguousarray(a) if a.ndim else a,
+                        dtype=_DTYPES[a.dtype], device=device)
 
 
 def _convert(d: Optional[dict], device) -> Optional[Dict[str, torch.Tensor]]:
@@ -46,3 +50,18 @@ def tables_from_numpy(node_cfg: dict, usage: dict,
     device = torch.device(device)
     return (_convert(node_cfg, device), _convert(usage, device),
             _convert(pod_batch, device))
+
+
+def victim_tables_from_numpy(arrays: dict, device="cpu"
+                             ) -> Dict[str, torch.Tensor]:
+    """VictimTables.arrays (free0, cfree0, need, need_cnt, freed, fcnt,
+    valid, pdb, top, psum, gcnt, startr, row_valid) -> the same dict of
+    tensors on `device`; need_cnt becomes a 0-d float32 tensor."""
+    return _convert(arrays, torch.device(device))
+
+
+def nom_from_numpy(nom: Optional[dict], device="cpu"
+                   ) -> Optional[Dict[str, torch.Tensor]]:
+    """The nominated reservations {used [N, R], count [N]} (None when
+    nothing is nominated) -> tensors on `device`."""
+    return _convert(nom, torch.device(device))

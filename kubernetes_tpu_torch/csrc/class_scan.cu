@@ -7,15 +7,20 @@
 // and pack_results as the epilogue).
 //
 // The kernel is a template on the terms a batch carries (spread groups,
-// topology counters, soft credits); the host picks the instance, so a
-// batch without a term runs no code for it.
+// topology counters, soft credits) and on the nominated-reservation
+// overlay; the host picks the instance, so a batch without a term runs no
+// code for it.
 //
 // Each pod sees the usage every earlier pod's bind left behind, so the
 // pods run in order. One persistent block of 1024 threads walks them;
 // each thread owns node rows tid, tid + 1024, ... Per pod, in the
 // order of the reference's _class_pod_step:
 //   1. feasibility: the pod's class row of the [C, N] masked-score
-//      table, and with topology counters `fits &= ~topo_bad`;
+//      table, and with topology counters `fits &= ~topo_bad`; with the
+//      nominated overlay (NOM) the table already holds the phantom
+//      reservations, and the pod's own nominated row is recomputed with
+//      its own reservation taken out (batch.py :515-528): the thread that
+//      owns that row computes it once and uses it in both passes;
 //   2. one block reduction over the feasible rows: with soft credits the
 //      min and max of the raw inter-pod score; with spread groups the
 //      max count, have_zones and the shared-memory zone sums
@@ -25,7 +30,9 @@
 //   4. the winner's used / nonzero_used / pod_count / spread columns, and
 //      on thread 0, in k order, its topology and credit writes;
 //   5. the winner's column of the table refreshed over all C classes
-//      (ktpu_class_score, shared with K1);
+//      (ktpu_class_score, shared with K1); with NOM against the winner's
+//      usage plus its reservations (batch.py :556-562), folded into a
+//      shared row as the usage columns are written;
 //   6. assign and the bits of the chosen score into the packed [2, P].
 //
 // Bound: the dependency chain from one pod to the next, not bytes or
@@ -86,9 +93,12 @@ struct KtpuScanParams {
   const int* write_tids;
   const float* write_w;
   const float* soft_w;
+  const float* nom_used;
+  const float* nom_count;
+  const int* nom_row;
   int* packed;
   int N, R, C, P, G, Z, T, D, K, Ts, Ds, Ks, Sb;
-  int has_spread, has_topo, has_dir2, has_soft;
+  int has_spread, has_topo, has_dir2, has_soft, has_nom;
 };
 
 struct KtpuScanArgs {
@@ -110,13 +120,16 @@ struct KtpuScanArgs {
   const float* spread_w;    // scalar
   KtpuTopo topo;            // (topology counters only)
   KtpuSoft soft;            // (soft credits only)
+  const float* nom_used;    // [N, R]   (nominated overlay only)
+  const float* nom_count;   // [N]
+  const int* nom_row;       // [P]      the pod's own nominated row or -1
   int N, R, C, P, G, Z;
   int* packed;              // [2, P]
 };
 
 #define KTPU_SCAN_THREADS 1024
 
-template <bool SPREAD, bool TOPO, bool SOFT>
+template <bool SPREAD, bool TOPO, bool SOFT, bool NOM>
 __global__ void __launch_bounds__(KTPU_SCAN_THREADS, 1)
 ktpu_class_scan_kernel(KtpuScanArgs a) {
   extern __shared__ float zs[];  // [Z] zone sums
@@ -127,6 +140,11 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
   __shared__ int w_hz[32];
   __shared__ float w_mn[32];
   __shared__ float w_mx[32];
+  // NOM: the winner's usage row plus its reservations, and the nominee's
+  // own row with its reservation taken out
+  __shared__ float s_eff[NOM ? KTPU_MAX_R : 1];
+  __shared__ float s_cnt;
+  __shared__ float s_self[NOM ? KTPU_MAX_R : 1];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -142,6 +160,25 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
     const int u = a.class_idx[p];
     const float* ms_u = a.ms + (size_t)u * N;
     const uint32_t seq_term = (uint32_t)a.seq[p] * 40503u;
+    // the self-exempt base of the pod's own nominated row, on the thread
+    // that owns the row (the only one that reads it)
+    int nr = -1;
+    float corr = 0.0f;
+    if (NOM) {
+      nr = a.nom_row[p];
+      if (nr >= N) nr = -1;
+      if (nr >= 0 && nr % nthreads == tid) {
+        for (int j = 0; j < R; ++j)
+          s_self[j] = __fsub_rn(
+              __fadd_rn(a.used[(size_t)nr * R + j],
+                        a.nom_used[(size_t)nr * R + j]),
+              a.cl.req[(size_t)u * R + j]);
+        corr = ktpu_class_score(
+            a.cfg, a.cl, rw0, rw1, u, nr, N, R, s_self, a.nz_used[2 * nr],
+            a.nz_used[2 * nr + 1],
+            __fsub_rn(__fadd_rn(a.pod_count[nr], a.nom_count[nr]), 1.0f));
+      }
+    }
 
     // ---- reductions over the feasible set (soft min/max, spread)
     float maxc = 0.0f, maxz = 0.0f, sw_use = 0.0f, mn = inf, mx = -inf;
@@ -160,7 +197,8 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
       float lmax = 0.0f, lmn = inf, lmx = -inf;
       int lhz = 0;
       for (int r = tid; r < N; r += nthreads) {
-        bool fit = ms_u[r] > KTPU_NEG_THRESHOLD;
+        const float base = (NOM && r == nr) ? corr : ms_u[r];
+        bool fit = base > KTPU_NEG_THRESHOLD;
         if (TOPO) fit = fit && !ktpu_topo_bad(a.topo, p, r, N);
         if (SOFT && fit) {
           const float raw = ktpu_soft_raw(a.soft, p, r, N);
@@ -209,7 +247,7 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
     float bpen = -inf, bval = KTPU_NEG;
     int brow = 0x7fffffff;
     for (int r = tid; r < N; r += nthreads) {
-      const float base = ms_u[r];
+      const float base = (NOM && r == nr) ? corr : ms_u[r];
       bool fit = base > KTPU_NEG_THRESHOLD;
       if (TOPO) fit = fit && !ktpu_topo_bad(a.topo, p, r, N);
       float score = base;
@@ -264,12 +302,14 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
       if (j < R) {
         float* x = a.used + (size_t)best * R + j;
         *x = __fadd_rn(*x, __fmul_rn(okf, a.cl.req[(size_t)u * R + j]));
+        if (NOM) s_eff[j] = __fadd_rn(*x, a.nom_used[(size_t)best * R + j]);
       } else if (j < R + 2) {
         const int k = j - R;
         float* x = a.nz_used + (size_t)best * 2 + k;
         *x = __fadd_rn(*x, __fmul_rn(okf, a.cl.nz[(size_t)u * 2 + k]));
       } else if (j == R + 2) {
         a.pod_count[best] = __fadd_rn(a.pod_count[best], okf);
+        if (NOM) s_cnt = __fadd_rn(a.pod_count[best], a.nom_count[best]);
       } else {
         const int gg = j - R - 3;
         float* x = a.spread + (size_t)gg * N + best;
@@ -287,10 +327,13 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
 
     // ---- refresh the winner's column over every class
     for (int c = tid; c < a.cl.C; c += nthreads)
-      a.ms[(size_t)c * N + best] = ktpu_class_score(
-          a.cfg, a.cl, rw0, rw1, c, best, N, R,
-          a.used + (size_t)best * R, a.nz_used[2 * best],
-          a.nz_used[2 * best + 1], a.pod_count[best]);
+      a.ms[(size_t)c * N + best] = NOM
+          ? ktpu_class_score(a.cfg, a.cl, rw0, rw1, c, best, N, R, s_eff,
+                             a.nz_used[2 * best], a.nz_used[2 * best + 1],
+                             s_cnt)
+          : ktpu_class_score(a.cfg, a.cl, rw0, rw1, c, best, N, R,
+                             a.used + (size_t)best * R, a.nz_used[2 * best],
+                             a.nz_used[2 * best + 1], a.pod_count[best]);
     if (tid == 0) {
       a.packed[p] = ok ? best : -1;
       a.packed[a.P + p] = __float_as_int(chosen);
@@ -299,14 +342,30 @@ ktpu_class_scan_kernel(KtpuScanArgs a) {
   }
 }
 
-template <bool SPREAD, bool TOPO, bool SOFT>
+template <bool SPREAD, bool TOPO, bool SOFT, bool NOM>
 static void ktpu_launch_scan(const KtpuScanArgs& a, size_t smem,
                              cudaStream_t stream) {
-  ktpu_class_scan_kernel<SPREAD, TOPO, SOFT>
+  ktpu_class_scan_kernel<SPREAD, TOPO, SOFT, NOM>
       <<<1, KTPU_SCAN_THREADS, smem, stream>>>(a);
 }
 
+template <bool NOM>
+static void ktpu_launch_terms(int terms, const KtpuScanArgs& a, size_t smem,
+                              cudaStream_t s) {
+  switch (terms) {
+    case 0: ktpu_launch_scan<false, false, false, NOM>(a, smem, s); break;
+    case 1: ktpu_launch_scan<false, false, true, NOM>(a, smem, s); break;
+    case 2: ktpu_launch_scan<false, true, false, NOM>(a, smem, s); break;
+    case 3: ktpu_launch_scan<false, true, true, NOM>(a, smem, s); break;
+    case 4: ktpu_launch_scan<true, false, false, NOM>(a, smem, s); break;
+    case 5: ktpu_launch_scan<true, false, true, NOM>(a, smem, s); break;
+    case 6: ktpu_launch_scan<true, true, false, NOM>(a, smem, s); break;
+    default: ktpu_launch_scan<true, true, true, NOM>(a, smem, s); break;
+  }
+}
+
 extern "C" int ktpu_class_scan(const KtpuScanParams* h, void* stream) {
+  if (h->has_nom && h->R > KTPU_MAX_R) return (int)cudaErrorInvalidValue;
   KtpuScanArgs a;
   a.cfg = KtpuNodeCfg{h->alloc, h->max_pods, h->node_ok, h->mem_pressure,
                       h->valid};
@@ -334,6 +393,9 @@ extern "C" int ktpu_class_scan(const KtpuScanParams* h, void* stream) {
                     h->soft_base_idx, h->read_tids, h->read_w,
                     h->write_tids, h->write_w, h->soft_w, h->Ds, h->Ks};
   a.spread_w = h->spread_w;
+  a.nom_used = h->nom_used;
+  a.nom_count = h->nom_count;
+  a.nom_row = h->nom_row;
   a.N = h->N;
   a.R = h->R;
   a.C = h->C;
@@ -343,16 +405,11 @@ extern "C" int ktpu_class_scan(const KtpuScanParams* h, void* stream) {
   a.packed = h->packed;
   const size_t smem = (size_t)a.Z * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  switch ((h->has_spread ? 4 : 0) | (h->has_topo ? 2 : 0) |
-          (h->has_soft ? 1 : 0)) {
-    case 0: ktpu_launch_scan<false, false, false>(a, smem, s); break;
-    case 1: ktpu_launch_scan<false, false, true>(a, smem, s); break;
-    case 2: ktpu_launch_scan<false, true, false>(a, smem, s); break;
-    case 3: ktpu_launch_scan<false, true, true>(a, smem, s); break;
-    case 4: ktpu_launch_scan<true, false, false>(a, smem, s); break;
-    case 5: ktpu_launch_scan<true, false, true>(a, smem, s); break;
-    case 6: ktpu_launch_scan<true, true, false>(a, smem, s); break;
-    default: ktpu_launch_scan<true, true, true>(a, smem, s); break;
-  }
+  const int terms = (h->has_spread ? 4 : 0) | (h->has_topo ? 2 : 0) |
+                    (h->has_soft ? 1 : 0);
+  if (h->has_nom)
+    ktpu_launch_terms<true>(terms, a, smem, s);
+  else
+    ktpu_launch_terms<false>(terms, a, smem, s);
   return (int)cudaGetLastError();
 }

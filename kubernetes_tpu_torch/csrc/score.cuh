@@ -23,6 +23,9 @@
 #define KTPU_ZONE_WEIGHT ((float)(2.0 / 3.0))
 // tie penalty scale 0.5 / 65536 = 2^-17 (exact in f32)
 #define KTPU_TIE_SCALE 7.62939453125e-06f
+// the widest usage row a kernel folds into a local or shared array (the
+// nominated overlay); the wrappers check R against it
+#define KTPU_MAX_R 64
 
 struct KtpuNodeCfg {
   const float* alloc;        // [N, R]

@@ -10,8 +10,17 @@ a whole batch:
     PodBatchTensors            term-compile the pod axis
     kernels.schedule_batch     class table (K1) + serial scan (K2),
                                with the required (anti-)affinity counters
-                               and preferred credits carried in K2
+                               and preferred credits carried in K2, and
+                               the nominated reservations as phantom
+                               usage in feasibility (K1, K2's NOM
+                               instance)
     -> [(pod, node_name | None)]
+
+`preempt` prices a pod that failed the scan against every candidate
+node's lower-priority victims at once (kernels/preempt.py build_victim_
+tables on the host, K6 price_nodes on the card) and returns the plan the
+scheduler loop nominates and evicts by; KTPU_PREEMPT_KERNEL=0 keeps the
+reference's serial reprieve search (preemption.py) as the control.
 
 `schedule_launch` / `schedule_finish` split a batch so a drain can chain
 the next batch on the previous one's post-batch usage, still on the card.
@@ -24,10 +33,9 @@ here: soft_batch_limit and topo_scan_likely (drain sub-chunking) and
 explain / FitError (failure diagnosis).
 
 Routes outside the ported slices raise NotImplementedError at the point
-where they would reach an unported kernel: gang batches, preemption
-(preempt / preempt_gang), speculative cohorts, the sharded mesh,
-nominated reservations and the classic per-pod branch (ROADMAP, port
-slice 4 and later).
+where they would reach an unported kernel: gang batches, whole-gang
+preemption (preempt_gang), speculative cohorts, the sharded mesh and the
+classic per-pod branch (ROADMAP, port slice 5 and later).
 """
 
 from __future__ import annotations
@@ -282,16 +290,20 @@ class BatchScheduler:
                  hard_pod_affinity_weight: Optional[int] = None,
                  volume_binder=None,
                  pvc_lister=None, pv_lister=None,
-                 nominated=None, device=None):
+                 nominated=None, pdb_lister=None, device=None):
         from . import priorities as prios_mod
         from .queue import NominatedPodMap
         from .scorer import ScoreCompiler
         from .volumebinder import FakeVolumeBinder
         #: the torch device the kernels run on (CUDA unless asked)
         self.device = resolve_device(device)
-        #: shared with the scheduling queue; a live nomination would feed
-        #: the kernel's reservation overlay (not ported: raises)
+        #: shared with the SchedulingQueue; feeds the kernel's reservation
+        #: tensors and preemption's nominated-to-clear list
         self.nominated = nominated if nominated is not None else NominatedPodMap()
+        self.pdb_lister = pdb_lister or (lambda: [])
+        self._nom_key = None
+        self._nom_dev = None
+        self._nom_rows_by_key: Dict[str, int] = {}
         self.volume_binder = volume_binder or FakeVolumeBinder()
         self.pvc_lister = pvc_lister      # (namespace, name) -> PVC | None
         self.pv_lister = pv_lister        # (name) -> PV | None
@@ -320,9 +332,10 @@ class BatchScheduler:
         #: gang.GangManager; a batch carrying PodGroup members would route
         #: to the all-or-nothing kernel (not ported: raises)
         self.gang = None
-        #: tenancy.DRFAccount, installed by the scheduler shell (the
-        #: reference's preemption pricing reads it; preemption is not
-        #: ported yet)
+        #: tenancy.DRFAccount, installed by the scheduler shell: the
+        #: preemption kernel folds its over-share ranks into the victim
+        #: band sort so over-share tenants' pods price cheaper (None, or
+        #: KTPU_DRF=0, keeps tenant-blind pricing)
         self.drf = None
         import os as _os
         #: soft-score sub-batch size, resolved ONCE at construction (like
@@ -338,6 +351,14 @@ class BatchScheduler:
         #: is ported; schedule_launch raises when either is set
         self.class_scan = _os.environ.get("KTPU_CLASS_SCAN", "1") != "0"
         self.speculative = _os.environ.get("KTPU_SPECULATIVE", "0") != "0"
+        #: KTPU_PREEMPT_KERNEL=0 pins preemption to the serial per-node
+        #: victim search (preemption.py) — the measured control for the
+        #: batched victim-pricing kernel (kernels/preempt.py, K6)
+        self.preempt_kernel = _os.environ.get(
+            "KTPU_PREEMPT_KERNEL", "1") != "0"
+        #: (node, generation, prio, ...) -> victim units: amortizes the
+        #: preemption tensorize across a storm (kernels/preempt.py)
+        self._preempt_unit_cache: Dict[Tuple, list] = {}
         #: launches that actually chained on a predecessor's device usage
         self.chained_launches = 0
         #: residual-sig -> (profile_epoch, AffinityProfile): template
@@ -1351,7 +1372,7 @@ class BatchScheduler:
             raise NotImplementedError(
                 "BatchScheduler: KTPU_CLASS_SCAN=0 selects the classic "
                 "per-pod kernel, which is not ported yet (ROADMAP: port "
-                "slice 4)")
+                "slice 5)")
         if self.speculative:
             raise NotImplementedError(
                 "BatchScheduler: KTPU_SPECULATIVE=1 selects the speculative "
@@ -1426,7 +1447,15 @@ class BatchScheduler:
         if tr is not None:
             tr.record("scheduler", "tensorize", t_tz, tr.now(),
                       pods=len(pods))
-        self._nominated_device()
+        nom_dev = self._nominated_device()
+        if nom_dev is not None:
+            # each pod's own nominated row, from the EXACT snapshot the
+            # reservation tensor was built from (pod.status and even the
+            # live map may lag) — subtraction and tensor can never desync
+            for i, pod in enumerate(pods):
+                row = self._nom_rows_by_key.get(pod.metadata.key())
+                if row is not None:
+                    batch.nom_row[i] = row
         static = self.scorer.static_scores(pods, batch)
         # hysteresis: while host-computed static scores are in play, later
         # launches refuse the chain up front instead of discarding work.
@@ -1454,7 +1483,7 @@ class BatchScheduler:
         else:
             node_cfg, usage = self.mirror.device_cfg_usage()
         packed, new_usage = schedule_batch_packed(
-            node_cfg, usage, batch.device(self.device))
+            node_cfg, usage, batch.device(self.device), nom_dev)
         return PendingBatch(pods=pods, profiles=profiles, batch=batch,
                             packed=packed, new_usage=new_usage,
                             residual_free=residual_free,
@@ -1550,39 +1579,253 @@ class BatchScheduler:
                 epoch=pending.usage_epoch)
         return out
 
-    def _nominated_device(self) -> None:
-        """The nominated-reservation overlay (core.py _nominated_device in
-        the reference): nothing to do while no pod is nominated; a live
-        nomination would feed the scan's phantom-usage overlay, which is
-        not ported yet."""
+    def _nominated_device(self) -> Optional[dict]:
+        """Aggregated nominated-pod reservations as device tensors
+        ({used [N,R], count [N]}), or None when nothing is nominated.
+        Cached by (nominated.version, mirror.epoch, tensor shape) — the
+        mirror epoch covers node-row reuse: a deleted node's row can be
+        handed to a new node, and a stale tensor would charge the old
+        reservation to the wrong node. Nominations are rare so the
+        rebuild+upload almost never runs. Nominees already assumed into
+        the cache are excluded — their usage is real, not phantom."""
         from ..utils.features import DEFAULT_FEATURE_GATE
         if not DEFAULT_FEATURE_GATE.enabled("SchedulerNominatedReservations"):
             return None
-        for pods in self.nominated.by_node().values():
-            if any(self.cache.assigned_node(p.metadata.key()) is None
-                   for p in pods):
-                raise NotImplementedError(
-                    "BatchScheduler: nominated reservations need the "
-                    "scan's phantom-usage overlay, which is not ported yet "
-                    "(ROADMAP: port slice 4)")
-        return None
+        ver = self.nominated.version
+        shape = (self.mirror.t.capacity, self.mirror.t.n_cols)
+        key = (ver, self.mirror.epoch, shape)
+        if key == self._nom_key:
+            return self._nom_dev
+        from .nodeinfo import pod_resource
+        from .tensorize import COL_CPU, COL_EPH, COL_MEM, _f32_ceil
+        used = None
+        count = None
+        rows_by_key: Dict[str, int] = {}
+        for node_name, pods in self.nominated.by_node().items():
+            row = self.mirror.row_of.get(node_name)
+            if row is None:
+                continue
+            for p in pods:
+                if self.cache.assigned_node(p.metadata.key()) is not None:
+                    continue
+                if used is None:
+                    used = np.zeros(shape, np.float32)
+                    count = np.zeros((shape[0],), np.float32)
+                r = pod_resource(p)
+                used[row, COL_CPU] += _f32_ceil(r.milli_cpu)
+                used[row, COL_MEM] += _f32_ceil(r.memory)
+                used[row, COL_EPH] += _f32_ceil(r.ephemeral_storage)
+                for rname, v in r.scalar_resources.items():
+                    used[row, self.mirror.vocab.col(rname)] += _f32_ceil(v)
+                count[row] += 1.0
+                rows_by_key[p.metadata.key()] = row
+        if used is None:
+            self._nom_dev = None
+        else:
+            self._nom_dev = {"used": self.mirror.put(used),
+                             "count": self.mirror.put(count)}
+        #: pod key -> reserved row, exactly as charged into _nom_dev
+        self._nom_rows_by_key = rows_by_key
+        self._nom_key = key
+        return self._nom_dev
 
     # ------------------------------------------------ preemption, diagnosis
 
+    #: max candidate nodes that undergo the full clone+reprieve victim
+    #: search per preempting pod (see the ranking proxy in preempt())
+    PREEMPT_CANDIDATE_CAP = 100
+
     def preempt(self, pod: Pod):
-        """Ref: generic_scheduler.go Preempt. The victim-pricing kernels
-        (kernels/preempt.py price_nodes) are not ported yet."""
-        raise NotImplementedError(
-            "BatchScheduler.preempt: the victim-pricing kernels are not "
-            "ported yet (ROADMAP: Queue A item 3, preemption)")
+        """Ref: generic_scheduler.go Preempt (:310-369). Returns a
+        PreemptionPlan or None. Pure computation — the shell performs the
+        API writes (nominate, delete victims, clear lower nominations)."""
+        from . import preemption as pre
+        self.refresh()
+        infos = self.snapshot.node_infos
+        # A standing nomination on a still-viable node blocks re-preemption:
+        # the kernel's reservation tensors guarantee the freed space, so the
+        # pod only needs to wait for the victim deletions to reach the cache.
+        # (The reference gates on victims still carrying a DeletionTimestamp,
+        # :1130-1150 — useless here because the in-process store deletes
+        # instantly; without this guard a retry racing the delete events
+        # re-preempts a SECOND node.) A vanished/shrunk node drops the
+        # reservation and falls through to a fresh preemption.
+        nn = self.nominated.node_for(pod.metadata.key())
+        if nn:
+            ni = infos.get(nn)
+            if ni is not None and pre.node_could_ever_fit(pod, ni):
+                return None
+            self.nominated.delete(pod)
+        if not pre.pod_eligible_to_preempt_others(pod, infos):
+            return None
+        # candidate rows: pod-independent constraints must pass — failures
+        # preemption can't fix (ref: nodesWherePreemptionMightHelp
+        # unresolvable reasons); cached vectors, no per-node python
+        t = self.mirror.t
+        vec = (self.terms.tolerations_vector(pod)
+               & self.terms.node_selector_vector(pod)
+               & t.node_ok & t.valid)
+        hv = self.terms.hostname_vector(pod)
+        if hv is not None:
+            vec = vec & hv
+        pdbs = list(self.pdb_lister())
+        candidates = []
+        for row in np.nonzero(vec)[0]:
+            name = self.mirror.name_of.get(int(row))
+            ni = infos.get(name) if name else None
+            if ni is None or not pre.resource_screen(pod, ni):
+                continue
+            candidates.append((name, ni))
+        if self.preempt_kernel:
+            # batched victim-pricing kernel: all candidates tensorized at
+            # once (no CAP truncation — the scan is O(N·V) device work,
+            # not per-node python clones)
+            return self._preempt_kernel_plan(pod, candidates, infos, pdbs)
+        # serial reprieve path only: full-predicate fit closure + the
+        # cluster-wide metadata its per-node clones derive from
+        all_preds = self._fits_predicates(pod)
+
+        def fits(p, meta, ni) -> bool:
+            ok, _ = preds.pod_fits_on_node(p, meta, ni, all_preds)
+            return ok
+        base_meta = preds.PredicateMetadata(pod, infos)
+        if len(candidates) > self.PREEMPT_CANDIDATE_CAP:
+            self._count_capped_scan("preempt_candidates", len(candidates))
+            # cost bound: the clone + reprieve loop per candidate is host
+            # python (the reference absorbs full-cluster cost with 16
+            # goroutines, :996); rank by a cheap proxy for pick_one_node's
+            # criteria — PDB-clean first (its FIRST criterion), then
+            # lowest max victim priority, then fewest lower-priority pods
+            # — and search only the best CAP. A mass high-priority burst
+            # over 5k full nodes stays O(CAP×pods/node) instead of
+            # O(nodes×pods/node) per pod.
+            prio = helpers.pod_priority(pod)
+
+            def touches_pdb(p) -> bool:
+                from ..api import labels as labelsmod
+                for pdb in pdbs:
+                    if pdb.metadata.namespace == p.metadata.namespace and \
+                            pdb.spec.selector is not None and \
+                            labelsmod.matches(pdb.spec.selector,
+                                              p.metadata.labels):
+                        return True
+                return False
+
+            from .nodeinfo import pod_resource
+            need = pod_resource(pod)
+
+            def proxy(item):
+                """Greedy estimate of the MINIMAL victim set (lowest
+                priority first until the preemptor's resources fit) and
+                pick_one_node's criteria over THAT set — ranking by all
+                lower-priority pods instead over-penalizes nodes whose
+                minimal set is tiny (a divergence the proxy-equivalence
+                fixture exposed)."""
+                _, ni = item
+                lower = sorted(
+                    (p for p in ni.pods
+                     if helpers.pod_priority(p) < prio),
+                    key=helpers.pod_priority)
+                free_cpu = ni.allocatable.milli_cpu \
+                    - ni.requested.milli_cpu
+                free_mem = ni.allocatable.memory - ni.requested.memory
+                # extended scalars too (google.com/tpu): a TPU-bound
+                # preemptor on cpu-rich nodes would otherwise estimate
+                # empty victim sets everywhere and rank arbitrarily
+                free_sc = {k: ni.allocatable.scalar_resources.get(k, 0)
+                           - ni.requested.scalar_resources.get(k, 0)
+                           for k in need.scalar_resources}
+
+                def fits_now():
+                    return (free_cpu >= need.milli_cpu
+                            and free_mem >= need.memory
+                            and all(free_sc[k] >= v for k, v in
+                                    need.scalar_resources.items()))
+                victims = []
+                for p in lower:
+                    if fits_now():
+                        break
+                    r = pod_resource(p)
+                    free_cpu += r.milli_cpu
+                    free_mem += r.memory
+                    for k in free_sc:
+                        free_sc[k] += r.scalar_resources.get(k, 0)
+                    victims.append(p)
+                has_pdb = any(touches_pdb(p) for p in victims) if pdbs \
+                    else False
+                prios = [helpers.pod_priority(p) for p in victims]
+                return (has_pdb, max(prios, default=0),
+                        sum(prios), len(victims))
+            candidates.sort(key=proxy)
+            candidates = candidates[:self.PREEMPT_CANDIDATE_CAP]
+        else:
+            self._end_inscan_streak("preempt_candidates")
+        victims_map: Dict[str, Tuple[List[Pod], int]] = {}
+        for name, ni in candidates:
+            sel = pre.select_victims_on_node(pod, ni, infos, fits, pdbs,
+                                             base_meta=base_meta)
+            if sel is not None:
+                victims_map[name] = sel
+        node = pre.pick_one_node_for_preemption(victims_map)
+        if node is None:
+            return None
+        victims, nviol = victims_map[node]
+        return pre.PreemptionPlan(
+            node_name=node, victims=victims, num_pdb_violations=nviol,
+            nominated_to_clear=pre.nominated_pods_to_clear(
+                pod, node, self.nominated.pods_for_node(node)))
+
+    def _overshare_ranks(self):
+        """The DRF pricing input for the victim tables: quantized
+        over-share ranks per tenant, or None when no DRF account is
+        installed, the flag is off, or every tenant sits at/below fair
+        share (the legacy tenant-blind order in all three cases)."""
+        if self.drf is None:
+            return None
+        from ..tenancy.drf import drf_enabled
+        if not drf_enabled():
+            return None
+        return self.drf.overshare_ranks() or None
+
+    def _preempt_kernel_plan(self, pod: Pod, candidates, infos, pdbs):
+        """The batched path: tensorize every candidate's victims into
+        band-sorted [N, V] pricing tables on the host, price them on the
+        device (K6 price_nodes: the first fitting prefix per row and the
+        lexicographic winner), expand the winner's chosen prefix back
+        into pods. PDB-violating victims ride the last-resort band; gang
+        victims are priced as whole PodGroups."""
+        from ..convert import victim_tables_from_numpy
+        from .kernels import preempt as pk
+        tabs = pk.build_victim_tables(pod, candidates, infos, pdbs,
+                                      unit_cache=self._preempt_unit_cache,
+                                      overshare=self._overshare_ranks())
+        if tabs is None:
+            return None
+        from . import preemption as pre
+        t = victim_tables_from_numpy(tabs.arrays, self.device)
+        winner_d, chosen_d, _k, nviol_d = pk.price_nodes(
+            *(t[k] for k in pk.PRICE_KEYS))
+        winner = int(winner_d)
+        if winner < 0:
+            return None
+        victims = tabs.expand(winner, chosen_d[winner].cpu().numpy())
+        if not victims:
+            return None
+        node = tabs.names[winner]
+        return pre.PreemptionPlan(
+            node_name=node, victims=victims,
+            num_pdb_violations=int(nviol_d[winner]),
+            nominated_to_clear=pre.nominated_pods_to_clear(
+                pod, node, self.nominated.pods_for_node(node)))
 
     def preempt_gang(self, members: List[Pod], min_member: int,
                      topology_key: Optional[str]):
         """Whole-gang preemption over ICI domains (price_domains): not
         ported yet."""
         raise NotImplementedError(
-            "BatchScheduler.preempt_gang: the domain-pricing kernels are "
-            "not ported yet (ROADMAP: Queue A item 3, preemption)")
+            "BatchScheduler.preempt_gang: whole-gang preemption prices ICI "
+            "domains with the gang tables, which are not ported yet "
+            "(ROADMAP: gang scheduling)")
 
     def _fits_predicates(self, pod: Pod) -> Dict[str, object]:
         """The predicate set a fit check runs (same assembly as the

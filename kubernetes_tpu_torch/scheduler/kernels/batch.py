@@ -6,14 +6,19 @@ function here has a plain PyTorch version in the same f32 operation order
 as the JAX reference (so the two agree bit for bit), and the three device
 programs on the main path have hand-written CUDA kernels (csrc/):
 
-    class_ms_init  -> K1  csrc/class_ms_init.cu   [C, N] masked scores
+    class_ms_init  -> K1  csrc/class_ms_init.cu   [C, N] masked scores,
+                          with the nominated reservations folded into
+                          feasibility (_nom_feas_usage)
     schedule_batch -> K2  csrc/class_scan.cu      one launch per batch;
                           class_col, spread_score and tie_penalized are
                           its __device__ functions, pack_results its
                           epilogue; the required (anti-)affinity carry
                           (term_hits / topo_bad / topo_scatter) and the
                           preferred credits (soft_raw / soft_score /
-                          soft_write) live in csrc/affinity.cuh
+                          soft_write) live in csrc/affinity.cuh; the
+                          nominated overlay (the nominee's own row
+                          exempt, the winner column refreshed with the
+                          reservations) is its NOM instance
     apply_dirty    -> K3  csrc/apply_dirty.cu     dirty-row scatter
 
 Dispatch is by tensor device: a CPU tensor takes the plain version, a
@@ -21,8 +26,8 @@ CUDA tensor launches the kernel (a build or launch failure raises; it
 never gives way to the plain version). LAUNCHES counts kernel launches,
 one per launch, so a run can show that its main path went through them.
 K2 is one template instantiated per set of carried terms (spread groups,
-topology counters, soft credits); each instance counts under its own
-name (scan_instance).
+topology counters, soft credits) and the nominated overlay; each instance
+counts under its own name (scan_instance).
 
 State layout (host mirror: tensorize.TensorMirror):
   node_cfg: alloc [N,R] f32, max_pods [N] f32, node_ok/mem_pressure/
@@ -30,12 +35,14 @@ State layout (host mirror: tensorize.TensorMirror):
   usage: used [N,R], nonzero_used [N,2], pod_count [N] f32, plus the
     "spread" [G,N] and "soft_cnt" [Ts,Ds] carry finals when the batch had
     spread groups or soft credit tables.
+  nom (core._nominated_device, None when nothing is nominated): the
+    phantom reservations of nominated pods, used [N,R] and count [N] f32;
+    the pod batch's nom_row [P] names each pod's own nominated row or -1.
 schedule_batch returns post-batch usage in new tensors (the inputs are
 left as they were), so consecutive batches chain on the device.
 
 Routes outside the ported slices raise NotImplementedError: the classic
-per-pod branch and the nominated-reservation overlay (ROADMAP, port
-slice 4).
+per-pod branch and filter_score (ROADMAP, port slice 5).
 """
 
 from __future__ import annotations
@@ -55,20 +62,26 @@ NEG_THRESHOLD = -1e29
 ZONE_WEIGHTING = 2.0 / 3.0
 COL_CPU = 0
 COL_MEM = 1
+#: the widest usage row the nominated overlay folds on the card
+#: (csrc/score.cuh KTPU_MAX_R)
+MAX_R = 64
 
 
-def scan_instance(has_spread: bool, has_topo: bool, has_soft: bool) -> str:
+def scan_instance(has_spread: bool, has_topo: bool, has_soft: bool,
+                  has_nom: bool = False) -> str:
     """The name of the K2 instance that scans a batch with these carried
-    terms ("class_scan" when it carries none)."""
+    terms and, with `has_nom`, the nominated overlay ("class_scan" when it
+    carries none)."""
     return "class_scan" + "_spread" * has_spread + "_topo" * has_topo \
-        + "_soft" * has_soft
+        + "_soft" * has_soft + "_nom" * has_nom
 
 
 #: kernel launches by name; each wrapper adds one per launch
 LAUNCHES: Dict[str, int] = {
     "class_ms_init": 0, "apply_dirty": 0,
-    **{scan_instance(sp, tp, sf): 0 for sp in (False, True)
-       for tp in (False, True) for sf in (False, True)}}
+    **{scan_instance(sp, tp, sf, nm): 0 for nm in (False, True)
+       for sp in (False, True) for tp in (False, True)
+       for sf in (False, True)}}
 
 _CLASS_KEYS = ("class_req", "class_nz", "class_blocked", "class_mask_idx",
                "class_score_idx")
@@ -184,10 +197,22 @@ def class_col(node_cfg: dict, cls: dict, unique_masks, unique_scores, rw,
     return torch.where(fits, score, NEG)
 
 
+def nom_feas_usage(usage: dict, nom: dict) -> dict:
+    """Usage with the phantom nominated reservations folded into the
+    feasibility columns only (batch.py _nom_feas_usage): used + nom used,
+    pod_count + nom count; the scores stay on real usage."""
+    return {"used": usage["used"] + nom["used"],
+            "nonzero_used": usage["nonzero_used"],
+            "pod_count": usage["pod_count"] + nom["count"]}
+
+
 def class_ms_init_plain(node_cfg: dict, usage: dict, cls: dict,
-                        unique_masks, unique_scores, rw):
+                        unique_masks, unique_scores, rw, nom=None):
     """[C, N] masked-score table at batch start (batch.py
-    _class_ms_init), the same arithmetic as class_col over all rows."""
+    _class_ms_init), the same arithmetic as class_col over all rows; with
+    `nom`, over the usage with the reservations folded in."""
+    if nom is not None:
+        usage = nom_feas_usage(usage, nom)
     used = usage["used"]
     nz = usage["nonzero_used"]
     cnt = usage["pod_count"]
@@ -348,16 +373,30 @@ def unpack_results(packed) -> Tuple[np.ndarray, np.ndarray]:
 # ------------------------------------------------------------ K1
 
 
+def _check_nom(nom: dict, N: int, R: int) -> None:
+    """The nominated overlay's shapes, and R within the kernels' folded
+    row (csrc/score.cuh KTPU_MAX_R)."""
+    _need(nom["used"], (N, R), "nom used")
+    _need(nom["count"], (N,), "nom count")
+    if R > MAX_R:
+        raise ValueError(f"the nominated overlay folds rows of at most "
+                         f"{MAX_R} resources, got {R}")
+
+
 def class_ms_init(node_cfg: dict, usage: dict, cls: dict, unique_masks,
-                  unique_scores, rw) -> torch.Tensor:
-    """[C, N] masked-score table: plain on the CPU, kernel K1 on CUDA."""
+                  unique_scores, rw, nom=None) -> torch.Tensor:
+    """[C, N] masked-score table, with the nominated reservations folded
+    into feasibility when `nom` is given: plain on the CPU, kernel K1 on
+    CUDA."""
     alloc = node_cfg["alloc"]
     if not _on_cuda(alloc):
         return class_ms_init_plain(node_cfg, usage, cls, unique_masks,
-                                   unique_scores, rw)
+                                   unique_scores, rw, nom)
     from .build import check
     _check_shapes(node_cfg, usage, cls, unique_masks, unique_scores, rw)
     N, R = alloc.shape
+    if nom is not None:
+        _check_nom(nom, N, R)
     C = cls["class_req"].shape[0]
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     ms = torch.empty((C, N), dtype=f32, device=alloc.device)
@@ -377,9 +416,12 @@ def class_ms_init(node_cfg: dict, usage: dict, cls: dict, unique_masks,
             _ptr(unique_masks, b8, "unique_masks"),
             _ptr(unique_scores, f32, "unique_scores"),
             _ptr(rw, f32, "resource_weights"),
+            _ptr(nom["used"], f32, "nom used") if nom is not None else None,
+            _ptr(nom["count"], f32, "nom count") if nom is not None
+            else None,
             _ptr(ms, f32, "ms"), N, R, C, _stream(alloc))
     rc = _fn("class_ms_init", "ktpu_class_ms_init",
-             [_P] * 17 + [_I] * 3 + [_P])(*args)
+             [_P] * 19 + [_I] * 3 + [_P])(*args)
     check(rc, "class_ms_init")
     LAUNCHES["class_ms_init"] += 1
     return ms
@@ -388,16 +430,12 @@ def class_ms_init(node_cfg: dict, usage: dict, cls: dict, unique_masks,
 # ------------------------------------------------------------ K2
 
 
-def _check_slice(pod_batch: dict, nom) -> None:
+def _check_slice(pod_batch: dict) -> None:
     if "class_req" not in pod_batch:
         raise NotImplementedError(
             "schedule_batch: the classic per-pod branch (KTPU_CLASS_SCAN=0 "
             "or a batch without class tables) is not ported yet "
-            "(ROADMAP: port slice 4)")
-    if nom is not None:
-        raise NotImplementedError(
-            "schedule_batch: the nominated-reservation overlay is not "
-            "ported yet (ROADMAP: port slice 4)")
+            "(ROADMAP: port slice 5)")
 
 
 def _scan_terms(pod_batch: dict) -> Tuple[bool, bool, bool, bool]:
@@ -409,16 +447,19 @@ def _scan_terms(pod_batch: dict) -> Tuple[bool, bool, bool, bool]:
             pod_batch.get("soft_dom") is not None)
 
 
-def _scan_setup(node_cfg: dict, usage: dict, pod_batch: dict):
+def _scan_setup(node_cfg: dict, usage: dict, pod_batch: dict, nom=None):
     """(cls, rw, ms0, carry, terms): the class tables, the initial table
-    (K1 on the card), fresh copies of the carried state and the batch's
+    (K1 on the card; with `nom`, the reservations folded into its
+    feasibility), fresh copies of the carried state and the batch's
     _scan_terms. A chained launch seeds the spread and soft carries from
     its predecessor's finals (core.schedule_launch gates this); the
-    topology counters start from the batch's own anti_cnt0."""
+    topology counters start from the batch's own anti_cnt0. The carry's
+    usage stays real usage: the scan adds the reservations where it reads
+    feasibility."""
     cls = {k: pod_batch[k] for k in _CLASS_KEYS}
     rw = pod_batch["resource_weights"]
     ms0 = class_ms_init(node_cfg, usage, cls, pod_batch["unique_masks"],
-                        pod_batch["unique_scores"], rw)
+                        pod_batch["unique_scores"], rw, nom)
     terms = _scan_terms(pod_batch)
     has_spread, has_topo, has_dir2, has_soft = terms
     carry = {"used": usage["used"].clone(),
@@ -452,9 +493,14 @@ def _usage_out(carry: dict) -> dict:
                      "soft_cnt")}
 
 
-def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms):
+def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
+                      nom=None):
     """The serial scan in plain PyTorch (batch.py _class_pod_step over
-    the pods in order); mutates `ms` and the `carry` copies."""
+    the pods in order); mutates `ms` and the `carry` copies. With `nom`,
+    each pod's own nominated row (pod_batch["nom_row"]) is recomputed
+    with its own reservation taken out, (used + nom) - req and
+    (count + nom count) - 1 in that association, and the winner's column
+    is refreshed with the reservations added."""
     has_spread, has_topo, has_dir2, has_soft = terms
     unique_masks = pod_batch["unique_masks"]
     unique_scores = pod_batch["unique_scores"]
@@ -487,11 +533,21 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms):
         write_t, write_w = pod_batch["soft_write_tids"], \
             pod_batch["soft_write_w"]
         soft_w = pod_batch["soft_weight"]
+    if nom is not None:
+        nom_row = pod_batch["nom_row"]
     assign = torch.empty((P,), dtype=torch.int32, device=dev)
     scores = torch.empty((P,), dtype=torch.float32, device=dev)
     for p in range(P):
         u = class_idx[p]
         base = ms[u]
+        if nom is not None:
+            r = nom_row[p]
+            rc = r.clamp(0, N - 1).long()
+            corr = class_col(
+                node_cfg, cls, unique_masks, unique_scores, rw,
+                used[rc] + nom["used"][rc] - cls["class_req"][u], nz[rc],
+                cnt[rc] + nom["count"][rc] - 1.0, rc)[u]
+            base = torch.where((r >= 0) & (rows == r), corr, base)
         fits = base > NEG_THRESHOLD
         if has_topo:
             fits = fits & ~topo_bad(
@@ -516,8 +572,15 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms):
         used[best] = used[best] + ok_f * cls["class_req"][u]
         nz[best] = nz[best] + ok_f * cls["class_nz"][u]
         cnt[best] = cnt[best] + ok_f
-        ms[:, best] = class_col(node_cfg, cls, unique_masks, unique_scores,
-                                rw, used[best], nz[best], cnt[best], best)
+        if nom is not None:
+            ms[:, best] = class_col(
+                node_cfg, cls, unique_masks, unique_scores, rw,
+                used[best] + nom["used"][best], nz[best],
+                cnt[best] + nom["count"][best], best)
+        else:
+            ms[:, best] = class_col(node_cfg, cls, unique_masks,
+                                    unique_scores, rw, used[best], nz[best],
+                                    cnt[best], best)
         if has_spread:
             spread[:, best] = spread[:, best] + smatch[p] * ok_f
         if has_topo:
@@ -545,10 +608,12 @@ _SCAN_PTRS = (
     "aff_tids", "match_tids", "cmatch_tids", "canti_tids",
     "soft_dom", "soft_cnt", "soft_base", "soft_base_idx", "read_tids",
     "read_w", "write_tids", "write_w", "soft_w",
+    "nom_used", "nom_count", "nom_row",
     "packed")
 #: the int fields that follow them
 _SCAN_INTS = ("N", "R", "C", "P", "G", "Z", "T", "D", "K", "Ts", "Ds", "Ks",
-              "Sb", "has_spread", "has_topo", "has_dir2", "has_soft")
+              "Sb", "has_spread", "has_topo", "has_dir2", "has_soft",
+              "has_nom")
 
 
 class _ScanParams(ctypes.Structure):
@@ -562,11 +627,13 @@ def _need(t: torch.Tensor, shape: tuple, name: str) -> None:
                          f"{tuple(shape)}")
 
 
-def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms):
+def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
+                     nom=None):
     """Kernel K2: the whole batch in one launch of the instance for its
-    carried terms; returns the [2, P] packed results and mutates `ms` and
-    the `carry` copies. Index values (class ids, term ids, domains) come
-    from tensorize, which builds them inside the tables' shapes."""
+    carried terms (and the nominated overlay with `nom`); returns the
+    [2, P] packed results and mutates `ms` and the `carry` copies. Index
+    values (class ids, term ids, domains, nominated rows) come from
+    tensorize and core, which build them inside the tables' shapes."""
     from .build import check
     has_spread, has_topo, has_dir2, has_soft = terms
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
@@ -657,6 +724,13 @@ def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms):
             write_tids=(pod_batch["soft_write_tids"], i32),
             write_w=(pod_batch["soft_write_w"], f32),
             soft_w=(pod_batch["soft_weight"].reshape(1), f32))
+    if nom is not None:
+        _check_nom(nom, N, R)
+        _need(pod_batch["nom_row"], (P,), "nom_row")
+        dims.update(has_nom=1)
+        ptrs.update(nom_used=(nom["used"], f32),
+                    nom_count=(nom["count"], f32),
+                    nom_row=(pod_batch["nom_row"], i32))
     for k, (t, dtype) in ptrs.items():
         setattr(prm, k, _ptr(t, dtype, k).value)
     for k, v in dims.items():
@@ -664,7 +738,7 @@ def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms):
     rc = _fn("class_scan", "ktpu_class_scan",
              [ctypes.POINTER(_ScanParams), _P])(ctypes.byref(prm),
                                                 _stream(alloc))
-    name = scan_instance(has_spread, has_topo, has_soft)
+    name = scan_instance(has_spread, has_topo, has_soft, nom is not None)
     check(rc, name)
     LAUNCHES[name] += 1
     return packed
@@ -673,13 +747,18 @@ def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms):
 def schedule_batch_packed(node_cfg: dict, usage: dict, pod_batch: dict,
                           nom: dict = None) -> Tuple[torch.Tensor, dict]:
     """The class-route scan (batch.py schedule_batch ->
-    _schedule_batch_classes). Returns ([2, P] int32 packed assign +
-    score bits, post-batch usage). Plain on the CPU; K1 + K2 on CUDA."""
-    _check_slice(pod_batch, nom)
-    cls, rw, ms, carry, terms = _scan_setup(node_cfg, usage, pod_batch)
+    _schedule_batch_classes), with the nominated-reservation overlay when
+    `nom` is given. Returns ([2, P] int32 packed assign + score bits,
+    post-batch usage). Plain on the CPU; K1 + K2 on CUDA."""
+    _check_slice(pod_batch)
+    if nom is not None and "nom_row" not in pod_batch:
+        # no pod holds a nomination of its own (batch.py reads -1)
+        cidx = pod_batch["class_idx"]
+        pod_batch = dict(pod_batch, nom_row=torch.full_like(cidx, -1))
+    cls, rw, ms, carry, terms = _scan_setup(node_cfg, usage, pod_batch, nom)
     scan = _class_scan_cuda if _on_cuda(node_cfg["alloc"]) \
         else _class_scan_plain
-    packed = scan(node_cfg, pod_batch, cls, rw, ms, carry, terms)
+    packed = scan(node_cfg, pod_batch, cls, rw, ms, carry, terms, nom)
     return packed, _usage_out(carry)
 
 
@@ -698,7 +777,7 @@ def filter_score(node_cfg: dict, usage: dict, pod_batch: dict):
     filter_score): not ported yet."""
     raise NotImplementedError(
         "filter_score: the [P, N] fits and scores kernel is not ported yet "
-        "(ROADMAP: port slice 4)")
+        "(ROADMAP: port slice 5)")
 
 
 # ------------------------------------------------------------ K3

@@ -30,7 +30,8 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "class_scan": "class_scan.cu",
            "apply_dirty": "apply_dirty.cu",
            "drf_dominant": "drf_dominant.cu",
-           "drf_order": "drf_order.cu"}
+           "drf_order": "drf_order.cu",
+           "price_nodes": "price_nodes.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

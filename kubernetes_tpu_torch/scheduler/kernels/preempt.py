@@ -1,0 +1,540 @@
+"""Batched victim-pricing preemption on the GPU.
+
+Port of kubernetes_tpu/scheduler/kernels/preempt.py's single-preemptor
+route. The host tables are the reference's, line for line: each candidate
+node's would-be victims tensorize into priority-band-sorted [N, V] unit
+tables (clean units before a PDB-violating last-resort band, the most
+over-share tenant first, cheapest priority first, youngest first in a
+band, key last), a whole PodGroup priced as ONE unit (evicting any member
+charges the group's top/sum priority and cluster-wide member count while
+freeing only its on-node resources), with a unit cache keyed by
+NodeInfo.generation, the PDB fingerprint and the over-share ranks.
+
+The device program prices them:
+
+    price_nodes -> K6  csrc/price_nodes.cu   first fitting victim prefix
+                       per row, its cost vector, and the lexicographic
+                       winner (pickOneNodeForPreemption's narrowing)
+
+`price_nodes_plain` is the plain PyTorch version in the JAX op order,
+with the prefix sums and the priority sum written as explicit loops over
+the unit axis (the order K6 adds in), and `price_nodes_reference` the
+numpy oracle of the reference. Dispatch is by tensor device, as in
+kernels/batch.py: a CPU tensor takes the plain version, a CUDA tensor
+launches K6 (a build or launch failure raises). LAUNCHES counts K6's
+launches.
+
+Whole-gang pricing over ICI domains (price_domains and its tables) needs
+the gang tables and is not ported yet: those entry points raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...api import helpers
+from ...api.core import Pod
+from ...api.scheduling import pod_group_key
+from ..nodeinfo import NodeInfo, pod_resource
+from ..preemption import filter_pods_with_pdb_violation, _more_important
+from .batch import _I, _P, _fn, _on_cuda, _ptr, _stream
+
+INT32_MAX = np.int32(2**31 - 1)
+INT32_MIN = np.int32(-(2**31))
+
+#: kernel launches by name; the wrapper adds one per launch
+LAUNCHES: Dict[str, int] = {"price_nodes": 0}
+
+#: the widest resource row K6 prices (cpu, memory and the preemptor's
+#: extended scalars); csrc/price_nodes.cu KTPU_PRICE_MAX_R
+MAX_R = 16
+#: the reference's f32 sums over the unit axis, as XLA on the CPU orders
+#: them: jnp.cumsum adds sequentially inside blocks of PREFIX_BLOCK units
+#: and carries the blocks' inclusive prefix (taken the same way, one
+#: level up) into each later block; jnp.sum adds sequentially inside
+#: chunks of SUM_CHUNK units and then the chunk totals in order. Both are
+#: plain sequential sums up to 16 units. That order is reproduced here
+#: (and in K6) for up to MAX_V units per node
+PREFIX_BLOCK = 16
+SUM_CHUNK = 32
+MAX_V = 1024
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ----------------------------------------------------------- host tables
+
+@dataclass
+class _Unit:
+    """One evictable pricing unit on one node: a singleton pod, or a
+    whole PodGroup's on-node members (charged cluster-wide)."""
+
+    key: str                      # deterministic final tie-break
+    evict: List[Pod]              # every pod this eviction takes down
+    freed: np.ndarray             # [R] resources freed ON THIS NODE
+    fcnt: int                     # pod slots freed on this node
+    pdb: bool                     # last-resort band (budget exhausted)
+    top: int                      # highest victim priority in the unit
+    psum: float                   # sum of victim priorities (whole group)
+    gcnt: int                     # victims charged (whole group)
+    start: str                    # latest start among top-priority victims
+    startr: int = 0               # global rank of `start` (filled late)
+    is_group: bool = False        # whole-PodGroup unit (never cached)
+    #: quantized DRF over-share rank of the unit's tenant (0 at/below
+    #: fair share, or when DRF is off) — over-share tenants' units sort
+    #: into a cheaper eviction band
+    oshare: int = 0
+
+
+@dataclass
+class VictimTables:
+    """Everything price_nodes consumes plus the host-side unit metadata
+    needed to expand the winner's chosen prefix back into pods."""
+
+    names: List[str]
+    units: List[List[_Unit]]
+    res_names: List[str]
+    arrays: Dict[str, np.ndarray] = field(default_factory=dict)
+
+    def expand(self, row: int, chosen: np.ndarray) -> List[Pod]:
+        """Winner row + chosen unit mask -> ordered victim pods (band
+        order, whole groups expanded in sorted-key order)."""
+        out: List[Pod] = []
+        for v, unit in enumerate(self.units[row]):
+            if v < len(chosen) and chosen[v]:
+                out.extend(sorted(unit.evict,
+                                  key=lambda p: p.metadata.key()))
+        return out
+
+
+def _res_columns(need) -> List[str]:
+    """cpu/memory always, plus the preemptor's extended scalars — the
+    only columns that can gate ITS fit."""
+    return ["cpu", "memory"] + sorted(need.scalar_resources)
+
+
+def _res_row(res, names: Sequence[str]) -> np.ndarray:
+    row = np.zeros((len(names),), np.float32)
+    for i, n in enumerate(names):
+        if n == "cpu":
+            row[i] = res.milli_cpu
+        elif n == "memory":
+            row[i] = res.memory
+        else:
+            row[i] = res.scalar_resources.get(n, 0)
+    return row
+
+
+def bound_group_index(infos: Dict[str, NodeInfo]) -> Dict[str, List[Pod]]:
+    """gkey -> every BOUND member across the cluster: the expansion (and
+    cost) of evicting any one of them."""
+    out: Dict[str, List[Pod]] = {}
+    for ni in infos.values():
+        for p in ni.pods:
+            gk = pod_group_key(p)
+            if gk is not None:
+                out.setdefault(gk, []).append(p)
+    return out
+
+
+def _unit_oshare(pods: Sequence[Pod], overshare) -> int:
+    """The unit's DRF pricing term: the MAX over-share rank among its
+    victims' tenants (a group mixing tenants prices at its most
+    over-share member). 0 whenever DRF is off."""
+    if not overshare:
+        return 0
+    from ...tenancy.drf import tenant_of
+    return max((overshare.get(tenant_of(p), 0) for p in pods), default=0)
+
+
+def _node_units(prio: int, ni: NodeInfo, pdbs,
+                group_bound: Dict[str, List[Pod]],
+                res_names: Sequence[str],
+                overshare=None) -> Tuple[List[_Unit], bool]:
+    """The node's evictable units in band (eviction) order, plus
+    whether the list is CACHEABLE: any gang member among the node's
+    potential victims makes it not — both surviving group units (their
+    cluster-wide expansion) and groups filtered as off-limits (a remote
+    member's priority) depend on state other nodes' generations track."""
+    potential = [p for p in ni.pods if helpers.pod_priority(p) < prio]
+    if not potential:
+        return [], True
+    singles: List[Pod] = []
+    groups: Dict[str, List[Pod]] = {}
+    for p in potential:
+        gk = pod_group_key(p)
+        if gk is None:
+            singles.append(p)
+        else:
+            groups.setdefault(gk, []).append(p)
+    # a group with any member at/above the preemptor's priority is
+    # off-limits entirely: its eviction would take down a pod preemption
+    # may never touch
+    for gk in list(groups):
+        members = group_bound.get(gk, groups[gk])
+        if any(helpers.pod_priority(m) >= prio for m in members):
+            del groups[gk]
+    # PDB accounting in the reference's order (most important first,
+    # cumulative disruptionsAllowed) over this node's surviving victims
+    ordered = sorted(singles + [p for ps in groups.values() for p in ps],
+                     key=_more_important)
+    violating, _ok = filter_pods_with_pdb_violation(ordered, pdbs)
+    viol = {p.metadata.key() for p in violating}
+    units: List[_Unit] = []
+    for p in singles:
+        pr = helpers.pod_priority(p)
+        units.append(_Unit(
+            key=p.metadata.key(), evict=[p],
+            freed=_res_row(pod_resource(p), res_names), fcnt=1,
+            pdb=p.metadata.key() in viol, top=pr, psum=float(pr), gcnt=1,
+            start=p.status.start_time or "",
+            oshare=_unit_oshare([p], overshare)))
+    for gk, here in sorted(groups.items()):
+        members = group_bound.get(gk, here)
+        prios = [helpers.pod_priority(m) for m in members]
+        top = max(prios)
+        freed = np.zeros((len(res_names),), np.float32)
+        for m in here:
+            freed += _res_row(pod_resource(m), res_names)
+        units.append(_Unit(
+            key=f"group:{gk}", evict=list(members), freed=freed,
+            fcnt=len(here), pdb=any(m.metadata.key() in viol for m in here),
+            top=top, psum=float(sum(prios)), gcnt=len(members),
+            start=max((m.status.start_time or "") for m, pr in
+                      zip(members, prios) if pr == top),
+            is_group=True, oshare=_unit_oshare(members, overshare)))
+    return units, not any(pod_group_key(p) is not None for p in potential)
+
+
+def _rank_and_sort(per_row: List[List[_Unit]]) -> None:
+    """Assign global start-time ranks, then sort each row into the
+    eviction band order: clean before PDB, most over-share tenant first
+    (the DRF pricing term — 0 for every unit when DRF is off, so the
+    legacy order is unchanged), cheapest priority first, youngest
+    (latest start) first within a band, key as the final deterministic
+    tie. This is HOST code consumed by both price_nodes and its numpy
+    reference, so kernel-vs-oracle parity holds by construction."""
+    starts = sorted({u.start for row in per_row for u in row})
+    rank = {s: i for i, s in enumerate(starts)}
+    for row in per_row:
+        for u in row:
+            u.startr = rank[u.start]
+        row.sort(key=lambda u: (u.pdb, -u.oshare, u.top, -u.startr, u.key))
+
+
+def _bucket_pow2(n: int, minimum: int = 1) -> int:
+    n = max(n, minimum)
+    return 1 << (n - 1).bit_length()
+
+
+def build_victim_tables(pod: Pod,
+                        candidates: Sequence[Tuple[str, NodeInfo]],
+                        infos: Dict[str, NodeInfo], pdbs,
+                        unit_cache: Optional[dict] = None,
+                        overshare: Optional[Dict[str, int]] = None
+                        ) -> Optional[VictimTables]:
+    """Single-preemptor tables: one row per candidate node.
+
+    `unit_cache` amortizes the host tensorize across a preemption storm:
+    per-node unit lists are keyed by (node, NodeInfo.generation,
+    preemptor priority) — generations bump on every pod add/remove, so
+    an eviction invalidates exactly its node. Nodes carrying GROUP units
+    are never cached (a sibling eviction on another node changes their
+    cluster-wide expansion without touching this node's generation).
+    Callers must serialize access (the shell holds _algo_lock)."""
+    need = pod_resource(pod)
+    res_names = _res_columns(need)
+    prio = helpers.pod_priority(pod)
+    group_bound = bound_group_index(infos)
+    names: List[str] = []
+    rows: List[List[_Unit]] = []
+    free0_rows: List[np.ndarray] = []
+    cfree0: List[float] = []
+    res_key = tuple(res_names)
+    # PDB budgets are not captured by node generations: fingerprint them
+    # into the key so a DisruptionController update invalidates wholesale
+    pdb_key = tuple(sorted(
+        (p.metadata.key(), p.status.disruptions_allowed) for p in pdbs))
+    # cached unit lists bake the DRF pricing term in: fingerprint the
+    # over-share ranks so a share shift invalidates rather than reuses
+    os_key = tuple(sorted(overshare.items())) if overshare else ()
+    for name, ni in candidates:
+        key = (name, ni.generation, prio, res_key, pdb_key, os_key)
+        units = unit_cache.get(key) if unit_cache is not None else None
+        if units is None:
+            units, cacheable = _node_units(prio, ni, pdbs, group_bound,
+                                           res_names, overshare=overshare)
+            # gang members key CLUSTER-WIDE state: a sibling binding (or
+            # a remote member's priority putting its group off-limits)
+            # changes this node's units without touching this node's
+            # generation — any gang member among the potential victims
+            # makes the list uncacheable, even when no group unit
+            # survived the off-limits filter
+            if unit_cache is not None and cacheable:
+                if len(unit_cache) > 8192:
+                    unit_cache.clear()
+                unit_cache[key] = units
+        if not units:
+            continue
+        names.append(name)
+        rows.append(units)
+        free0_rows.append(_res_row(ni.allocatable, res_names)
+                          - _res_row(ni.requested, res_names))
+        cfree0.append(float(ni.allocatable.allowed_pod_number
+                            - len(ni.pods)))
+    if not names:
+        return None
+    _rank_and_sort(rows)
+    N = _bucket_pow2(len(names))
+    V = _bucket_pow2(max(len(r) for r in rows))
+    R = len(res_names)
+    t = VictimTables(names=names, units=rows, res_names=res_names)
+    a = t.arrays
+    a["free0"] = np.zeros((N, R), np.float32)
+    a["cfree0"] = np.zeros((N,), np.float32)
+    a["need"] = _res_row(need, res_names)
+    a["need_cnt"] = np.float32(1.0)
+    a["freed"] = np.zeros((N, V, R), np.float32)
+    a["fcnt"] = np.zeros((N, V), np.float32)
+    a["valid"] = np.zeros((N, V), bool)
+    a["pdb"] = np.zeros((N, V), bool)
+    a["top"] = np.full((N, V), INT32_MIN, np.int32)
+    a["psum"] = np.zeros((N, V), np.float32)
+    a["gcnt"] = np.zeros((N, V), np.int32)
+    a["startr"] = np.full((N, V), -1, np.int32)
+    a["row_valid"] = np.zeros((N,), bool)
+    for i, units in enumerate(rows):
+        a["free0"][i] = free0_rows[i]
+        a["cfree0"][i] = cfree0[i]
+        a["row_valid"][i] = True
+        for v, u in enumerate(units):
+            a["freed"][i, v] = u.freed
+            a["fcnt"][i, v] = u.fcnt
+            a["valid"][i, v] = True
+            a["pdb"][i, v] = u.pdb
+            a["top"][i, v] = u.top
+            a["psum"][i, v] = u.psum
+            a["gcnt"][i, v] = u.gcnt
+            a["startr"][i, v] = u.startr
+    return t
+
+
+# ---------------------------------------------------------------- K6
+
+#: the inputs of price_nodes, in its argument order (the keys of
+#: VictimTables.arrays)
+PRICE_KEYS = ("free0", "cfree0", "need", "need_cnt", "freed", "fcnt",
+              "valid", "pdb", "top", "psum", "gcnt", "startr", "row_valid")
+
+
+def _lexi_winner_plain(feasible, crits):
+    """Lexicographic argmin (preempt.py _lexi_winner): narrow the
+    feasible mask criterion by criterion, each minimised (INT32_MAX or
+    +inf where masked), then the FIRST remaining row, or -1."""
+    m = feasible
+    for vals in crits:
+        big = float("inf") if vals.dtype == torch.float32 else int(INT32_MAX)
+        best = torch.where(m, vals, torch.full_like(vals, big)).min()
+        m = m & (vals == best)
+    first = torch.argmax(m.to(torch.int32))
+    return torch.where(m.any(), first, -1).to(torch.int32)
+
+
+def _prefix_blocked(cols: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Inclusive prefix sums of `cols` (one tensor per unit) in the
+    reference's order (PREFIX_BLOCK): sequential inside each block, the
+    blocks' own inclusive prefix, taken the same way, added in front of
+    every later block."""
+    B = PREFIX_BLOCK
+    inb = []
+    for b0 in range(0, len(cols), B):
+        acc = cols[b0]
+        inb.append(acc)
+        for c in cols[b0 + 1:b0 + B]:
+            acc = acc + c
+            inb.append(acc)
+    if len(cols) <= B:
+        return inb
+    totals = [inb[min(b0 + B, len(cols)) - 1]
+              for b0 in range(0, len(cols), B)]
+    ptot = _prefix_blocked(totals)
+    return [x if v < B else ptot[v // B - 1] + x
+            for v, x in enumerate(inb)]
+
+
+def _sum_chunked(cols: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of `cols` in the reference's order (SUM_CHUNK):
+    sequential inside each chunk, then the chunk totals in order."""
+    total = None
+    for c0 in range(0, len(cols), SUM_CHUNK):
+        part = cols[c0]
+        for c in cols[c0 + 1:c0 + SUM_CHUNK]:
+            part = part + c
+        total = part if total is None else total + part
+    return total
+
+
+def price_nodes_plain(free0, cfree0, need, need_cnt, freed, fcnt, valid,
+                      pdb, top, psum, gcnt, startr, row_valid):
+    """price_nodes in plain PyTorch: (winner row or -1, chosen [N, V],
+    k [N] units in the prefix, nviol [N]). The same f32 operations as
+    the reference (preempt.py price_nodes with _prefix_costs and
+    _lexi_winner); the prefix sums and the priority sum are written out
+    over v in the reference's order (PREFIX_BLOCK, SUM_CHUNK), the order
+    K6 adds in."""
+    N, V = valid.shape
+    dev = valid.device
+    fit0 = (free0 >= need).all(dim=1) & (cfree0 >= need_cnt)
+    cum = _prefix_blocked([freed[:, v, :] for v in range(V)])
+    cumc = _prefix_blocked([fcnt[:, v] for v in range(V)])
+    elig = torch.zeros((N, V), dtype=torch.bool, device=dev)
+    for v in range(V):
+        elig[:, v] = ((free0 + cum[v]) >= need).all(dim=1) \
+            & ((cfree0 + cumc[v]) >= need_cnt) & valid[:, v]
+    # first fitting prefix; a node the preemptor already fits is not a
+    # preemption candidate
+    kidx = torch.argmax(elig.to(torch.int32), dim=1)
+    feasible = elig.any(dim=1) & ~fit0 & row_valid
+    vidx = torch.arange(V, device=dev)
+    chosen = valid & (vidx[None, :] <= kidx[:, None]) & feasible[:, None]
+    nviol = (chosen & pdb).sum(dim=1).to(torch.int32)
+    topv = torch.where(chosen, top, torch.full_like(top, int(INT32_MIN))) \
+        .amax(dim=1)
+    psumv = _sum_chunked([torch.where(chosen[:, v], psum[:, v], 0.0)
+                          for v in range(V)])
+    cntv = torch.where(chosen, gcnt, 0).sum(dim=1).to(torch.int32)
+    startv = torch.where(chosen & (top == topv[:, None]), startr,
+                         torch.full_like(startr, -1)).amax(dim=1)
+    winner = _lexi_winner_plain(feasible,
+                                (nviol, topv, psumv, cntv, -startv))
+    return winner, chosen, (kidx + 1).to(torch.int32), nviol
+
+
+def price_nodes_reference(a: Dict[str, np.ndarray]):
+    """Numpy mirror of price_nodes — same op order, f32 throughout (a
+    copy of the reference's oracle)."""
+    free0, cfree0 = a["free0"], a["cfree0"]
+    need, need_cnt = a["need"], a["need_cnt"]
+    freed, fcnt, valid = a["freed"], a["fcnt"], a["valid"]
+    pdb, top, psum = a["pdb"], a["top"], a["psum"]
+    gcnt, startr, row_valid = a["gcnt"], a["startr"], a["row_valid"]
+    N, V = valid.shape
+    cumfreed = np.cumsum(freed, axis=1, dtype=np.float32)
+    cumcnt = np.cumsum(fcnt, axis=1, dtype=np.float32)
+    fit0 = (free0 >= need).all(axis=1) & (cfree0 >= need_cnt)
+    fitk = ((free0[:, None, :] + cumfreed) >= need).all(axis=2) \
+        & ((cfree0[:, None] + cumcnt) >= need_cnt)
+    elig = fitk & valid
+    kidx = np.argmax(elig, axis=1)
+    feasible = elig.any(axis=1) & ~fit0 & row_valid
+    chosen = valid & (np.arange(V)[None, :] <= kidx[:, None]) \
+        & feasible[:, None]
+    nviol = (chosen & pdb).sum(axis=1).astype(np.int32)
+    topv = np.max(np.where(chosen, top, INT32_MIN), axis=1)
+    psumv = np.sum(np.where(chosen, psum, np.float32(0.0)), axis=1,
+                   dtype=np.float32)
+    cntv = np.sum(np.where(chosen, gcnt, 0), axis=1).astype(np.int32)
+    startv = np.max(np.where(chosen & (top == topv[:, None]), startr, -1),
+                    axis=1).astype(np.int32)
+    m = feasible.copy()
+    for vals in (nviol, topv, psumv, cntv, -startv):
+        big = np.float32(np.inf) if vals.dtype == np.float32 \
+            else np.array(INT32_MAX, vals.dtype)
+        if not m.any():
+            break
+        best = np.min(np.where(m, vals, big))
+        m = m & (vals == best)
+    winner = np.int32(np.argmax(m)) if m.any() else np.int32(-1)
+    return winner, chosen, (kidx + 1).astype(np.int32), nviol
+
+
+def _check_price_inputs(free0, cfree0, need, need_cnt, freed, fcnt, valid,
+                        pdb, top, psum, gcnt, startr, row_valid) -> None:
+    """The shapes K6 indexes by: a mismatch would read out of bounds on
+    the card, so it raises here."""
+    if freed.dim() != 3:
+        raise ValueError(f"price_nodes: freed {tuple(freed.shape)}, need "
+                         "[N, V, R]")
+    N, V, R = freed.shape
+    if N < 1 or not 1 <= V <= MAX_V or R > MAX_R:
+        raise ValueError(f"price_nodes: N={N} V={V} R={R}; the port prices "
+                         f"N >= 1, 1 <= V <= {MAX_V} and R <= {MAX_R}")
+    want = {"free0": (N, R), "cfree0": (N,), "need": (R,), "need_cnt": (),
+            "fcnt": (N, V), "valid": (N, V), "pdb": (N, V), "top": (N, V),
+            "psum": (N, V), "gcnt": (N, V), "startr": (N, V),
+            "row_valid": (N,)}
+    have = dict(free0=free0, cfree0=cfree0, need=need, need_cnt=need_cnt,
+                fcnt=fcnt, valid=valid, pdb=pdb, top=top, psum=psum,
+                gcnt=gcnt, startr=startr, row_valid=row_valid)
+    for k, shape in want.items():
+        if tuple(have[k].shape) != shape:
+            raise ValueError(f"price_nodes: {k} has shape "
+                             f"{tuple(have[k].shape)}, K6 needs {shape}")
+
+
+def price_nodes(free0, cfree0, need, need_cnt, freed, fcnt, valid, pdb,
+                top, psum, gcnt, startr, row_valid):
+    """[N, V] single-preemptor pricing (preempt.py price_nodes). Returns
+    (winner row or -1 as a 0-d int32 tensor, chosen [N, V] bool, k [N]
+    int32 victim units in the prefix, nviol [N] int32): plain on the CPU,
+    kernel K6 on CUDA."""
+    args = (free0, cfree0, need, need_cnt, freed, fcnt, valid, pdb, top,
+            psum, gcnt, startr, row_valid)
+    _check_price_inputs(*args)
+    if not _on_cuda(freed):
+        return price_nodes_plain(*args)
+    from .build import check
+    N, V, R = freed.shape
+    dev = freed.device
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    winner = torch.empty((), dtype=i32, device=dev)
+    chosen = torch.empty((N, V), dtype=b8, device=dev)
+    k = torch.empty((N,), dtype=i32, device=dev)
+    nviol = torch.empty((N,), dtype=i32, device=dev)
+    # per-row cost vectors and the narrowing mask, between the passes
+    iscratch = torch.empty((4, N), dtype=i32, device=dev)
+    fscratch = torch.empty((N,), dtype=f32, device=dev)
+    types = (f32, f32, f32, f32, f32, f32, b8, b8, i32, f32, i32, i32, b8)
+    ptrs = [_ptr(t, dt, name) for t, dt, name in zip(args, types,
+                                                    PRICE_KEYS)]
+    ptrs += [_ptr(winner, i32, "winner"), _ptr(chosen, b8, "chosen"),
+             _ptr(k, i32, "k"), _ptr(nviol, i32, "nviol"),
+             _ptr(iscratch, i32, "iscratch"),
+             _ptr(fscratch, f32, "fscratch")]
+    rc = _fn("price_nodes", "ktpu_price_nodes",
+             [_P] * 19 + [_I] * 3 + [_P])(*ptrs, N, V, R, _stream(freed))
+    check(rc, "price_nodes")
+    LAUNCHES["price_nodes"] += 1
+    return winner, chosen, k, nviol
+
+
+# ------------------------------------------------- whole-gang (domains)
+
+
+def _gang_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: whole-gang pricing over ICI domains needs the gang "
+        "tables, which are not ported yet (ROADMAP: gang scheduling)")
+
+
+def build_domain_tables(*args, **kw):
+    """Whole-gang tables (preempt.py build_domain_tables): not ported."""
+    raise _gang_slice("build_domain_tables")
+
+
+def _slot_curve(*args, **kw):
+    """Per-node member-slot curve (preempt.py _slot_curve): not ported."""
+    raise _gang_slice("_slot_curve")
+
+
+def price_domains(*args, **kw):
+    """[D, U] whole-gang pricing (preempt.py price_domains): not
+    ported."""
+    raise _gang_slice("price_domains")

@@ -3,20 +3,22 @@
 Port of kubernetes_tpu/scheduler/scheduler.py to the GPU. The shell is the
 reference's, line for line, with these differences:
 
-  - `device=None` means CUDA: the BatchScheduler (kernels K1-K3) and the
-    DRF account (K4, K5) run there; tests pass device="cpu".
+  - `device=None` means CUDA: the BatchScheduler (kernels K1-K3, and K6
+    for preemption) and the DRF account (K4, K5) run there; tests pass
+    device="cpu".
   - one card, no mesh: `mesh=` or KTPU_MESH raise NotImplementedError.
   - the commit thread overlaps the drain when the algorithm's device is
     CUDA (the reference asks jax for its backend); KTPU_COMMIT_THREAD
     still overrides.
   - scheduler extenders are not ported: a non-empty `extenders=` raises.
-  - preemption (preempt / preempt_gang) is not ported: where the
-    reference prints an exception from it and carries on, the port lets
-    NotImplementedError through, so an unported route stops the drain
-    loudly. The run loop keeps the error; stop() and wait_for_idle()
-    raise it. `disable_preemption=True` keeps its meaning. The
-    reference's nominate/evict half of preemption and its extender bind
-    path are left out until their kernels and modules are ported.
+  - where the reference prints an exception from preemption and carries
+    on, the port lets NotImplementedError through, so an unported route
+    (whole-gang preemption, preempt_gang) stops the drain loudly. The run
+    loop keeps the error; stop() and wait_for_idle() raise it. The
+    failed writes of the nominate/evict half are counted and logged once
+    a streak (SwallowedErrors) where the reference passes on them.
+    `disable_preemption=True` keeps its meaning. The reference's extender
+    bind path is left out until the extenders are ported.
 
 The reference's description follows.
 
@@ -204,15 +206,18 @@ class Scheduler:
         self.queue = SchedulingQueue(clock=clock)
         self.informers = informer_factory or SharedInformerFactory(client)
         pvc_lister, pv_by_name, pv_all, sc_lister = self._volume_listers()
+        from ..api.policy import PodDisruptionBudget
         from .volumebinder import VolumeBinder
         self.volume_binder = VolumeBinder(
             pvc_lister=pvc_lister, pv_lister=pv_all,
             sc_lister=sc_lister, client=client)
+        pdb_informer = self.informers.informer_for(PodDisruptionBudget)
         self.algorithm = BatchScheduler(
             self.cache, listers=self._spread_listers(),
             volume_binder=self.volume_binder,
             pvc_lister=pvc_lister, pv_lister=pv_by_name,
-            nominated=self.queue.nominated, device=device)
+            nominated=self.queue.nominated,
+            pdb_lister=lambda: pdb_informer.indexer.list(), device=device)
         #: in-scan fallback counters (scheduler_topo_inscan_fallbacks_total)
         self.algorithm.sched_metrics = self.metrics
         # speculative cohort assignment (kernels/speculative.py): the
@@ -267,6 +272,10 @@ class Scheduler:
             self.robustness = RobustnessMetrics(self.metrics.registry)
         except ValueError:
             self.robustness = RobustnessMetrics()
+        from ..utils.errlog import SwallowedErrors
+        #: handled-and-dropped failures on the preemption write paths
+        #: (KTPU001 contract: log the first of a streak, count every one)
+        self._swallowed = SwallowedErrors("scheduler", self.robustness)
 
         def _node_label(node_name, label_key):
             ni = self.algorithm.snapshot.node_infos.get(node_name)
@@ -1514,21 +1523,76 @@ class Scheduler:
             self._try_preempt(pod)
 
     def _try_preempt(self, pod: Pod) -> None:
-        """Ref: scheduler.go preempt (:292-380). The victim-pricing and
-        domain-pricing kernels are not ported: algorithm.preempt and
-        preempt_gang raise NotImplementedError, and the port lets it
-        through where the reference prints an exception and carries on.
-        The nominate/evict half of the reference follows the kernels in
-        (ROADMAP, Queue A item 3)."""
+        """Ref: scheduler.go preempt (:292-380): nominate the pod to the
+        chosen node, clear invalidated lower-priority nominations there,
+        evict the victims. The pod itself stays in the queue — the victims'
+        delete events move it back to active, and the kernel's reservation
+        tensors (BatchScheduler._nominated_device) shield the freed space
+        until it lands. An unported route (NotImplementedError) goes
+        through where the reference prints and carries on."""
         if self.disable_preemption:
             return
         if self.gang is not None and self.gang.is_member(pod):
-            # single-member preemption cannot help a gang: the reference
-            # routes the WHOLE gang through the domain-pricing kernel
+            # single-member preemption cannot help a gang (evicting for
+            # one worker leaves the gang short anyway) — route the WHOLE
+            # gang through the domain-pricing kernel instead, and count
+            # the routing so the old silent skip's disappearance shows
             self.metrics.preemption_gang_routed.inc()
             self._try_preempt_gang(pod)
             return
-        self.algorithm.preempt(pod)
+        try:
+            plan = self.algorithm.preempt(pod)
+        except NotImplementedError:
+            raise
+        except Exception:
+            import traceback
+            traceback.print_exc()
+            return
+        if plan is None:
+            return
+
+        def set_nominated(cur):
+            cur.status.nominated_node_name = plan.node_name
+            return cur
+        try:
+            updated = self.client.pods(pod.metadata.namespace).patch(
+                pod.metadata.name, set_nominated)
+            self._swallowed.ok("nominate")
+        except Exception as e:
+            # pod vanished; nothing to preempt for
+            self._swallowed.swallow("nominate", e)
+            return
+        # make the nomination visible to the next batch immediately (the
+        # informer update will confirm): reservation tensor + queue pod
+        self.queue.nominated.add(updated, plan.node_name)
+        self.queue.update(pod, updated)
+        for other in plan.nominated_to_clear:
+            def clear_nominated(cur):
+                cur.status.nominated_node_name = ""
+                return cur
+            try:
+                self.client.pods(other.metadata.namespace).patch(
+                    other.metadata.name, clear_nominated)
+                self._swallowed.ok("clear_nomination")
+            except Exception as e:
+                # the nominee vanished; its map entry goes below anyway
+                self._swallowed.swallow("clear_nomination", e)
+            self.queue.nominated.delete(other)
+        self.metrics.preemption_attempts.inc()
+        self.metrics.preemption_victims.inc(len(plan.victims))
+        for victim in plan.victims:
+            self._record_event(
+                victim, "Preempted",
+                f"Preempted by {pod.metadata.namespace}/{pod.metadata.name} "
+                f"on node {plan.node_name}")
+            try:
+                self.client.pods(victim.metadata.namespace).delete(
+                    victim.metadata.name)
+                self._swallowed.ok("evict")
+            except Exception as e:
+                # already deleted / API fault: the pod's next failed
+                # attempt prices the node again
+                self._swallowed.swallow("evict", e)
 
     def _try_preempt_gang(self, pod: Pod) -> None:
         """Whole-gang preemption: price every ICI domain for the parked

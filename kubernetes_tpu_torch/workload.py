@@ -1,17 +1,25 @@
 """The scheduler_perf-shaped cluster and pods of the batch drain.
 
 The same shapes as the repository's bench.py (make_node / make_pod, its
-`uniform`, `node-affinity`, `taints` and `spread` variants, and the
-inter-pod ones `pod-affinity`, `pod-anti-affinity` and
-`preferred-affinity`): nodes of 4 CPU, 32Gi and 110 pods in 16 zones;
-pods of three request shapes. Every function here takes the API module to
-build with, so one seeded fixture can be built in this package's types
-and in the reference package's.
+`uniform`, `node-affinity`, `taints` and `spread` variants, the inter-pod
+ones `pod-affinity`, `pod-anti-affinity` and `preferred-affinity`, and
+`nominated`, whose uniform pods schedule beside ghost nominations on
+every fourth node): nodes of 4 CPU, 32Gi and 110 pods in 16 zones; pods
+of three request shapes. Also bench.py preempt_main's preemption storm: a
+full cluster of bound low-priority victims under a PodDisruptionBudget,
+and the high-priority pods that must preempt them. Every function here
+takes the API module to build with, so one seeded fixture can be built in
+this package's types and in the reference package's.
 """
 
 from __future__ import annotations
 
-VARIANTS = ("uniform", "node-affinity", "taints", "spread")
+import importlib
+import queue as queue_mod
+
+import numpy as np
+
+VARIANTS = ("uniform", "node-affinity", "taints", "spread", "nominated")
 #: the inter-pod (anti-)affinity variants: their batches carry the
 #: scan's topology counters or soft credit tables
 AFFINITY_VARIANTS = ("pod-affinity", "pod-anti-affinity",
@@ -120,10 +128,21 @@ def spread_service(api):
         spec=api.ServiceSpec(selector={"app": "bench"}))
 
 
+def install_nominated(api, nominated, n_nodes: int) -> None:
+    """bench.py's `nominated` variant: a ghost preemptor (a uniform pod
+    that is never created) nominated to every fourth node, so the scan's
+    phantom-usage overlay is live on every batch."""
+    for i in range(0, n_nodes, 4):
+        ghost = make_pod(api, 4_000_000 + i)
+        ghost.metadata.name = f"ghost-{i}"
+        nominated.add(ghost, f"node-{i}")
+
+
 def build(api, cache_cls, scheduler_cls, listers_cls, n_nodes: int,
           variant: str, zones: int = 16, **sched_kw):
     """(scheduler, cache): a cache holding n_nodes nodes and a batch
-    scheduler over it, with the spread Service wired for `spread`."""
+    scheduler over it, with the spread Service wired for `spread` and
+    the ghost nominations installed for `nominated`."""
     cache = cache_cls()
     for i in range(n_nodes):
         cache.add_node(make_node(api, i, variant, zones))
@@ -131,4 +150,158 @@ def build(api, cache_cls, scheduler_cls, listers_cls, n_nodes: int,
     if variant == "spread":
         svc = spread_service(api)
         listers = listers_cls(services=lambda ns: [svc])
-    return scheduler_cls(cache, listers=listers, **sched_kw), cache
+    sched = scheduler_cls(cache, listers=listers, **sched_kw)
+    if variant == "nominated":
+        install_nominated(api, sched.nominated, n_nodes)
+    return sched, cache
+
+
+# ------------------------------------------------------------ preemption
+
+#: the storm's node label grouping 8 nodes into one slice (bench.py SLICE)
+STORM_SLICE = "tpu/slice"
+
+
+def storm_objects(api, n_nodes: int, seed: int = 0):
+    """(nodes, victims, pdb) of bench.py preempt_main's storm, drawn in
+    its order from one seed: every node full of 3 bound victims of
+    priority 0, 10 or 100 (label band=b<priority>, 1.0-1.3 CPU and 2Gi
+    each), the first victim on every fourth node a member of a PodGroup
+    of its own, and one PodDisruptionBudget over band b0 allowing
+    n_nodes // 2 disruptions."""
+    policy = importlib.import_module(api.__name__ + ".policy")
+    rng = np.random.default_rng(seed)
+    nodes, victims = [], []
+    k = 0
+    for i in range(n_nodes):
+        node = make_node(api, i)
+        node.metadata.labels[STORM_SLICE] = f"s{i // 8}"
+        nodes.append(node)
+        for j in range(3):
+            prio = int(rng.choice((0, 10, 100)))
+            labels = {"band": f"b{prio}"}
+            if i % 4 == 0 and j == 0:
+                labels[api.wellknown.LABEL_POD_GROUP] = f"vg{i // 4}"
+            pod = api.Pod(
+                metadata=api.ObjectMeta(name=f"v{k}", namespace="default",
+                                        labels=labels),
+                spec=api.PodSpec(
+                    node_name=f"node-{i}", priority=prio,
+                    containers=[api.Container(
+                        name="c", image="img",
+                        resources=api.ResourceRequirements(requests={
+                            "cpu": api.Quantity(
+                                f"{int(rng.integers(10, 14))}00m"),
+                            "memory": api.Quantity("2Gi")}))]))
+            pod.status.start_time = f"2026-08-01T00:{k % 60:02d}:00Z"
+            victims.append(pod)
+            k += 1
+    pdb = policy.PodDisruptionBudget(
+        metadata=api.ObjectMeta(name="pdb-b0", namespace="default"),
+        spec=policy.PodDisruptionBudgetSpec(
+            selector=api.LabelSelector(match_labels={"band": "b0"})),
+        status=policy.PodDisruptionBudgetStatus(
+            disruptions_allowed=n_nodes // 2))
+    return nodes, victims, pdb
+
+
+def storm_cache(api, cache_cls, n_nodes: int, seed: int = 0):
+    """(cache, [pdb]): the storm cluster straight in a scheduler cache,
+    as bench.py's run_storm builds it."""
+    nodes, victims, pdb = storm_objects(api, n_nodes, seed)
+    cache = cache_cls()
+    for node in nodes:
+        cache.add_node(node)
+    for pod in victims:
+        cache.add_pod(pod)
+    return cache, [pdb]
+
+
+def storm_client(api, client, n_nodes: int, seed: int = 0):
+    """The storm cluster created through a Client: the nodes, the bound
+    victims and the PodDisruptionBudget object. Returns the victims."""
+    nodes, victims, pdb = storm_objects(api, n_nodes, seed)
+    for node in nodes:
+        client.nodes().create(node)
+    created = [client.pods().create(pod) for pod in victims]
+    client.pod_disruption_budgets("default").create(pdb)
+    return created
+
+
+def storm_preemptor(api, i: int):
+    """Preemptor i of the storm: 2 CPU and 3Gi at priority 1000, more
+    than any node has free."""
+    return api.Pod(
+        metadata=api.ObjectMeta(name=f"hi{i}", namespace="default"),
+        spec=api.PodSpec(priority=1000, containers=[api.Container(
+            name="c", image="img",
+            resources=api.ResourceRequirements(requests={
+                "cpu": api.Quantity("2"),
+                "memory": api.Quantity("3Gi")}))]))
+
+
+class InformerPump:
+    """Delivers a scheduler's informer events on the calling thread, in
+    place of starting its SharedInformerFactory: each informer lists once
+    here, then pump() hands it every event the store published since, in
+    store order. A drain driven this way sees every earlier write
+    (a preemption's evictions before the next preemption prices), whatever
+    the thread timing, so two runs of one fixture decide alike."""
+
+    def __init__(self, factory):
+        self._pairs = []
+        for inf in list(factory._informers.values()):
+            inf._relist()
+            self._pairs.append(
+                (inf, inf._rc.watch(resource_version=inf.last_sync_rv)))
+
+    def pump(self) -> int:
+        """Deliver every pending event; returns how many."""
+        n = 0
+        for inf, watch in self._pairs:
+            while True:
+                try:
+                    ev = watch.events.get_nowait()
+                except queue_mod.Empty:
+                    break
+                if ev is None:
+                    break
+                inf._process_event(ev)
+                n += 1
+        return n
+
+    def close(self) -> None:
+        for _inf, watch in self._pairs:
+            watch.stop()
+
+
+#: how far drain_until_idle steps the clock when nothing is poppable: the
+#: queue's longest backoff (queue.py MAX_BACKOFF)
+BACKOFF_STEP_S = 10.0
+
+
+def drain_until_idle(sched, pump: "InformerPump", clock,
+                     max_rounds: int = 64) -> int:
+    """Drive Scheduler.drain_pipelined with preemption on until no pod
+    is pending: after each preemption and each drain the pump delivers
+    the store's events (evictions, nominations, binds), and when nothing
+    is poppable the FakeClock steps past the pods' backoff. Returns the
+    pods bound."""
+    try_preempt = sched._try_preempt
+
+    def preempt_then_deliver(pod):
+        try_preempt(pod)
+        pump.pump()
+    sched._try_preempt = preempt_then_deliver
+    bound = 0
+    try:
+        for _ in range(max_rounds):
+            bound += sched.drain_pipelined()
+            pump.pump()
+            if sched.queue.num_pending() == 0:
+                break
+            if sched.queue.active_depth() == 0:
+                clock.step(BACKOFF_STEP_S)
+    finally:
+        del sched._try_preempt
+    return bound

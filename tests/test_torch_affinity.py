@@ -16,7 +16,12 @@ _soft_write) ride the class scan. Here on the CPU:
   512 pods, KTPU_COMMIT_THREAD=0): the same node for every pod;
 - the in-scan fallback counters against the reference's when a batch
   overflows the term cap, the per-pod fan-out or the soft channel cap;
-- the routes of port slice 4 still raise.
+- port slice 4's nominated-reservation overlay: the plain scan with
+  phantom reservations (a fully reserved node, pods holding their own
+  nomination) against the JAX `schedule_batch(..., nom)`, with and
+  without each carry, and the reference's nominated BatchScheduler tests
+  against the JAX class route;
+- the routes of port slice 5 still raise.
 
 Everything is small and changes no process-wide state (monkeypatch
 only), as these tests share worker processes with the rest of the suite.
@@ -32,11 +37,12 @@ from kubernetes_tpu.scheduler.cache import Cache as JCache
 from kubernetes_tpu.scheduler.core import BatchScheduler as JBatch
 from kubernetes_tpu.scheduler.kernels import batch as jb
 from kubernetes_tpu.scheduler.metrics import SchedulerMetrics as JMetrics
+from kubernetes_tpu.scheduler.queue import NominatedPodMap as JNominatedPodMap
 from kubernetes_tpu.state import Client as JClient
 
 from kubernetes_tpu_torch import api as tapi
 from kubernetes_tpu_torch import workload
-from kubernetes_tpu_torch.convert import tables_from_numpy
+from kubernetes_tpu_torch.convert import nom_from_numpy, tables_from_numpy
 from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
 from kubernetes_tpu_torch.scheduler.cache import Cache as TCache
 from kubernetes_tpu_torch.scheduler.core import BatchScheduler as TBatch
@@ -203,10 +209,11 @@ def _case(name, seed=0):
     return node_cfg, usage, pb
 
 
-def _both(node_cfg, usage, pb, t_usage=None):
-    ref = jb.schedule_batch(node_cfg, usage, pb)
+def _both(node_cfg, usage, pb, t_usage=None, nom=None):
+    ref = jb.schedule_batch(node_cfg, usage, pb, nom)
     tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, "cpu")
-    got = tb.schedule_batch(tc, tu if t_usage is None else t_usage, tpb)
+    got = tb.schedule_batch(tc, tu if t_usage is None else t_usage, tpb,
+                            nom_from_numpy(nom, "cpu"))
     return ref, got
 
 
@@ -250,6 +257,163 @@ def test_chained_launch_seeds_soft_credits():
     _assert_equal(ref2, got2)
     got3 = _both(node_cfg, usage2, pb2, t_usage=got1[2])[1]
     _assert_equal(ref2, got3)
+
+
+# ------------------------------------------------------------ nominated
+
+
+#: the row every reservation of _nom leaves no room on, and the pods that
+#: hold their own nomination (the self-exemption rows)
+FULL_ROW = 5
+SELF_PODS = {0: FULL_ROW, 1: 9, 7: 9, 30: 17}
+
+
+def _nom(node_cfg, usage, pb, seed):
+    """Phantom reservations as core._nominated_device builds them: a
+    quarter of the nodes carry one or two nominated pods of the batch's
+    request shapes, FULL_ROW is reserved to its allocatable (only its
+    nominee fits there), and four pods hold their own nomination,
+    SELF_PODS (pod -> row): their own request is part of the row's
+    reservation, as the reference charges it."""
+    rng = np.random.default_rng(seed + 200)
+    req = pb["class_req"]
+    used = np.zeros((N, R), np.float32)
+    count = np.zeros((N,), np.float32)
+    for row in range(0, N - 4, 4):
+        for _ in range(int(rng.integers(1, 3))):
+            used[row] += req[int(rng.integers(0, C))]
+            count[row] += 1.0
+    pb["class_idx"][0] = 2
+    used[FULL_ROW] = node_cfg["alloc"][FULL_ROW] - usage["used"][FULL_ROW]
+    count[FULL_ROW] += 1.0
+    nom_row = np.full((P,), -1, np.int32)
+    for p, row in SELF_PODS.items():
+        nom_row[p] = row
+        if row != FULL_ROW:
+            used[row] += req[pb["class_idx"][p]]
+            count[row] += 1.0
+    pb["nom_row"] = nom_row
+    node_cfg["node_ok"][FULL_ROW] = True
+    return {"used": used, "count": count}
+
+
+NOM_CASES = {"plain": {}, **CASES}
+
+
+@pytest.mark.parametrize("name", sorted(NOM_CASES))
+def test_nominated_scan_matches_jax(name):
+    """The nominated overlay in the plain scan, bit for bit against the
+    JAX class route: feasibility on used + nom (K1's fold), each
+    nominee's own row recomputed with its reservation taken out, the
+    winner column refreshed with the reservations added; with no carry
+    and with each carry of slice 3."""
+    if name == "plain":
+        node_cfg, usage, pb = _base(0)
+    else:
+        node_cfg, usage, pb = _case(name)
+    nom = _nom(node_cfg, usage, pb, 0)
+    ref, got = _both(node_cfg, usage, pb, nom=nom)
+    _assert_equal(ref, got)
+    assign = np.asarray(ref[0])
+    # only the nominee takes the fully reserved row; the overlay keeps
+    # every other pod off it
+    assert set(np.nonzero(assign == FULL_ROW)[0]) <= {0}
+    # and the overlay changed decisions against the same batch without it
+    pb_free = {k: v for k, v in pb.items() if k != "nom_row"}
+    free = jb.schedule_batch(node_cfg, usage, pb_free)
+    assert not np.array_equal(np.asarray(free[0]), assign)
+
+
+def test_nominee_takes_its_fully_reserved_row():
+    """The self-exemption row alone: pod 0 nominated to FULL_ROW lands
+    there in both packages when it is the best row left to it."""
+    node_cfg, usage, pb = _base(3)
+    nom = _nom(node_cfg, usage, pb, 3)
+    um = pb["unique_masks"]
+    um[:] = False
+    um[:, FULL_ROW] = True
+    um[0, 9] = True
+    ref, got = _both(node_cfg, usage, pb, nom=nom)
+    _assert_equal(ref, got)
+    assert int(np.asarray(ref[0])[0]) == FULL_ROW
+
+
+def _mk_node(api, i, cpu="1", mem="1Gi"):
+    alloc = {"cpu": api.Quantity(cpu), "memory": api.Quantity(mem),
+             "pods": api.Quantity(110)}
+    return api.Node(
+        metadata=api.ObjectMeta(
+            name=f"n{i}", labels={api.wellknown.LABEL_HOSTNAME: f"n{i}"}),
+        status=api.NodeStatus(capacity=dict(alloc), allocatable=dict(alloc),
+                              conditions=[api.NodeCondition(type="Ready",
+                                                            status="True")]))
+
+
+def _mk_pod(api, name, cpu, mem="256Mi", priority=None):
+    return api.Pod(
+        metadata=api.ObjectMeta(name=name, namespace="default"),
+        spec=api.PodSpec(priority=priority, containers=[api.Container(
+            name="c", image="img", resources=api.ResourceRequirements(
+                requests={"cpu": api.Quantity(cpu),
+                          "memory": api.Quantity(mem)}))]))
+
+
+def _nom_sides():
+    return ((japi, JCache, JBatch, JNominatedPodMap, {}),
+            (tapi, TCache, TBatch, NominatedPodMap, {"device": "cpu"}))
+
+
+def test_nominated_reservation_shields_space_like_jax():
+    """tests/test_scheduler.py test_nominated_reservation_shields_space
+    in both packages: a nominated pod's space is invisible to a thief
+    but usable by the nominee."""
+    out = []
+    for api, cache_cls, sched_cls, nom_cls, kw in _nom_sides():
+        cache = cache_cls()
+        cache.add_node(_mk_node(api, 0))
+        nominated = nom_cls()
+        nominee = _mk_pod(api, "nominee", "600m", priority=100)
+        nominee.status.nominated_node_name = "n0"
+        nominated.add(nominee)
+        sched = sched_cls(cache, nominated=nominated, **kw)
+        (thief,) = sched.schedule([_mk_pod(api, "thief", "600m",
+                                           priority=1)])
+        (own,) = sched.schedule([nominee])
+        out.append((thief.node_name, own.node_name,
+                    np.float32(own.score).view(np.int32)))
+    assert out[0] == out[1]
+    assert out[1][:2] == (None, "n0")
+
+
+def test_nominated_batch_rides_class_scan_like_jax():
+    """tests/test_class_fastpath.py test_nominated_batch_rides_class_scan
+    against the JAX class route: a ghost reserves all of n0, one batch
+    pod holds its own nomination on n2; the overlay is live, nobody lands
+    on n0, and every decision and score equals JAX's."""
+    out = []
+    for api, cache_cls, sched_cls, nom_cls, kw in _nom_sides():
+        nominated = nom_cls()
+        cache = cache_cls()
+        for i in range(4):
+            cache.add_node(_mk_node(api, i))
+        ghost = _mk_pod(api, "ghost", "1", "1Gi")
+        ghost.status.nominated_node_name = "n0"
+        nominated.add(ghost)
+        sched = sched_cls(cache, nominated=nominated, **kw)
+        pods = [_mk_pod(api, f"p{i}", "600m") for i in range(6)]
+        pods[0].status.nominated_node_name = "n2"
+        nominated.add(pods[0])
+        pending = sched.schedule_launch(pods)
+        assert sched._nom_dev is not None
+        assert {k: sched.mirror.name_of[r] for k, r in
+                sched._nom_rows_by_key.items()} == {"default/ghost": "n0",
+                                                    "default/p0": "n2"}
+        res = sched.schedule_finish(pending)
+        out.append([(r.pod.metadata.name, r.node_name,
+                     np.float32(r.score).view(np.int32)) for r in res])
+    assert out[0] == out[1]
+    assert "n0" not in {n for _, n, _ in out[1]}
+    assert dict((p, n) for p, n, _ in out[1])["p0"] == "n2"
 
 
 # ------------------------------------------------------------ end to end
@@ -401,18 +565,33 @@ def _batch_sched(**kw):
 
 @pytest.mark.parametrize("route", ["classic", "nominated", "filter_score"])
 def test_slice4_routes_still_raise(route, monkeypatch):
+    """The classic per-pod branch and filter_score still raise, naming
+    port slice 5. The nominated overlay was ported in slice 4: a batch of
+    inter-pod pods beside a ghost nomination schedules as the JAX
+    BatchScheduler schedules it."""
     pods = [_anti(tapi, 0, (0,)), _preferred(tapi, 1, (0,))]
+    if route == "nominated":
+        out = []
+        for api, cache_cls, sched_cls, nom_cls, kw in (
+                (japi, JCache, JBatch, JNominatedPodMap, {}),
+                (tapi, TCache, TBatch, NominatedPodMap, {"device": "cpu"})):
+            nominated = nom_cls()
+            nominated.add(workload.make_pod(api, 99), "node-0")
+            sched, _ = workload.build(api, cache_cls, sched_cls, None, 16,
+                                      "uniform", nominated=nominated, **kw)
+            res = sched.schedule([_anti(api, 0, (0,)),
+                                  _preferred(api, 1, (0,))])
+            out.append([(r.node_name, np.float32(r.score).view(np.int32))
+                        for r in res])
+        assert out[0] == out[1]
+        assert all(n for n, _ in out[1])
+        return
     if route == "classic":
         monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
         call = lambda: _batch_sched().schedule(pods)        # noqa: E731
-    elif route == "nominated":
-        nominated = NominatedPodMap()
-        nominated.add(workload.make_pod(tapi, 99), "node-0")
-        call = lambda: _batch_sched(                        # noqa: E731
-            nominated=nominated).schedule(pods)
     else:
         node_cfg, usage, pb = _case("anti")
         call = lambda: tb.filter_score(                     # noqa: E731
             *tables_from_numpy(node_cfg, usage, pb, "cpu"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         call()

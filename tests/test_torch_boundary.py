@@ -46,6 +46,8 @@ SLICE_MODULES = [
     "kubernetes_tpu_torch.scheduler.kernels",
     "kubernetes_tpu_torch.scheduler.kernels.batch",
     "kubernetes_tpu_torch.scheduler.kernels.build",
+    "kubernetes_tpu_torch.scheduler.kernels.preempt",
+    "kubernetes_tpu_torch.scheduler.preemption",
     "kubernetes_tpu_torch.convert", "kubernetes_tpu_torch.workload",
     "kubernetes_tpu_torch.scheduler.scheduler",
     "kubernetes_tpu_torch.scheduler.gang",
@@ -144,33 +146,53 @@ def _preferred_pod(i):
 def test_required_anti_affinity_batch_raises(monkeypatch):
     """Ported in slice 3: the batch schedules on the class route, with
     the counters in the scan (one pod per hostname). Only the classic
-    per-pod branch (slice 4) still raises for it."""
+    per-pod branch (slice 5) still raises for it."""
     res = _sched().schedule([_anti_pod(i) for i in range(4)])
     nodes = [r.node_name for r in res]
     assert None not in nodes and len(set(nodes)) == 4
     monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         _sched().schedule([_anti_pod(0), _anti_pod(1)])
 
 
 def test_preferred_pod_affinity_batch_raises(monkeypatch):
     """Ported in slice 3: the soft credit tables ride the class scan.
-    Only the classic per-pod branch (slice 4) still raises for it."""
+    Only the classic per-pod branch (slice 5) still raises for it."""
     sched = _sched()
     pods = [_preferred_pod(i) for i in range(4)]
     assert sched._soft_plan(pods) is not None
     assert all(r.node_name for r in sched.schedule(pods))
     monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         _sched().schedule([_preferred_pod(0)])
 
 
 def test_nominated_reservation_raises():
-    nominated = NominatedPodMap()
-    ghost = workload.make_pod(tapi, 99)
-    nominated.add(ghost, "node-0")
-    with pytest.raises(NotImplementedError, match="nominated.*slice 4"):
-        _sched(nominated=nominated).schedule([workload.make_pod(tapi, 0)])
+    """Ported in slice 4: a live nomination no longer raises. A ghost
+    nominated to every node but one, holding as much as the node has
+    free, keeps a batch off the reserved nodes, as the JAX BatchScheduler
+    keeps it, bind for bind."""
+    import kubernetes_tpu.api as japi
+    from kubernetes_tpu.scheduler.cache import Cache as JCache
+    from kubernetes_tpu.scheduler.core import BatchScheduler as JBatch
+    from kubernetes_tpu.scheduler.queue import NominatedPodMap as JNom
+    out = []
+    for api, cache_cls, sched_cls, nom_cls, kw in (
+            (japi, JCache, JBatch, JNom, {}),
+            (tapi, Cache, BatchScheduler, NominatedPodMap,
+             {"device": "cpu"})):
+        nominated = nom_cls()
+        for i in range(1, 16):
+            ghost = workload.make_pod(api, 99 + i)
+            ghost.metadata.name = f"ghost-{i}"
+            ghost.spec.containers[0].resources.requests = {
+                "cpu": api.Quantity("4"), "memory": api.Quantity("1Gi")}
+            nominated.add(ghost, f"node-{i}")
+        sched, _ = workload.build(api, cache_cls, sched_cls, None, 16,
+                                  "uniform", nominated=nominated, **kw)
+        res = sched.schedule([workload.make_pod(api, i) for i in range(4)])
+        out.append([r.node_name for r in res])
+    assert out[0] == out[1] == ["node-0"] * 4
 
 
 def test_gang_batch_raises():

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from kubernetes_tpu_torch.convert import tables_from_numpy
+from kubernetes_tpu_torch.convert import (nom_from_numpy, tables_from_numpy,
+                                           victim_tables_from_numpy)
 from kubernetes_tpu_torch.scheduler.kernels import batch as kb
+from kubernetes_tpu_torch.scheduler.kernels import preempt as pk
 
 pytestmark = pytest.mark.gpu
 
@@ -78,6 +80,35 @@ def _plain(fn, *args):
         return fn(*args)
     finally:
         kb.class_ms_init, kb._class_scan_cuda = saved
+
+
+def _nom(node_cfg, usage, pb, seed):
+    """Phantom reservations on a quarter of the rows, every 64th row
+    reserved to its allocatable, and every 16th pod holding its own
+    nomination (the self-exemption rows), half of them on a fully
+    reserved row."""
+    rng = np.random.default_rng(seed + 70)
+    N, R = node_cfg["alloc"].shape
+    P = pb["class_idx"].shape[0]
+    req = pb["class_req"]
+    used = np.zeros((N, R), np.float32)
+    count = np.zeros((N,), np.float32)
+    for row in range(0, N, 4):
+        for _ in range(int(rng.integers(1, 3))):
+            used[row] += req[int(rng.integers(0, req.shape[0]))]
+            count[row] += 1.0
+    full = np.arange(0, N, 64)
+    used[full] = node_cfg["alloc"][full] - usage["used"][full]
+    nom_row = np.full((P,), -1, np.int32)
+    for j, p in enumerate(range(0, P, 16)):
+        row = int(full[j % len(full)]) if j % 2 else int(
+            rng.integers(0, N))
+        nom_row[p] = row
+        if j % 2 == 0:
+            used[row] += req[pb["class_idx"][p]]
+        count[row] += 1.0
+    pb["nom_row"] = nom_row
+    return {"used": used, "count": count}
 
 
 def _lists(rng, n_terms, P, K, frac):
@@ -163,6 +194,99 @@ def test_scan_kernels_match_plain(cuda, spread, topo, dir2, soft):
         assert torch.equal(new_usage[k].view(torch.int32),
                            ref_usage[k].view(torch.int32)), k
     assert (packed[0] >= 0).sum() > 1000
+
+
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+def test_nominated_scan_kernels_match_plain(cuda, spread, topo, dir2, soft):
+    """K1's nominated fold and each K2 instance with the NOM overlay (the
+    self-exempt rows, the winner column refreshed with the reservations)
+    against the plain versions."""
+    node_cfg, usage, pb = _state(3)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, 3, topo, dir2, soft)
+    nom = _nom(node_cfg, usage, pb, 3)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    tnom = nom_from_numpy(nom, cuda)
+    name = kb.scan_instance(spread, topo, soft, True)
+    before = dict(kb.LAUNCHES)
+    packed, new_usage = kb.schedule_batch_packed(tc, tu, tpb, tnom)
+    assert kb.LAUNCHES[name] == before[name] + 1
+    ref, ref_usage = _plain(kb.schedule_batch_packed, tc, tu, tpb, tnom)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, ref)
+    for k in ref_usage:
+        assert torch.equal(new_usage[k].view(torch.int32),
+                           ref_usage[k].view(torch.int32)), k
+    # the overlay decided something: the same batch without it differs
+    free, _ = kb.schedule_batch_packed(tc, tu, tpb)
+    assert not torch.equal(free[0], packed[0])
+
+
+def _storm_tables(n_nodes, preemptor):
+    from kubernetes_tpu_torch import api, workload
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    cache, pdbs = workload.storm_cache(api, Cache, n_nodes)
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    infos = snap.node_infos
+    return pk.build_victim_tables(workload.storm_preemptor(api, preemptor),
+                                  sorted(infos.items()), infos, pdbs).arrays
+
+
+def _wide_tables(V, R=2, seed=0, fit_at_boundary=True):
+    """Rows of V units whose freed bytes make the prefix sums inexact, the
+    free space set so the preemptor fits at a boundary unit (the fixture
+    of tests/test_torch_preempt.py's prefix-order test), with extended
+    scalar columns when R > 2."""
+    rng = np.random.default_rng(seed)
+    n, f32 = 300, np.float32
+    freed = rng.integers(10**8, 2 * 10**9, (n, V, R)).astype(f32)
+    seq = np.cumsum(freed, axis=1, dtype=f32)
+    t = rng.integers(0, V, n)
+    need = np.full((R,), f32(3e9))
+    top = rng.integers(2 * 10**9 - 100, 2 * 10**9, (n, V)).astype(np.int32)
+    free0 = (need[None, :] - seq[np.arange(n), t]).astype(f32)
+    if not fit_at_boundary:
+        free0 -= f32(1e12)
+    valid = rng.random((n, V)) < 0.95
+    N = 512
+    pad = N - n
+
+    def rows(x, fill=0):
+        return np.concatenate([x, np.full((pad,) + x.shape[1:], fill,
+                                          x.dtype)])
+    return {"free0": rows(free0), "cfree0": np.zeros(N, f32), "need": need,
+            "need_cnt": f32(1), "freed": rows(freed),
+            "fcnt": rows(np.ones((n, V), f32)), "valid": rows(valid),
+            "pdb": rows(rng.random((n, V)) < 0.1), "top": rows(top, -2**31),
+            "psum": rows(top.astype(f32)),
+            "gcnt": rows(np.ones((n, V), np.int32)),
+            "startr": rows(rng.integers(0, 50, (n, V)).astype(np.int32), -1),
+            "row_valid": np.arange(N) < n}
+
+
+PRICE_CASES = {"storm-512": lambda: _storm_tables(512, 0),
+               "storm-5000": lambda: _storm_tables(5000, 3),
+               "wide-32": lambda: _wide_tables(32),
+               "wide-128-scalars": lambda: _wide_tables(128, R=4, seed=1),
+               "nothing-fits": lambda: _wide_tables(16, fit_at_boundary=False)}
+
+
+@pytest.mark.parametrize("case", sorted(PRICE_CASES))
+def test_price_nodes_kernel_matches_plain(cuda, case):
+    """K6 against price_nodes_plain on the card: winner, chosen, k and
+    nviol equal."""
+    a = victim_tables_from_numpy(PRICE_CASES[case](), cuda)
+    args = [a[k] for k in pk.PRICE_KEYS]
+    before = pk.LAUNCHES["price_nodes"]
+    got = pk.price_nodes(*args)
+    assert pk.LAUNCHES["price_nodes"] == before + 1
+    ref = pk.price_nodes_plain(*args)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("winner", "chosen", "k", "nviol"), got, ref):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+    assert (int(got[0]) < 0) == (case == "nothing-fits")
 
 
 def test_soft_chained_launch_matches_plain(cuda):

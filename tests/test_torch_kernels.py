@@ -261,17 +261,25 @@ def test_schedule_batch_chained_launch_bit_exact(spread):
 
 
 def test_schedule_batch_routes_outside_the_slice_raise():
-    """The classic per-pod branch, the nominated overlay and filter_score
-    are port slice 4 (the in-scan affinity tables are ported:
-    tests/test_torch_affinity.py)."""
+    """The classic per-pod branch and filter_score are port slice 5 and
+    raise. The nominated overlay is ported (slice 4; its own fixtures are
+    in tests/test_torch_affinity.py): a batch with reservations on every
+    third row schedules as the JAX class route does."""
     node_cfg, usage, pb = _batch(0, False, P=64)
     tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, "cpu")
     classic = {k: v for k, v in tpb.items() if k not in CLASS_KEYS}
-    with pytest.raises(NotImplementedError, match="classic.*slice 4"):
+    with pytest.raises(NotImplementedError, match="classic.*slice 5"):
         tb.schedule_batch(tc, tu, classic)
-    with pytest.raises(NotImplementedError, match="nominated.*slice 4"):
-        tb.schedule_batch(tc, tu, tpb, nom={"used": tu["used"]})
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    N, R = node_cfg["alloc"].shape
+    nom = {"used": np.zeros((N, R), np.float32),
+           "count": np.zeros((N,), np.float32)}
+    nom["used"][::3] = pb["class_req"][0]
+    nom["count"][::3] = 1.0
+    ref = jb.schedule_batch(node_cfg, usage, pb, nom)
+    got = tb.schedule_batch(tc, tu, tpb, {k: torch.from_numpy(v)
+                                          for k, v in nom.items()})
+    _assert_scan_equal(ref, got)
+    with pytest.raises(NotImplementedError, match="slice 5"):
         tb.filter_score(tc, tu, tpb)
 
 

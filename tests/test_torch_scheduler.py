@@ -15,11 +15,11 @@ schedule_pending and through drain_pipelined:
 - a fixture wired through started informers (client create -> informer
   -> queue).
 
-Then the boundary: an unschedulable pod with preemption off gives the
-same attribution and FailedScheduling event in both packages; with
-preemption on, the unported route raises NotImplementedError out of
-schedule_pending, drain_pipelined and the run loop instead of being
-printed; a mesh, KTPU_MESH and extenders raise.
+Then the boundary: an unschedulable pod with preemption off, and with
+preemption on but nothing to evict, gives the same attribution,
+FailedScheduling event and pending state in both packages; an unported
+route (a gang member's batch) raises NotImplementedError out of the run
+loop instead of being printed; a mesh, KTPU_MESH and extenders raise.
 """
 
 import time
@@ -242,24 +242,52 @@ def test_unschedulable_attribution_matches_jax():
 @pytest.mark.parametrize("how", ["pending", "pipelined"])
 @pytest.mark.parametrize("thread", ["0", "1"])
 def test_preemption_raises_instead_of_printing(how, thread, monkeypatch):
+    """Preemption is ported (slice 4): with it on, a pod that fits
+    nowhere and has no lower-priority pod to evict gets the same
+    attribution, events and pending state as in the JAX package, and no
+    preemption attempt is counted."""
     monkeypatch.setenv("KTPU_COMMIT_THREAD", thread)
-    client, sched = _unschedulable(PORT)
-    with pytest.raises(NotImplementedError, match="preemption"):
+    out = []
+    for side in (JAX, PORT):
+        client, sched = _unschedulable(side)
         drain(sched, how)
+        sched.stop()
+        rec = sched.attribution.get("default/pod-1")
+        events = sorted((e.reason, e.message, e.involved_object.name)
+                        for e in client.events().list())
+        out.append((rec["reason"], rec["message"], events,
+                    sched.unschedulable_count, sched.queue.num_pending(),
+                    sorted(p.metadata.name
+                           for p in sched.queue.pending_pods()),
+                    sched.metrics.preemption_attempts.value(),
+                    dict(sched.queue.nominated.by_node()),
+                    bind_map(client)))
+    assert out[0] == out[1]
+    assert out[1][4] == 1 and out[1][6] == 0.0
+    assert out[1][8]["pod-0"] and not out[1][8]["pod-1"]
 
 
 def test_run_loop_keeps_the_error_and_stop_raises_it():
+    """A route that is still unported — a gang member's batch, which goes
+    to the gang kernels and, failing, to whole-gang preemption — stops
+    the run loop; wait_for_idle and stop raise the error."""
     client = TClient(validate=False)
     sched = TScheduler(client, batch_size=8, device="cpu")
     client.nodes().create(make_node(tapi, 0))
+    from kubernetes_tpu_torch.api.scheduling import PodGroup, PodGroupSpec
+    client.pod_groups("default").create(PodGroup(
+        metadata=tapi.ObjectMeta(name="g", namespace="default"),
+        spec=PodGroupSpec(min_member=1)))
     sched.start()
     try:
-        client.pods().create(make_pod(tapi, 0, "64", "1Gi"))
+        pod = make_pod(tapi, 0, "64", "1Gi")
+        pod.metadata.labels[tapi.wellknown.LABEL_POD_GROUP] = "g"
+        client.pods().create(pod)
         # the pod reaches the loop through the informer thread
         deadline = time.time() + 60
         while sched._loop_error is None and time.time() < deadline:
             time.sleep(0.01)
-        with pytest.raises(NotImplementedError, match="preemption"):
+        with pytest.raises(NotImplementedError, match="gang"):
             sched.wait_for_idle(timeout=30)
     finally:
         with pytest.raises(NotImplementedError):
