@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
-one process per source, all started together), then:
+one process per source, all started together: K1-K8), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -52,6 +52,18 @@ one process per source, all started together), then:
        class_scan_nom with the nominee's own row exempt). The informer
        events are delivered on the drain's thread (workload.InformerPump)
        and a FakeClock steps past backoffs.
+     - the classic per-pod route (KTPU_CLASS_SCAN=0: batches without
+       class tables, kernel K7 pod_scan, one launch per batch) over the
+       same clusters: `classic` and `classic-spread`, the uniform and
+       spread stand-in drains at 50,000 pods onto 5,000 nodes, whose binds
+       must equal the class route's binds of the same run;
+       `classic-anti-affinity`, `classic-preferred` and
+       `classic-nominated`, the scheduler loops of those paths under the
+       same gates (pod_scan_topo, _soft, _nom). No class-route kernel may
+       launch on them;
+     - `filter`: kernels.filter_score (K8), the [P, N] fits and scores,
+       on the uniform and spread paths' first batches (16,384 pods x
+       8,192 rows); no scheduler route calls it.
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
@@ -65,7 +77,12 @@ one process per source, all started together), then:
      instance is held on a whole batch of its path; every launch of the
      nominated instance on the `nominated` and `preemption` paths, and
      every one of the storm's 150 K6 decisions (winner, chosen units,
-     prefix lengths, PDB violations), is held against its plain version;
+     prefix lengths, PDB violations), is held against its plain version.
+     Each K7 instance replays the batch of its K2 instance's path with the
+     class tables dropped: its assign must equal K2's row for row, and
+     its packed results and post-batch usage its plain version's bit for
+     bit. K8 runs on the uniform and spread batches against its plain
+     version (fits equal, score bits equal);
   3. the `uniform`, `spread`, `anti-affinity`, `preferred` and
      `nominated` drains with the plain versions on the card (the kernels
      patched out in this script only): the binds must be equal. `uniform`
@@ -78,7 +95,8 @@ one process per source, all started together), then:
      KTPU_COMMIT_THREAD=0, the only setting whose multi-tenant order does
      not depend on thread timing) the binds and the DRF shares' bits;
      for the preemption loop (400 nodes, 30 preemptors, the same
-     setting) the binds, the evicted victims and the nominations.
+     setting) the binds, the evicted victims and the nominations; for the
+     nine-tenant loop with KTPU_CLASS_SCAN=0 (K7) the binds.
 
 It prints a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and as its last line
@@ -89,6 +107,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -123,6 +142,14 @@ PREEMPTOR_PRIORITY = 1000
 #: the scheduler path's tenants (bench.py tenancy_main's nine steady
 #: tenants) and its priority mix (every fourth pod at 1000)
 N_TENANTS = 9
+#: the classic per-pod route (KTPU_CLASS_SCAN=0, kernel K7) over the
+#: same clusters: stand-in drains (path -> the class path it must bind
+#: as, chained) and scheduler loops (bench.py variant, nodes, pods)
+CLASSIC_DRAINS = {"classic": ("uniform", True),
+                  "classic-spread": ("spread", False)}
+CLASSIC_SCHED = {"classic-anti-affinity": SCHED_PATHS["anti-affinity"],
+                 "classic-preferred": SCHED_PATHS["preferred"],
+                 "classic-nominated": SCHED_PATHS["nominated"]}
 #: kernels each main path must launch
 PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "spread": ("class_ms_init", "class_scan_spread",
@@ -134,13 +161,27 @@ PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "nominated": ("class_ms_init", "class_scan_nom"),
                 "storm": ("price_nodes",),
                 "preemption": ("price_nodes", "class_ms_init",
-                               "class_scan_nom")}
+                               "class_scan_nom"),
+                "classic": ("pod_scan",),
+                "classic-spread": ("pod_scan_spread", "apply_dirty"),
+                "classic-anti-affinity": ("pod_scan_topo",),
+                "classic-preferred": ("pod_scan_soft",),
+                "classic-nominated": ("pod_scan_nom",),
+                "filter": ("filter_score", "filter_score_spread")}
 #: the K2 instances, each timed and held on a batch of the path named
 SCAN_ROWS = (("class_scan", "uniform", "batch.py:596"),
              ("class_scan_spread", "spread", "batch.py:163"),
              ("class_scan_topo", "anti-affinity", "batch.py:366"),
              ("class_scan_soft", "preferred", "batch.py:254"),
              ("class_scan_nom", "nominated", "batch.py:515"))
+#: the K7 instances, each replayed on the class route's batch of the path
+#: named (its class tables dropped), with the part of the classic branch
+#: it replaces
+POD_SCAN_ROWS = (("pod_scan", "uniform", "batch.py:652"),
+                 ("pod_scan_spread", "spread", "batch.py:735"),
+                 ("pod_scan_topo", "anti-affinity", "batch.py:720"),
+                 ("pod_scan_soft", "preferred", "batch.py:727"),
+                 ("pod_scan_nom", "nominated", "batch.py:705"))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
 #: outside the tensor cores; the bound of a kernel is the larger of its
 #: bytes over the first and its f32 operations over the second
@@ -151,6 +192,20 @@ F32_OPS_PER_S = 67e12
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """The environment variable set for the block, restored after it."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
 
 
 def card_line() -> str:
@@ -175,6 +230,7 @@ class Port:
         from kubernetes_tpu_torch.scheduler.cache import Cache
         from kubernetes_tpu_torch.scheduler.core import BatchScheduler
         from kubernetes_tpu_torch.scheduler.kernels import batch as kb
+        from kubernetes_tpu_torch.scheduler.kernels import filter_score
         from kubernetes_tpu_torch.scheduler.kernels import preempt as pk
         from kubernetes_tpu_torch.scheduler.nodeinfo import (NodeInfo,
                                                               pod_resource)
@@ -192,6 +248,7 @@ class Port:
         self.TENANT_LABEL = TENANT_LABEL
         self.torch, self.api, self.wl = torch, api, workload
         self.drain, self.kb = drain_mod.drain, kb
+        self.filter_score = filter_score
         self.Cache, self.BatchScheduler = Cache, BatchScheduler
         self.NodeInfo, self.pod_resource = NodeInfo, pod_resource
         self.SpreadListers = SpreadListers
@@ -350,6 +407,7 @@ class PlainOnCard:
         for mod, name, plain in (
                 (kb, "class_ms_init", kb.class_ms_init_plain),
                 (kb, "_class_scan_cuda", kb._class_scan_plain),
+                (kb, "_pod_scan_cuda", kb._pod_scan_plain),
                 (kb, "apply_dirty", kb.apply_dirty_plain),
                 (tk, "drf_dominant", tk.drf_dominant_plain),
                 (tk, "drf_order", tk.drf_order_plain),
@@ -488,10 +546,10 @@ def check_capacity(port, variant, n_nodes, pods, binds, reserved=()):
 
 def check_affinity_drain(port, path, r):
     """Every pod bound in the store, capacity held with the seeded pods
-    (and on `nominated` the ghost reservations) counted, and on
-    `anti-affinity` no two pods of a color (seeds included) on one
-    node."""
-    _, n_nodes, n_pods = SCHED_PATHS[path]
+    (and on the nominated variant the ghost reservations) counted, and on
+    the pod-anti-affinity variant no two pods of a color (seeds included)
+    on one node; the same gates for a path's classic run."""
+    variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED}[path]
     if r["bound"] != n_pods:
         fail(f"{path}: drain_pipelined bound {r['bound']} of {n_pods}")
     binds = dict(r["binds"])
@@ -499,16 +557,16 @@ def check_affinity_drain(port, path, r):
     pods = list(r["pods"]) + list(r["seeds"])
     ghosts = [(g, node) for node, gs in
               r["sched"].queue.nominated.by_node().items() for g in gs]
-    if path == "nominated" and len(ghosts) != n_nodes // 4:
-        fail(f"nominated: {len(ghosts)} ghost reservations, not "
+    if variant == "nominated" and len(ghosts) != n_nodes // 4:
+        fail(f"{path}: {len(ghosts)} ghost reservations, not "
              f"{n_nodes // 4}")
     check_capacity(port, path, n_nodes, pods, binds, reserved=ghosts)
-    if path == "anti-affinity":
+    if variant == "pod-anti-affinity":
         seen = {}
         for pod in pods:
             key = (pod.metadata.labels["color"], binds[pod.metadata.key()])
             if key in seen:
-                fail(f"anti-affinity: {seen[key]} and {pod.metadata.key()} "
+                fail(f"{path}: {seen[key]} and {pod.metadata.key()} "
                      f"of color {key[0]} share node {key[1]}")
             seen[key] = pod.metadata.key()
 
@@ -568,11 +626,11 @@ def bits_equal(torch, a, b):
 
 
 def check_scan(port, node_cfg, usage, pb, label, nom=None, packed_k=None,
-               use_k=None):
-    """K1 + K2 against their plain versions on one whole batch's inputs
-    (the kernels' outputs are computed here unless given); returns
-    (packed, post-batch usage, max abs error, ms of the plain versions on
-    the card, host clock)."""
+               use_k=None, kernel="K2 class_scan"):
+    """K1 + K2 (or, for a batch without class tables, K7) against their
+    plain versions on one whole batch's inputs (the kernels' outputs are
+    computed here unless given); returns (packed, post-batch usage, max
+    abs error, ms of the plain versions on the card, host clock)."""
     torch, kb = port.torch, port.kb
     if packed_k is None:
         packed_k, use_k = kb.schedule_batch_packed(node_cfg, usage, pb, nom)
@@ -582,14 +640,14 @@ def check_scan(port, node_cfg, usage, pb, label, nom=None, packed_k=None,
                                                     nom))
     torch.cuda.synchronize()
     if not torch.equal(packed_k, packed_p):
-        fail(f"K2 class_scan disagrees with its plain version on the "
+        fail(f"{kernel} disagrees with its plain version on the "
              f"{label} batch ({int((packed_k != packed_p).sum())} packed "
              "entries)")
     if set(use_k) != set(use_p):
-        fail(f"K2 post-batch usage keys differ on the {label} batch")
+        fail(f"{kernel} post-batch usage keys differ on the {label} batch")
     for k in use_p:
         if not bits_equal(torch, use_k[k], use_p[k]):
-            fail(f"K2 class_scan post-batch usage {k} disagrees on the "
+            fail(f"{kernel} post-batch usage {k} disagrees on the "
                  f"{label} batch")
     err = max(max_abs(torch, packed_k[0], packed_p[0]),
               max_abs(torch, packed_k[1].view(torch.float32),
@@ -639,6 +697,11 @@ def kernel_phase(port, rec, launches):
     # that run's), K2 alone timed on a freshly prepared table and carry
     for name, path, line in SCAN_ROWS:
         rows.append(scan_row(port, rec, launches, name, path, line))
+    # ---- K7, one row per instance, replayed on the same batches
+    for name, path, line in POD_SCAN_ROWS:
+        rows.append(pod_scan_row(port, rec, launches, name, path, line))
+    # ---- K8 on the uniform and spread batches
+    rows.extend(filter_rows(port, rec, launches))
     # ---- K3 apply_dirty
     if rec.dirty_inputs is None:
         fail("the main path never scattered dirty rows (K3)")
@@ -725,43 +788,11 @@ def scan_row(port, rec, launches, name, path, line):
     # per (pod, node): feasibility compare, select, tie penalty mul + sub,
     # argmax compare; per pod the winner column over C classes and the
     # usage adds
-    per_node = 5
-    per_pod = C * (2 * R + 28) + R + 3
-    term_ops = 0
-    G = K = Ks = 0
-    if spread:
-        G = pb["spread_base"].shape[0]
-        bytes_ += nbytes(pb["spread_gidx"], pb["spread_match"],
-                         pb["spread_base"], pb["spread_zone"])
-        per_node += 14     # reductions, node and zone scores, blend
-        per_pod += G
-    if topo:
-        K = pb["anti_tids"].shape[1]
-        lists = [pb[k] for k in ("anti_tids", "aff_tids", "match_tids",
-                                 "cmatch_tids", "canti_tids") if k in pb]
-        bytes_ += nbytes(pb["anti_dom"], pb["anti_cnt0"], *lists)
-        # each real read entry: a domain gather, a count gather and a
-        # compare at every node; each real write entry: two adds
-        reads = sum(int((pb[k] >= 0).sum()) for k in
-                    ("anti_tids", "aff_tids", "cmatch_tids") if k in pb)
-        writes = sum(int((pb[k] >= 0).sum()) for k in
-                     ("match_tids", "canti_tids") if k in pb)
-        term_ops += 3 * reads * N + 2 * writes
-    if soft:
-        Ks = pb["soft_read_tids"].shape[1]
-        bytes_ += nbytes(pb["soft_dom"], pb["soft_base"],
-                         pb["soft_base_idx"], pb["soft_read_tids"],
-                         pb["soft_read_w"], pb["soft_write_tids"],
-                         pb["soft_write_w"],
-                         usage.get("soft_cnt", pb["soft_cnt0"]))
-        # each real read entry: two gathers, a multiply and an add at
-        # every node; per scored pod and node the base add, the min/max
-        # and the normalisation (sub, mul, sub, max, div, add, floor,
-        # mul, add)
-        reads = int((pb["soft_read_tids"] >= 0).sum())
-        scored = int((pb["soft_base_idx"] >= 0).sum())
-        writes = int((pb["soft_write_tids"] >= 0).sum())
-        term_ops += 4 * reads * N + 12 * scored * N + writes
+    t_bytes, t_node, t_pod, term_ops, (G, K, Ks) = term_cost(kb, pb, usage,
+                                                              N)
+    bytes_ += t_bytes
+    per_node = 5 + t_node
+    per_pod = C * (2 * R + 28) + R + 3 + t_pod
     selfs = 0
     if nom is not None:
         bytes_ += nbytes(*nom.values(), pb["nom_row"])
@@ -785,6 +816,211 @@ def scan_row(port, rec, launches, name, path, line):
                      f"{' dir2' if dir2 else ''}"
                      f"{f' nominees={selfs}' if nom is not None else ''}"
                      f" ({path} batch)"}
+
+
+def term_cost(kb, pb, usage, N):
+    """(bytes, ops per (pod, node), ops per pod, ops that depend on the
+    data, (G, K, Ks)) of the carried terms a batch's scan reads: spread
+    groups, topology counters, soft credits. Shared by K2's and K7's
+    rows: both scans do this work alike."""
+    spread, topo, _, soft = kb._scan_terms(pb)
+    bytes_ = per_node = per_pod = ops = 0
+    G = K = Ks = 0
+    if spread:
+        G = pb["spread_base"].shape[0]
+        bytes_ += nbytes(pb["spread_gidx"], pb["spread_match"],
+                         pb["spread_base"], pb["spread_zone"])
+        per_node += 14     # reductions, node and zone scores, blend
+        per_pod += G
+    if topo:
+        K = pb["anti_tids"].shape[1]
+        lists = [pb[k] for k in ("anti_tids", "aff_tids", "match_tids",
+                                 "cmatch_tids", "canti_tids") if k in pb]
+        bytes_ += nbytes(pb["anti_dom"], pb["anti_cnt0"], *lists)
+        # each real read entry: a domain gather, a count gather and a
+        # compare at every node; each real write entry: two adds
+        reads = sum(int((pb[k] >= 0).sum()) for k in
+                    ("anti_tids", "aff_tids", "cmatch_tids") if k in pb)
+        writes = sum(int((pb[k] >= 0).sum()) for k in
+                     ("match_tids", "canti_tids") if k in pb)
+        ops += 3 * reads * N + 2 * writes
+    if soft:
+        Ks = pb["soft_read_tids"].shape[1]
+        bytes_ += nbytes(pb["soft_dom"], pb["soft_base"],
+                         pb["soft_base_idx"], pb["soft_read_tids"],
+                         pb["soft_read_w"], pb["soft_write_tids"],
+                         pb["soft_write_w"],
+                         usage.get("soft_cnt", pb["soft_cnt0"]))
+        # each real read entry: two gathers, a multiply and an add at
+        # every node; per scored pod and node the base add, the min/max
+        # and the normalisation (sub, mul, sub, max, div, add, floor,
+        # mul, add)
+        reads = int((pb["soft_read_tids"] >= 0).sum())
+        scored = int((pb["soft_base_idx"] >= 0).sum())
+        writes = int((pb["soft_write_tids"] >= 0).sum())
+        ops += 4 * reads * N + 12 * scored * N + writes
+    return bytes_, per_node, per_pod, ops, (G, K, Ks)
+
+
+def classic_batch(kb, pb):
+    """A class-route batch without its class tables: the classic route's
+    input (the per-pod rows are in every batch)."""
+    return {k: v for k, v in pb.items()
+            if k not in kb._CLASS_KEYS + ("class_idx",)}
+
+
+def pod_scan_row(port, rec, launches, name, path, line):
+    """K7's instance on the class route's batch of `path` with its class
+    tables dropped: assign row for row equal to K2's on the same batch
+    (and every active pod's score bits), packed results and post-batch
+    usage bit for bit equal to the plain version on the card; K7 alone
+    timed on a fresh carry."""
+    torch, kb = port.torch, port.kb
+    if path not in rec.scan_inputs:
+        fail(f"the {path} path never reached the scan")
+    node_cfg, usage, pb, nom = rec.scan_inputs[path]
+    cpb = classic_batch(kb, pb)
+    spread, topo, dir2, soft = kb._scan_terms(cpb)
+    runs_name = kb.scan_instance(spread, topo, soft, nom is not None,
+                                 "pod_scan")
+    if runs_name != name:
+        fail(f"the {path} batch runs {runs_name}, not {name}")
+    packed_c, _ = kb.schedule_batch_packed(node_cfg, usage, pb, nom)
+    packed_k, use_k = kb.schedule_batch_packed(node_cfg, usage, cpb, nom)
+    torch.cuda.synchronize()
+    differ = (packed_k[0] != packed_c[0]).nonzero().flatten()
+    if len(differ):
+        q = int(differ[0])
+        fail(f"K7 {name} and K2 decide differently on the {path} batch: "
+             f"{len(differ)} pods, first pod {q}: K7 row "
+             f"{int(packed_k[0, q])} score bits {int(packed_k[1, q])}, K2 "
+             f"row {int(packed_c[0, q])} score bits {int(packed_c[1, q])}")
+    # the chosen score of an active pod is part of its decision; a pad's
+    # (an inactive row tensorize added) is not: the class route scores it
+    # as class 0, the classic route as a zero request, as in the reference
+    active = cpb["active"]
+    score_diff = packed_k[1] != packed_c[1]
+    q = (score_diff & active).nonzero().flatten()
+    if len(q):
+        q = int(q[0])
+        fail(f"K7 {name} and K2 choose different scores on the {path} "
+             f"batch: first active pod {q}: K7 score bits "
+             f"{int(packed_k[1, q])}, K2 {int(packed_c[1, q])}")
+    pads = (score_diff & ~active).nonzero().flatten()
+    pad_diff = [len(pads)] + ([int(pads[0]), int(packed_k[1, pads[0]]),
+                               int(packed_c[1, pads[0]])] if len(pads)
+                              else [])
+    _, _, err, plain_ms = check_scan(port, node_cfg, usage, cpb,
+                                     f"{path} classic", nom, packed_k, use_k,
+                                     kernel=f"K7 {name}")
+
+    def scan_only():
+        # a fresh carry for each run; only the scan is timed
+        carry, terms = kb._carry_setup(usage, cpb)
+        return lambda: kb._pod_scan_cuda(node_cfg, cpb, carry, terms, nom)
+    runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
+    ms = sum(runs[1:]) / 2   # the first run pays the library load
+    N, R = node_cfg["alloc"].shape
+    P = cpb["seq"].shape[0]
+    bytes_ = nbytes(*node_cfg.values(), *usage.values(), cpb["req"],
+                    cpb["nonzero_req"], cpb["mem_pressure_blocked"],
+                    cpb["mask_idx"], cpb["score_idx"], cpb["seq"],
+                    cpb["active"], cpb["unique_masks"], cpb["unique_scores"],
+                    cpb["resource_weights"], packed_k, *use_k.values())
+    t_bytes, t_node, t_pod, term_ops, (G, K, Ks) = term_cost(kb, cpb, usage,
+                                                              N)
+    bytes_ += t_bytes
+    # per (pod, node), as the reference computes every row: R adds and R
+    # compares and the count add and compare (fits), the resource score
+    # (~24: 3 adds, 2 floors of a sub-mul-div, the mean, 2 fractions, the
+    # balanced floor, 2 weights) and the static add, the select, the tie
+    # penalty and the argmax compare; per pod the winner's R + 3 usage
+    # adds (and its spread groups)
+    per_node = 2 * R + 2 + 25 + 5 + t_node
+    per_pod = R + 3 + t_pod
+    selfs = 0
+    if nom is not None:
+        bytes_ += nbytes(*nom.values(), cpb["nom_row"])
+        selfs = int((cpb["nom_row"] >= 0).sum())
+        per_node += 2 * R + 2   # (used + nom) - self, (count + nom) - self
+    ops = P * (N * per_node + per_pod) + term_ops
+    b = bound(bytes_, ops)
+    return {"name": name, "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/pod_scan.cu + pod.cuh"
+                      + (" + affinity.cuh" if topo or soft else ""),
+            "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "match": True,
+            "assign_equals_k2": True, "active_score_bits_equal_k2": True,
+            # [pads whose score bits differ from K2's, first pad row, its
+            # K7 bits, its K2 bits]
+            "pad_score_bits_differ": pad_diff,
+            "bytes": bytes_, "ops": ops,
+            "shape": f"P={P} N={N} R={R} G={G} K={K} Ks={Ks}"
+                     f"{' dir2' if dir2 else ''}"
+                     f"{f' nominees={selfs}' if nom is not None else ''}"
+                     f" ({path} batch, class tables dropped)"}
+
+
+def filter_rows(port, rec, launches):
+    """K8 on the uniform and spread paths' first batches (16,384 pods x
+    8,192 rows): fits equal and score bits equal to filter_score_plain on
+    the card; timed beside it."""
+    torch, kb = port.torch, port.kb
+    rows = []
+    for path, name in (("uniform", "filter_score"),
+                       ("spread", "filter_score_spread")):
+        node_cfg, usage, pb, _ = rec.scan_inputs[path]
+        cpb = classic_batch(kb, pb)
+        fits_k, score_k = kb.filter_score(node_cfg, usage, cpb)
+        plain_ms, (fits_p, score_p) = time_host(
+            torch, lambda: kb.filter_score_plain(node_cfg, usage, cpb))
+        if not torch.equal(fits_k, fits_p):
+            fail(f"K8 {name} fits disagree with the plain version on the "
+                 f"{path} batch ({int((fits_k != fits_p).sum())} entries)")
+        if not bits_equal(torch, score_k, score_p):
+            fail(f"K8 {name} scores disagree with the plain version on the "
+                 f"{path} batch")
+        err = max_abs(torch, score_k, score_p)
+        del fits_p, score_p
+        ms = time_cuda(torch, lambda: kb.filter_score(node_cfg, usage, cpb),
+                       reps=10, warm=2)
+        N, R = node_cfg["alloc"].shape
+        P = cpb["seq"].shape[0]
+        spread = "spread_base" in cpb
+        # inputs read once, outputs written once
+        bytes_ = nbytes(*node_cfg.values(), usage["used"],
+                        usage["nonzero_used"], usage["pod_count"],
+                        cpb["req"], cpb["nonzero_req"],
+                        cpb["mem_pressure_blocked"], cpb["mask_idx"],
+                        cpb["score_idx"], cpb["unique_masks"],
+                        cpb["unique_scores"], cpb["resource_weights"],
+                        fits_k, score_k)
+        # per (pod, node): fits 2R + 2, score ~25, the select; with spread
+        # the two passes' reductions and the node and zone scores (~14)
+        per_node = 2 * R + 2 + 25 + 1
+        if spread:
+            bytes_ += nbytes(cpb["spread_gidx"], cpb["spread_base"],
+                             cpb["spread_zone"], cpb["spread_zinit"])
+            per_node += 14
+        ops = P * N * per_node
+        b = bound(bytes_, ops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "kubernetes_tpu_torch/csrc/filter_score.cu"
+                               " + pod.cuh",
+                     "replaces":
+                         "kubernetes_tpu/scheduler/kernels/batch.py:220",
+                     "launches": launches[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b[0], "bound_by": b[1],
+                     "library_ms": None, "match": True,
+                     "fits": int(fits_k.sum()),
+                     "bytes": bytes_, "ops": ops,
+                     "shape": f"P={P} N={N} R={R} ({path} batch)"})
+        del fits_k, score_k
+    return rows
 
 
 def drf_rows(port, rec, launches):
@@ -1117,6 +1353,20 @@ def main() -> None:
             aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
                                             BATCH, variant)
             per_path[path] = port.launches()
+        # the classic per-pod route (K7) over the same clusters
+        with env_set("KTPU_CLASS_SCAN", "0"):
+            for path, (variant, chain) in CLASSIC_DRAINS.items():
+                rec.variant = path
+                port.reset_launches()
+                drains[path] = run_drain(port, variant, dev, N_NODES, N_PODS,
+                                         BATCH, chain)
+                per_path[path] = port.launches()
+            for path, (variant, n_nodes, n_pods) in CLASSIC_SCHED.items():
+                rec.variant = path
+                port.reset_launches()
+                aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
+                                                BATCH, variant)
+                per_path[path] = port.launches()
         rec.variant = "storm"
         rec.price_log = rec.storm_price
         port.reset_launches()
@@ -1132,6 +1382,16 @@ def main() -> None:
     serial = run_storm(port, dev, STORM_NODES, STORM_PODS, False)
     if port.launches()["price_nodes"]:
         fail("the serial storm (KTPU_PREEMPT_KERNEL=0) launched K6")
+    # filter_score, the [P, N] entry point, on the uniform and spread
+    # paths' first batches (no scheduler route calls it)
+    port.reset_launches()
+    for path in ("uniform", "spread"):
+        node_cfg, usage, pb, _ = rec.scan_inputs[path]
+        fits, _ = port.filter_score(node_cfg, usage, pb)
+        if not bool(fits.any()):
+            fail(f"filter_score: no pod fits anywhere on the {path} batch")
+        del fits
+    per_path["filter"] = port.launches()
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             if per_path[path][k] == 0:
@@ -1161,7 +1421,21 @@ def main() -> None:
               f"{1 - busy / (wall * 1e3)} {tag}")
     for variant in drains:
         if variant not in rec.scan_inputs:
-            fail(f"the {variant} drain never reached the class scan")
+            fail(f"the {variant} drain never reached the scan")
+    for path, (variant, _) in CLASSIC_DRAINS.items():
+        got, want = drains[path][2].binds, drains[variant][2].binds
+        n = sum(got.get(k) != v for k, v in want.items())
+        if n or len(got) != len(want):
+            fail(f"{path}: {n} of {len(want)} binds differ from the "
+                 f"{variant} path's (the class route's)")
+        print(f"{path}: the classic route binds every pod as the {variant} "
+              "path's class route did")
+    for path in (*CLASSIC_DRAINS, *CLASSIC_SCHED):
+        ran = [k for k, v in per_path[path].items()
+               if v and k.startswith("class_")]
+        if ran:
+            fail(f"{path}: the classic route launched class-route kernels "
+                 f"{ran}")
     # the scheduler loop: every pod bound in the store, capacity held
     if sp["bound"] != N_PODS:
         fail(f"scheduler: drain_pipelined bound {sp['bound']} of {N_PODS}")
@@ -1193,7 +1467,7 @@ def main() -> None:
         busy = sum(a.elapsed_time(b) for v, a, b in rec.events
                    if v == path)
         wall = r["wall"]
-        variant, n_nodes, n_pods = SCHED_PATHS[path]
+        variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED}[path]
         print(f"main path: {path} drain_pipelined of {n_pods} pods "
               f"(bench.py {variant}, {len(r['seeds'])} seeded pods, "
               f"{len(r['sched'].queue.nominated.by_node())} ghost-nominated "
@@ -1328,16 +1602,9 @@ def main() -> None:
     # multi-tenant order depends on commit-thread timing (the commit
     # thread charges DRF usage while the drain thread orders the next
     # pop), so both run with the commit stage inline.
-    saved = os.environ.get("KTPU_COMMIT_THREAD")
-    os.environ["KTPU_COMMIT_THREAD"] = "0"
-    try:
+    with env_set("KTPU_COMMIT_THREAD", "0"):
         small = [run_scheduler_drain(port, d, SMALL_NODES, SMALL_PODS,
                                      SMALL_BATCH) for d in (dev, "cpu")]
-    finally:
-        if saved is None:
-            del os.environ["KTPU_COMMIT_THREAD"]
-        else:
-            os.environ["KTPU_COMMIT_THREAD"] = saved
     g, c = small
     if g["bound"] != SMALL_PODS or g["binds"] != c["binds"]:
         fail("small scheduler drain: the card's binds differ from the "
@@ -1354,16 +1621,10 @@ def main() -> None:
           "bits")
 
     # ---- small preemption loop: card against CPU, commit stage inline
-    os.environ["KTPU_COMMIT_THREAD"] = "0"
-    try:
+    with env_set("KTPU_COMMIT_THREAD", "0"):
         small = [run_preemption_loop(port, d, SMALL_STORM_NODES,
                                      SMALL_STORM_PODS, SMALL_BATCH)
                  for d in (dev, "cpu")]
-    finally:
-        if saved is None:
-            del os.environ["KTPU_COMMIT_THREAD"]
-        else:
-            os.environ["KTPU_COMMIT_THREAD"] = saved
     for r, d in zip(small, ("card", "CPU")):
         check_preemption_loop(port, f"small preemption ({d})", r,
                               SMALL_STORM_NODES, SMALL_STORM_PODS)
@@ -1376,6 +1637,22 @@ def main() -> None:
           f"{SMALL_STORM_NODES} nodes, KTPU_COMMIT_THREAD=0): card equals "
           f"CPU, binds, {len(g['evicted'])} evicted victims and "
           "nominations")
+
+    # ---- small classic scheduler loop (K7), nine tenants: card against
+    # CPU, commit stage inline
+    port.reset_launches()
+    with env_set("KTPU_COMMIT_THREAD", "0"), env_set("KTPU_CLASS_SCAN", "0"):
+        small = [run_scheduler_drain(port, d, SMALL_NODES, SMALL_PODS,
+                                     SMALL_BATCH) for d in (dev, "cpu")]
+    g, c = small
+    if not port.launches()["pod_scan"]:
+        fail("small classic scheduler drain: K7 never launched on the card")
+    if g["bound"] != SMALL_PODS or g["binds"] != c["binds"]:
+        fail("small classic scheduler drain: the card's binds differ from "
+             "the CPU's")
+    print(f"small classic scheduler drain ({SMALL_PODS} pods of {N_TENANTS}"
+          f" tenants, {SMALL_NODES} nodes, batches of {SMALL_BATCH}, "
+          "KTPU_CLASS_SCAN=0, KTPU_COMMIT_THREAD=0): card equals CPU, binds")
 
     print(json.dumps({"kernels": rows}))
     print(card)

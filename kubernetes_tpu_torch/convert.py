@@ -2,7 +2,9 @@
 
 The JAX package holds its state as numpy arrays before upload: the mirror's
 TensorMirror.t.cfg_arrays() / usage_arrays() and a PodBatchTensors batch's
-fields (its device() dict under the same keys), the victim-pricing tables
+fields (its device() dict under the same keys, with the class tables for
+the class route or without them for the classic per-pod route and
+filter_score), the victim-pricing tables
 of kernels/preempt.py (VictimTables.arrays) and the nominated
 reservations ({used, count}). tables_from_numpy, victim_tables_from_numpy
 and nom_from_numpy turn such dicts into torch tensors on one device with

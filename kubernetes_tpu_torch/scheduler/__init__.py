@@ -4,14 +4,16 @@ PyTorch and CUDA.
   scheduler.py  the Scheduler shell: informers -> SchedulingQueue ->
                 DRF order (tenancy/) -> batch -> assume -> bind, with
                 schedule_pending and the pipelined drain (drain_pipelined)
-  core.py       BatchScheduler: the class-scan batch (kernels K1-K3)
+  core.py       BatchScheduler: the class-scan batch (kernels K1-K3),
+                the classic per-pod scan (K7, KTPU_CLASS_SCAN=0) and
+                preemption (K6)
   queue.py      SchedulingQueue (copy), gang.py the host-side gang gate
   drain.py      the single-threaded chained drain, the smallest caller
                 of the chained launch
 
-Not ported yet (ROADMAP): gang and preemption kernels, the in-scan
-affinity tables, speculative cohorts and the sharded scan; those routes
-raise NotImplementedError.
+Not ported yet (ROADMAP): the gang kernels and whole-gang preemption,
+the affinity-mask device route, speculative cohorts and the sharded
+scan; those routes raise NotImplementedError.
 """
 
 from .cache import Cache, Snapshot

@@ -34,8 +34,9 @@ explain / FitError (failure diagnosis).
 
 Routes outside the ported slices raise NotImplementedError at the point
 where they would reach an unported kernel: gang batches, whole-gang
-preemption (preempt_gang), speculative cohorts, the sharded mesh and the
-classic per-pod branch (ROADMAP, port slice 5 and later).
+preemption (preempt_gang), speculative cohorts and the sharded mesh
+(ROADMAP). KTPU_CLASS_SCAN=0 routes batches to the classic per-pod scan
+(K7), the reference's parity control of the class route.
 """
 
 from __future__ import annotations
@@ -346,9 +347,9 @@ class BatchScheduler:
         #: KTPU_TOPO_TABLE_CACHE=0 disables the epoch-keyed profile cache
         self.topo_table_cache = _os.environ.get(
             "KTPU_TOPO_TABLE_CACHE", "1") != "0"
-        #: KTPU_CLASS_SCAN=0 pins batches to the classic per-pod kernel and
-        #: KTPU_SPECULATIVE=1 to the speculative cohort kernel — neither
-        #: is ported; schedule_launch raises when either is set
+        #: KTPU_CLASS_SCAN=0 pins batches to the classic per-pod kernel
+        #: (K7); KTPU_SPECULATIVE=1 to the speculative cohort kernel, which
+        #: is not ported: schedule_launch raises when it is set
         self.class_scan = _os.environ.get("KTPU_CLASS_SCAN", "1") != "0"
         self.speculative = _os.environ.get("KTPU_SPECULATIVE", "0") != "0"
         #: KTPU_PREEMPT_KERNEL=0 pins preemption to the serial per-node
@@ -1368,11 +1369,6 @@ class BatchScheduler:
             return None
         from ..utils.features import DEFAULT_FEATURE_GATE
         from .kernels.batch import schedule_batch_packed
-        if not self.class_scan:
-            raise NotImplementedError(
-                "BatchScheduler: KTPU_CLASS_SCAN=0 selects the classic "
-                "per-pod kernel, which is not ported yet (ROADMAP: port "
-                "slice 5)")
         if self.speculative:
             raise NotImplementedError(
                 "BatchScheduler: KTPU_SPECULATIVE=1 selects the speculative "
@@ -1474,9 +1470,12 @@ class BatchScheduler:
             return None
         if chaining and not self.mirror.device_ready():
             return None  # tensorize grew the column axis; chain handle stale
-        # the incremental class-indexed scan: per-(template, score-row)
-        # masked-score rows, one column refresh per winner (K1 + K2)
-        batch.enable_class_scan()
+        if self.class_scan:
+            # the incremental class-indexed scan: per-(template, score-row)
+            # masked-score rows, one column refresh per winner (K1 + K2);
+            # without the tables the batch takes the classic per-pod scan
+            # (K7)
+            batch.enable_class_scan()
         if chaining:
             node_cfg, usage = self.mirror.device_cfg(), chain.new_usage
             self.chained_launches += 1

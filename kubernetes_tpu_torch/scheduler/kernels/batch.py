@@ -1,33 +1,42 @@
-"""The class-indexed batch scan on the GPU: score table, serial scan,
-dirty-row scatter.
+"""The batch scans on the GPU: score table, serial class scan, classic
+per-pod scan, the [P, N] fits and scores, dirty-row scatter.
 
-Port of kubernetes_tpu/scheduler/kernels/batch.py's class route. Every
-function here has a plain PyTorch version in the same f32 operation order
-as the JAX reference (so the two agree bit for bit), and the three device
-programs on the main path have hand-written CUDA kernels (csrc/):
+Port of kubernetes_tpu/scheduler/kernels/batch.py. Every function here has
+a plain PyTorch version in the same f32 operation order as the JAX
+reference (so the two agree bit for bit), and every device program has a
+hand-written CUDA kernel (csrc/):
 
     class_ms_init  -> K1  csrc/class_ms_init.cu   [C, N] masked scores,
                           with the nominated reservations folded into
                           feasibility (_nom_feas_usage)
-    schedule_batch -> K2  csrc/class_scan.cu      one launch per batch;
-                          class_col, spread_score and tie_penalized are
-                          its __device__ functions, pack_results its
-                          epilogue; the required (anti-)affinity carry
-                          (term_hits / topo_bad / topo_scatter) and the
-                          preferred credits (soft_raw / soft_score /
-                          soft_write) live in csrc/affinity.cuh; the
-                          nominated overlay (the nominee's own row
-                          exempt, the winner column refreshed with the
-                          reservations) is its NOM instance
+    schedule_batch -> K2  csrc/class_scan.cu      the class route, one
+                          launch per batch; class_col, spread_score and
+                          tie_penalized are its __device__ functions,
+                          pack_results its epilogue; the required
+                          (anti-)affinity carry (term_hits / topo_bad /
+                          topo_scatter) and the preferred credits
+                          (soft_raw / soft_score / soft_write) live in
+                          csrc/affinity.cuh; the nominated overlay (the
+                          nominee's own row exempt, the winner column
+                          refreshed with the reservations) is its NOM
+                          instance
+    schedule_batch -> K7  csrc/pod_scan.cu        the classic per-pod
+                          route (a batch without class tables,
+                          KTPU_CLASS_SCAN=0), one launch per batch: every
+                          pod's fits and score over all N rows
+                          (csrc/pod.cuh, _pod_feasible / _pod_score), with
+                          the same carried terms and overlay as K2
+    filter_score   -> K8  csrc/filter_score.cu    [P, N] fits and masked
+                          scores against the frozen snapshot
     apply_dirty    -> K3  csrc/apply_dirty.cu     dirty-row scatter
 
 Dispatch is by tensor device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (a build or launch failure raises; it
 never gives way to the plain version). LAUNCHES counts kernel launches,
 one per launch, so a run can show that its main path went through them.
-K2 is one template instantiated per set of carried terms (spread groups,
-topology counters, soft credits) and the nominated overlay; each instance
-counts under its own name (scan_instance).
+K2 and K7 are each one template instantiated per set of carried terms
+(spread groups, topology counters, soft credits) and the nominated
+overlay; each instance counts under its own name (scan_instance).
 
 State layout (host mirror: tensorize.TensorMirror):
   node_cfg: alloc [N,R] f32, max_pods [N] f32, node_ok/mem_pressure/
@@ -37,12 +46,10 @@ State layout (host mirror: tensorize.TensorMirror):
     spread groups or soft credit tables.
   nom (core._nominated_device, None when nothing is nominated): the
     phantom reservations of nominated pods, used [N,R] and count [N] f32;
-    the pod batch's nom_row [P] names each pod's own nominated row or -1.
+    the pod batch's nom_row [P] names each pod's own nominated row or -1
+    (read only with `nom`, on both routes).
 schedule_batch returns post-batch usage in new tensors (the inputs are
 left as they were), so consecutive batches chain on the device.
-
-Routes outside the ported slices raise NotImplementedError: the classic
-per-pod branch and filter_score (ROADMAP, port slice 5).
 """
 
 from __future__ import annotations
@@ -68,18 +75,21 @@ MAX_R = 64
 
 
 def scan_instance(has_spread: bool, has_topo: bool, has_soft: bool,
-                  has_nom: bool = False) -> str:
-    """The name of the K2 instance that scans a batch with these carried
-    terms and, with `has_nom`, the nominated overlay ("class_scan" when it
+                  has_nom: bool = False, kernel: str = "class_scan") -> str:
+    """The name of the instance of `kernel` (K2 "class_scan" or K7
+    "pod_scan") that scans a batch with these carried terms and, with
+    `has_nom`, the nominated overlay (the bare kernel name when it
     carries none)."""
-    return "class_scan" + "_spread" * has_spread + "_topo" * has_topo \
+    return kernel + "_spread" * has_spread + "_topo" * has_topo \
         + "_soft" * has_soft + "_nom" * has_nom
 
 
 #: kernel launches by name; each wrapper adds one per launch
 LAUNCHES: Dict[str, int] = {
-    "class_ms_init": 0, "apply_dirty": 0,
-    **{scan_instance(sp, tp, sf, nm): 0 for nm in (False, True)
+    "class_ms_init": 0, "apply_dirty": 0, "filter_score": 0,
+    "filter_score_spread": 0,
+    **{scan_instance(sp, tp, sf, nm, kernel): 0
+       for kernel in ("class_scan", "pod_scan") for nm in (False, True)
        for sp in (False, True) for tp in (False, True)
        for sf in (False, True)}}
 
@@ -117,7 +127,7 @@ def _check_shapes(node_cfg: dict, usage: dict, cls: dict, unique_masks,
     bounds on the card, so it raises here. (Index VALUES — class ids, mask
     and score rows — come from tensorize, which builds them in range.)"""
     N, R = node_cfg["alloc"].shape
-    C = cls["class_req"].shape[0]
+    C = cls["class_req"].shape[0] if "class_req" in cls else 0
     want = {"max_pods": (N,), "node_ok": (N,), "mem_pressure": (N,),
             "valid": (N,), "used": (N, R), "nonzero_used": (N, 2),
             "pod_count": (N,), "class_req": (C, R), "class_nz": (C, 2),
@@ -236,25 +246,87 @@ def class_ms_init_plain(node_cfg: dict, usage: dict, cls: dict,
     return torch.where(fits, score, NEG)
 
 
+def _least_requested_plain(nz_used, nz_req, cap_cpu, cap_mem):
+    """least_requested.go:53 over the node rows (batch.py
+    _least_requested); nz_used [N, 2], nz_req [..., 2] (leading axes are
+    pods, each [N] row of the result one pod's)."""
+    req_cpu = nz_used[:, 0] + nz_req[..., 0:1]
+    req_mem = nz_used[:, 1] + nz_req[..., 1:2]
+    cpu = torch.where((cap_cpu > 0) & (req_cpu <= cap_cpu),
+                      torch.floor((cap_cpu - req_cpu) * MAX_PRIORITY
+                                  / torch.clamp_min(cap_cpu, 1.0)), 0.0)
+    mem = torch.where((cap_mem > 0) & (req_mem <= cap_mem),
+                      torch.floor((cap_mem - req_mem) * MAX_PRIORITY
+                                  / torch.clamp_min(cap_mem, 1.0)), 0.0)
+    return torch.floor((cpu + mem) / 2.0)
+
+
+def _balanced_allocation_plain(nz_used, nz_req, cap_cpu, cap_mem):
+    """balanced_resource_allocation.go:77 (batch.py _balanced_allocation),
+    with the 4e-6 floor nudge; shapes as _least_requested_plain."""
+    req_cpu = nz_used[:, 0] + nz_req[..., 0:1]
+    req_mem = nz_used[:, 1] + nz_req[..., 1:2]
+    cpu_frac = torch.where(cap_cpu > 0,
+                           req_cpu / torch.clamp_min(cap_cpu, 1.0), 1.0)
+    mem_frac = torch.where(cap_mem > 0,
+                           req_mem / torch.clamp_min(cap_mem, 1.0), 1.0)
+    score = torch.floor((1.0 - torch.abs(cpu_frac - mem_frac)) * MAX_PRIORITY
+                        + 4e-6)
+    return torch.where((cpu_frac >= 1.0) | (mem_frac >= 1.0), 0.0, score)
+
+
+def _pod_feasible_plain(node_cfg: dict, used, pod_count, req, blocked,
+                        mask):
+    """Pods' [..., N] feasibility against usage `used` [N, R] /
+    `pod_count` [N] (batch.py _pod_feasible): req [..., R], blocked [...]
+    (the pod's mem_pressure_blocked), mask [..., N]. csrc/pod.cuh
+    ktpu_pod_fits is the same test at one (pod, row)."""
+    fits_res = torch.all(req.unsqueeze(-2) + used <= node_cfg["alloc"],
+                         dim=-1)
+    fits_count = pod_count + 1.0 <= node_cfg["max_pods"]
+    blocked = blocked.unsqueeze(-1) & node_cfg["mem_pressure"]
+    return (fits_res & fits_count & node_cfg["node_ok"] & node_cfg["valid"]
+            & mask & ~blocked)
+
+
+def _pod_score_plain(node_cfg: dict, nz_used, nz_req, static, rw):
+    """Pods' [..., N] batch-varying score (batch.py _pod_score): rw[0]
+    LeastRequested, then rw[1] BalancedAllocation, then the static row,
+    each a rounding of its own. The same f32 arithmetic as
+    class_resource_score + the static row (what class_col computes),
+    which is why csrc/pod.cuh's ktpu_pod_base calls ktpu_resource_score."""
+    cap_cpu = node_cfg["alloc"][:, COL_CPU]
+    cap_mem = node_cfg["alloc"][:, COL_MEM]
+    score = rw[0] * _least_requested_plain(nz_used, nz_req, cap_cpu,
+                                           cap_mem)
+    score = score + rw[1] * _balanced_allocation_plain(nz_used, nz_req,
+                                                       cap_cpu, cap_mem)
+    return score + static
+
+
 def spread_score(cnt_g, fits, zone_of, zinit):
     """One pod's [N] SelectorSpread score from running group counts
     (batch.py _spread_score): node counts inverted to 0-10 over the
     feasible set, zone counts blended at 2/3; zone 0 means no zone label.
-    The zone sums are integer-valued f32, exact in any order."""
+    Leading axes of `cnt_g` / `fits` are pods, each reduced on its own
+    (filter_score's [P, N]). The zone sums are integer-valued f32, exact
+    in any order."""
     Z = zinit.shape[0]
     cf = torch.where(fits, cnt_g, 0.0)
-    maxc = cf.max()
+    maxc = cf.amax(-1, keepdim=True)
     in_range = (zone_of >= 0) & (zone_of < Z)
-    zs = zinit.clone().index_add_(
-        0, torch.where(in_range, zone_of, 0).long(),
+    zs = zinit.expand(cf.shape[:-1] + (Z,)).clone().scatter_add_(
+        -1, torch.where(in_range, zone_of, 0).long().expand(cf.shape),
         torch.where(in_range, cf, 0.0))
     z_idx = torch.arange(Z, device=zs.device)
-    maxz = torch.where(z_idx > 0, zs, 0.0).max()
-    have_zones = torch.where(fits & (zone_of > 0), 1.0, 0.0).max() > 0
+    maxz = torch.where(z_idx > 0, zs, 0.0).amax(-1, keepdim=True)
+    have_zones = torch.where(fits & (zone_of > 0), 1.0, 0.0).amax(
+        -1, keepdim=True) > 0
     node_s = torch.where(maxc > 0,
                          MAX_PRIORITY * (maxc - cnt_g)
                          / torch.clamp_min(maxc, 1.0), MAX_PRIORITY)
-    zone_at = zs[zone_of.clamp(0, Z - 1).long()]
+    zone_at = torch.gather(zs, -1, zone_of.clamp(0, Z - 1).long().expand(
+        cf.shape))
     zone_s = torch.where((zone_of > 0) & (maxz > 0),
                          MAX_PRIORITY * (maxz - zone_at)
                          / torch.clamp_min(maxz, 1.0), MAX_PRIORITY)
@@ -430,36 +502,24 @@ def class_ms_init(node_cfg: dict, usage: dict, cls: dict, unique_masks,
 # ------------------------------------------------------------ K2
 
 
-def _check_slice(pod_batch: dict) -> None:
-    if "class_req" not in pod_batch:
-        raise NotImplementedError(
-            "schedule_batch: the classic per-pod branch (KTPU_CLASS_SCAN=0 "
-            "or a batch without class tables) is not ported yet "
-            "(ROADMAP: port slice 5)")
-
-
 def _scan_terms(pod_batch: dict) -> Tuple[bool, bool, bool, bool]:
     """(has_spread, has_topo, has_dir2, has_soft): the carried terms a
-    batch's tables install (batch.py _class_ctx)."""
+    batch's tables install (batch.py _class_ctx, and the classic branch's
+    own checks at :684-696)."""
     has_topo = pod_batch.get("anti_dom") is not None
     return (pod_batch.get("spread_base") is not None, has_topo,
             has_topo and "cmatch_tids" in pod_batch,
             pod_batch.get("soft_dom") is not None)
 
 
-def _scan_setup(node_cfg: dict, usage: dict, pod_batch: dict, nom=None):
-    """(cls, rw, ms0, carry, terms): the class tables, the initial table
-    (K1 on the card; with `nom`, the reservations folded into its
-    feasibility), fresh copies of the carried state and the batch's
-    _scan_terms. A chained launch seeds the spread and soft carries from
-    its predecessor's finals (core.schedule_launch gates this); the
-    topology counters start from the batch's own anti_cnt0. The carry's
-    usage stays real usage: the scan adds the reservations where it reads
-    feasibility."""
-    cls = {k: pod_batch[k] for k in _CLASS_KEYS}
-    rw = pod_batch["resource_weights"]
-    ms0 = class_ms_init(node_cfg, usage, cls, pod_batch["unique_masks"],
-                        pod_batch["unique_scores"], rw, nom)
+def _carry_setup(usage: dict, pod_batch: dict):
+    """(carry, terms): fresh copies of the state a scan carries, for both
+    routes (batch.py _class_ctx and the classic branch's carry0,
+    :771-784), and the batch's _scan_terms. A chained launch seeds the
+    spread and soft carries from its predecessor's finals
+    (core.schedule_launch gates this); the topology counters start from
+    the batch's own anti_cnt0. The carry's usage stays real usage: the
+    scans add the nominated reservations where they read feasibility."""
     terms = _scan_terms(pod_batch)
     has_spread, has_topo, has_dir2, has_soft = terms
     carry = {"used": usage["used"].clone(),
@@ -481,6 +541,18 @@ def _scan_setup(node_cfg: dict, usage: dict, pod_batch: dict, nom=None):
         sc0 = usage.get("soft_cnt")
         carry["soft_cnt"] = (sc0 if sc0 is not None
                              else pod_batch["soft_cnt0"]).clone()
+    return carry, terms
+
+
+def _scan_setup(node_cfg: dict, usage: dict, pod_batch: dict, nom=None):
+    """(cls, rw, ms0, carry, terms) of the class route: the class tables,
+    the initial table (K1 on the card; with `nom`, the reservations folded
+    into its feasibility) and _carry_setup's carry and terms."""
+    cls = {k: pod_batch[k] for k in _CLASS_KEYS}
+    rw = pod_batch["resource_weights"]
+    ms0 = class_ms_init(node_cfg, usage, cls, pod_batch["unique_masks"],
+                        pod_batch["unique_scores"], rw, nom)
+    carry, terms = _carry_setup(usage, pod_batch)
     return cls, rw, ms0, carry, terms
 
 
@@ -493,6 +565,55 @@ def _usage_out(carry: dict) -> dict:
                      "soft_cnt")}
 
 
+def _term_steps(pod_batch: dict, carry: dict, terms):
+    """(refuse, add, write): one pod's steps of the carried terms, in the
+    order both routes take them (batch.py _class_pod_step and the
+    classic one_pod): refuse(p, fits) takes out the rows the topology
+    counters forbid; add(p, fits, score) adds the soft term, then
+    (spread_w * use_spread) * spread, each a rounding of its own;
+    write(p, best, ok, ok_f) applies the winner's spread, topology and
+    credit writes to the `carry` copies."""
+    has_spread, has_topo, has_dir2, has_soft = terms
+    pb = pod_batch
+
+    def refuse(p, fits):
+        if not has_topo:
+            return fits
+        return fits & ~topo_bad(
+            pb["anti_dom"], carry, pb["anti_tids"][p], pb["aff_tids"][p],
+            pb["cmatch_tids"][p] if has_dir2 else None)
+
+    def add(p, fits, score):
+        if has_soft:
+            base_idx = pb["soft_base_idx"][p]
+            raw = soft_raw(pb["soft_dom"], carry["soft_cnt"],
+                           pb["soft_base"], pb["soft_read_tids"][p],
+                           pb["soft_read_w"][p], base_idx)
+            score = score + torch.where(
+                base_idx >= 0, soft_score(raw, fits, pb["soft_weight"]),
+                0.0)
+        if has_spread:
+            g = pb["spread_gidx"][p].long()
+            use_spread = torch.where(g >= 0, 1.0, 0.0)
+            score = score + pb["spread_weight"] * use_spread * spread_score(
+                carry["spread"][g.clamp_min(0)], fits, pb["spread_zone"],
+                pb["spread_zinit"])
+        return score
+
+    def write(p, best, ok, ok_f):
+        if has_spread:
+            spread = carry["spread"]
+            spread[:, best] = spread[:, best] + pb["spread_match"][p] * ok_f
+        if has_topo:
+            topo_scatter(pb["anti_dom"], carry, pb["match_tids"][p],
+                         pb["canti_tids"][p] if has_dir2 else None, best, ok)
+        if has_soft:
+            soft_write(pb["soft_dom"], carry["soft_cnt"],
+                       pb["soft_write_tids"][p], pb["soft_write_w"][p],
+                       best, ok)
+    return refuse, add, write
+
+
 def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
                       nom=None):
     """The serial scan in plain PyTorch (batch.py _class_pod_step over
@@ -501,7 +622,6 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
     with its own reservation taken out, (used + nom) - req and
     (count + nom count) - 1 in that association, and the winner's column
     is refreshed with the reservations added."""
-    has_spread, has_topo, has_dir2, has_soft = terms
     unique_masks = pod_batch["unique_masks"]
     unique_scores = pod_batch["unique_scores"]
     used, nz, cnt = carry["used"], carry["nonzero_used"], carry["pod_count"]
@@ -512,27 +632,7 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
     seq = pod_batch["seq"]
     active = pod_batch["active"]
     P = class_idx.shape[0]
-    if has_spread:
-        spread = carry["spread"]
-        gidx = pod_batch["spread_gidx"].long()
-        smatch = pod_batch["spread_match"]
-        zone_of = pod_batch["spread_zone"]
-        zinit = pod_batch["spread_zinit"]
-        sw = pod_batch["spread_weight"]
-    if has_topo:
-        anti_dom = pod_batch["anti_dom"]
-        anti_t, aff_t = pod_batch["anti_tids"], pod_batch["aff_tids"]
-        match_t = pod_batch["match_tids"]
-        cmatch_t = pod_batch["cmatch_tids"] if has_dir2 else None
-        canti_t = pod_batch["canti_tids"] if has_dir2 else None
-    if has_soft:
-        soft_dom, soft_base = pod_batch["soft_dom"], pod_batch["soft_base"]
-        base_idx = pod_batch["soft_base_idx"]
-        read_t, read_w = pod_batch["soft_read_tids"], \
-            pod_batch["soft_read_w"]
-        write_t, write_w = pod_batch["soft_write_tids"], \
-            pod_batch["soft_write_w"]
-        soft_w = pod_batch["soft_weight"]
+    refuse, add, write = _term_steps(pod_batch, carry, terms)
     if nom is not None:
         nom_row = pod_batch["nom_row"]
     assign = torch.empty((P,), dtype=torch.int32, device=dev)
@@ -548,22 +648,8 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
                 used[rc] + nom["used"][rc] - cls["class_req"][u], nz[rc],
                 cnt[rc] + nom["count"][rc] - 1.0, rc)[u]
             base = torch.where((r >= 0) & (rows == r), corr, base)
-        fits = base > NEG_THRESHOLD
-        if has_topo:
-            fits = fits & ~topo_bad(
-                anti_dom, carry, anti_t[p], aff_t[p],
-                cmatch_t[p] if has_dir2 else None)
-        score = base
-        if has_soft:
-            raw = soft_raw(soft_dom, carry["soft_cnt"], soft_base,
-                           read_t[p], read_w[p], base_idx[p])
-            score = score + torch.where(base_idx[p] >= 0,
-                                        soft_score(raw, fits, soft_w), 0.0)
-        if has_spread:
-            g = gidx[p]
-            use_spread = torch.where(g >= 0, 1.0, 0.0)
-            score = score + sw * use_spread * spread_score(
-                spread[g.clamp_min(0)], fits, zone_of, zinit)
+        fits = refuse(p, base > NEG_THRESHOLD)
+        score = add(p, fits, base)
         masked = torch.where(fits, score, NEG)
         best = torch.argmax(tie_penalized(masked, rows, seq[p]))
         chosen = masked[best]
@@ -581,44 +667,108 @@ def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
             ms[:, best] = class_col(node_cfg, cls, unique_masks,
                                     unique_scores, rw, used[best], nz[best],
                                     cnt[best], best)
-        if has_spread:
-            spread[:, best] = spread[:, best] + smatch[p] * ok_f
-        if has_topo:
-            topo_scatter(anti_dom, carry, match_t[p],
-                         canti_t[p] if has_dir2 else None, best, ok)
-        if has_soft:
-            soft_write(soft_dom, carry["soft_cnt"], write_t[p], write_w[p],
-                       best, ok)
+        write(p, best, ok, ok_f)
         assign[p] = torch.where(ok, best.to(torch.int32), -1)
         scores[p] = chosen
     return pack_results(assign, scores)
 
 
-#: the pointer fields of K2's parameter block, in the order of
-#: KtpuScanParams in csrc/class_scan.cu; a term's pointers are null when
-#: the batch does not carry it
-_SCAN_PTRS = (
-    "alloc", "max_pods", "node_ok", "mem_pressure", "valid", "class_req",
-    "class_nz", "class_blocked", "class_mask_idx", "class_score_idx",
-    "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
-    "ms", "class_idx", "seq", "active",
+def _pod_scan_plain(node_cfg, pod_batch, carry, terms, nom=None):
+    """The classic per-pod scan in plain PyTorch (batch.py schedule_batch's
+    classic branch: one_pod, :702-769, over the pods in order); mutates
+    the `carry` copies (_carry_setup, the branch's carry0 :771-784). Each
+    pod recomputes fits and score over every row against the running
+    usage: no [C, N] table. With `nom`, feasibility reads
+    (used + nom used) - req at the pod's own nominated row and - 0.0
+    elsewhere, (count + nom count) - 1 / - 0, in that association
+    (:705-709); scores read real usage. Without spread tables the
+    reference still adds its zero-weight spread term, + 0.0."""
+    unique_masks = pod_batch["unique_masks"]
+    unique_scores = pod_batch["unique_scores"]
+    rw = pod_batch["resource_weights"]
+    req, nz_req = pod_batch["req"], pod_batch["nonzero_req"]
+    blocked = pod_batch["mem_pressure_blocked"]
+    mask_idx = pod_batch["mask_idx"].long()
+    score_idx = pod_batch["score_idx"].long()
+    seq, active = pod_batch["seq"], pod_batch["active"]
+    used, nz, cnt = carry["used"], carry["nonzero_used"], carry["pod_count"]
+    dev = used.device
+    N = used.shape[0]
+    rows = torch.arange(N, dtype=torch.int32, device=dev)
+    P = seq.shape[0]
+    has_spread = terms[0]
+    refuse, add, write = _term_steps(pod_batch, carry, terms)
+    assign = torch.empty((P,), dtype=torch.int32, device=dev)
+    scores = torch.empty((P,), dtype=torch.float32, device=dev)
+    for p in range(P):
+        eff_used, eff_cnt = used, cnt
+        if nom is not None:
+            self_oh = rows == pod_batch["nom_row"][p]
+            eff_used = used + nom["used"] - torch.where(
+                self_oh[:, None], req[p][None, :], 0.0)
+            eff_cnt = cnt + nom["count"] - self_oh.to(torch.float32)
+        fits = refuse(p, _pod_feasible_plain(
+            node_cfg, eff_used, eff_cnt, req[p], blocked[p],
+            unique_masks[mask_idx[p]]))
+        score = add(p, fits, _pod_score_plain(
+            node_cfg, nz, nz_req[p], unique_scores[score_idx[p]], rw))
+        if not has_spread:
+            score = score + 0.0
+        masked = torch.where(fits, score, NEG)
+        best = torch.argmax(tie_penalized(masked, rows, seq[p]))
+        ok = fits[best] & active[p]
+        ok_f = torch.where(ok, 1.0, 0.0)
+        used[best] = used[best] + ok_f * req[p]
+        nz[best] = nz[best] + ok_f * nz_req[p]
+        cnt[best] = cnt[best] + ok_f
+        write(p, best, ok, ok_f)
+        assign[p] = torch.where(ok, best.to(torch.int32), -1)
+        scores[p] = masked[best]
+    return pack_results(assign, scores)
+
+
+#: the pointer fields of the carried terms and the nominated overlay, in
+#: the order both scans' parameter blocks list them (KtpuScanParams in
+#: csrc/class_scan.cu, KtpuPodScanParams in csrc/pod_scan.cu); a term's
+#: pointers are null when the batch does not carry it
+_TERM_PTRS = (
     "spread_gidx", "spread_match", "spread", "zone_of", "zinit",
     "spread_w",
     "anti_dom", "topo_cnt", "topo_tot", "topo_carry", "anti_tids",
     "aff_tids", "match_tids", "cmatch_tids", "canti_tids",
     "soft_dom", "soft_cnt", "soft_base", "soft_base_idx", "read_tids",
     "read_w", "write_tids", "write_w", "soft_w",
-    "nom_used", "nom_count", "nom_row",
-    "packed")
+    "nom_used", "nom_count", "nom_row")
+#: the pointer fields of K2's parameter block, in the order of
+#: KtpuScanParams in csrc/class_scan.cu
+_SCAN_PTRS = (
+    "alloc", "max_pods", "node_ok", "mem_pressure", "valid", "class_req",
+    "class_nz", "class_blocked", "class_mask_idx", "class_score_idx",
+    "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
+    "ms", "class_idx", "seq", "active") + _TERM_PTRS + ("packed",)
 #: the int fields that follow them
 _SCAN_INTS = ("N", "R", "C", "P", "G", "Z", "T", "D", "K", "Ts", "Ds", "Ks",
               "Sb", "has_spread", "has_topo", "has_dir2", "has_soft",
               "has_nom")
+#: K7's parameter block (KtpuPodScanParams in csrc/pod_scan.cu): the pod
+#: rows in place of the class tables, the same terms, the same ints
+#: without C
+_POD_SCAN_PTRS = (
+    "alloc", "max_pods", "node_ok", "mem_pressure", "valid",
+    "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
+    "req", "nz_req", "blocked", "mask_idx", "score_idx", "seq",
+    "active") + _TERM_PTRS + ("packed",)
+_POD_SCAN_INTS = tuple(k for k in _SCAN_INTS if k != "C")
 
 
 class _ScanParams(ctypes.Structure):
     _fields_ = [(k, ctypes.c_void_p) for k in _SCAN_PTRS] + \
         [(k, ctypes.c_int) for k in _SCAN_INTS]
+
+
+class _PodScanParams(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_void_p) for k in _POD_SCAN_PTRS] + \
+        [(k, ctypes.c_int) for k in _POD_SCAN_INTS]
 
 
 def _need(t: torch.Tensor, shape: tuple, name: str) -> None:
@@ -627,53 +777,22 @@ def _need(t: torch.Tensor, shape: tuple, name: str) -> None:
                          f"{tuple(shape)}")
 
 
-def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
-                     nom=None):
-    """Kernel K2: the whole batch in one launch of the instance for its
-    carried terms (and the nominated overlay with `nom`); returns the
-    [2, P] packed results and mutates `ms` and the `carry` copies. Index
-    values (class ids, term ids, domains, nominated rows) come from
-    tensorize and core, which build them inside the tables' shapes."""
-    from .build import check
+def _term_params(pod_batch: dict, carry: dict, terms, nom, P: int, N: int,
+                 R: int, name: str) -> Tuple[dict, dict]:
+    """(dims, ptrs) of the carried terms and the nominated overlay, with
+    their shapes checked: the fields that K2's and K7's parameter blocks
+    share (ptrs maps a field to its (tensor, dtype))."""
     has_spread, has_topo, has_dir2, has_soft = terms
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    alloc = node_cfg["alloc"]
-    N, R = alloc.shape
-    C = cls["class_req"].shape[0]
-    P = pod_batch["class_idx"].shape[0]
-    dev = alloc.device
-    _check_shapes(node_cfg, carry, cls, pod_batch["unique_masks"],
-                  pod_batch["unique_scores"], rw)
-    _need(ms, (C, N), "ms")
-    for k in ("class_idx", "seq", "active"):
-        _need(pod_batch[k], (P,), k)
-    packed = torch.empty((2, P), dtype=i32, device=dev)
-    prm = _ScanParams()
-    dims = dict.fromkeys(_SCAN_INTS, 0)
-    dims.update(N=N, R=R, C=C, P=P, has_spread=int(has_spread),
-                has_topo=int(has_topo), has_dir2=int(has_dir2),
-                has_soft=int(has_soft))
-    ptrs = {
-        "alloc": (alloc, f32), "max_pods": (node_cfg["max_pods"], f32),
-        "node_ok": (node_cfg["node_ok"], b8),
-        "mem_pressure": (node_cfg["mem_pressure"], b8),
-        "valid": (node_cfg["valid"], b8),
-        **{k: (cls[k], f32 if k in ("class_req", "class_nz") else
-               b8 if k == "class_blocked" else i32) for k in _CLASS_KEYS},
-        "unique_masks": (pod_batch["unique_masks"], b8),
-        "unique_scores": (pod_batch["unique_scores"], f32),
-        "rw": (rw, f32), "used": (carry["used"], f32),
-        "nz_used": (carry["nonzero_used"], f32),
-        "pod_count": (carry["pod_count"], f32), "ms": (ms, f32),
-        "class_idx": (pod_batch["class_idx"], i32),
-        "seq": (pod_batch["seq"], i32), "active": (pod_batch["active"], b8),
-        "packed": (packed, i32)}
+    f32, i32 = torch.float32, torch.int32
+    dims = {"has_spread": int(has_spread), "has_topo": int(has_topo),
+            "has_dir2": int(has_dir2), "has_soft": int(has_soft)}
+    ptrs = {}
     if has_spread:
         G = carry["spread"].shape[0]
         Z = pod_batch["spread_zinit"].shape[0]
         if Z * 4 > 48 * 1024:
-            raise ValueError(f"class_scan: {Z} zones exceed the kernel's "
-                             "48 KB of zone sums in shared memory")
+            raise ValueError(f"{name}: {Z} zones exceed the kernel's 48 KB "
+                             "of zone sums in shared memory")
         _need(carry["spread"], (G, N), "spread")
         _need(pod_batch["spread_gidx"], (P,), "spread_gidx")
         _need(pod_batch["spread_match"], (P, G), "spread_match")
@@ -725,40 +844,166 @@ def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
             write_w=(pod_batch["soft_write_w"], f32),
             soft_w=(pod_batch["soft_weight"].reshape(1), f32))
     if nom is not None:
-        _check_nom(nom, N, R)
+        _need(nom["used"], (N, R), "nom used")
+        _need(nom["count"], (N,), "nom count")
         _need(pod_batch["nom_row"], (P,), "nom_row")
         dims.update(has_nom=1)
         ptrs.update(nom_used=(nom["used"], f32),
                     nom_count=(nom["count"], f32),
                     nom_row=(pod_batch["nom_row"], i32))
+    return dims, ptrs
+
+
+def _launch(lib: str, entry: str, params_cls, ints, dims: dict,
+            ptrs: dict, name: str) -> None:
+    """Fill a parameter block (null pointers and zero ints where `dims` /
+    `ptrs` leave a field unset; every pointer checked CUDA, typed and
+    contiguous first) and call the library's entry with it on the
+    current stream of alloc's device; raises, naming the instance
+    `name`, when the launch failed."""
+    from .build import check
+    prm = params_cls()
     for k, (t, dtype) in ptrs.items():
         setattr(prm, k, _ptr(t, dtype, k).value)
-    for k, v in dims.items():
-        setattr(prm, k, v)
-    rc = _fn("class_scan", "ktpu_class_scan",
-             [ctypes.POINTER(_ScanParams), _P])(ctypes.byref(prm),
-                                                _stream(alloc))
-    name = scan_instance(has_spread, has_topo, has_soft, nom is not None)
+    for k in ints:
+        setattr(prm, k, dims.get(k, 0))
+    rc = _fn(lib, entry, [ctypes.POINTER(params_cls), _P])(
+        ctypes.byref(prm), _stream(ptrs["alloc"][0]))
     check(rc, name)
+
+
+def _node_ptrs(node_cfg: dict, usage: dict, unique_masks, unique_scores,
+               rw) -> dict:
+    """ptrs of the node tables, the running usage and the deduplicated
+    mask and score rows: the fields K2's, K7's and K8's parameter blocks
+    share."""
+    f32, b8 = torch.float32, torch.bool
+    return {"alloc": (node_cfg["alloc"], f32),
+            "max_pods": (node_cfg["max_pods"], f32),
+            "node_ok": (node_cfg["node_ok"], b8),
+            "mem_pressure": (node_cfg["mem_pressure"], b8),
+            "valid": (node_cfg["valid"], b8),
+            "unique_masks": (unique_masks, b8),
+            "unique_scores": (unique_scores, f32), "rw": (rw, f32),
+            "used": (usage["used"], f32),
+            "nz_used": (usage["nonzero_used"], f32),
+            "pod_count": (usage["pod_count"], f32)}
+
+
+def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
+                     nom=None):
+    """Kernel K2: the whole batch in one launch of the instance for its
+    carried terms (and the nominated overlay with `nom`); returns the
+    [2, P] packed results and mutates `ms` and the `carry` copies. Index
+    values (class ids, term ids, domains, nominated rows) come from
+    tensorize and core, which build them inside the tables' shapes."""
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    alloc = node_cfg["alloc"]
+    N, R = alloc.shape
+    C = cls["class_req"].shape[0]
+    P = pod_batch["class_idx"].shape[0]
+    _check_shapes(node_cfg, carry, cls, pod_batch["unique_masks"],
+                  pod_batch["unique_scores"], rw)
+    _need(ms, (C, N), "ms")
+    for k in ("class_idx", "seq", "active"):
+        _need(pod_batch[k], (P,), k)
+    if nom is not None:
+        _check_nom(nom, N, R)
+    packed = torch.empty((2, P), dtype=i32, device=alloc.device)
+    dims, ptrs = _term_params(pod_batch, carry, terms, nom, P, N, R,
+                              "class_scan")
+    dims.update(N=N, R=R, C=C, P=P)
+    ptrs.update(_node_ptrs(node_cfg, carry, pod_batch["unique_masks"],
+                           pod_batch["unique_scores"], rw))
+    ptrs.update({
+        **{k: (cls[k], f32 if k in ("class_req", "class_nz") else
+               b8 if k == "class_blocked" else i32) for k in _CLASS_KEYS},
+        "ms": (ms, f32), "class_idx": (pod_batch["class_idx"], i32),
+        "seq": (pod_batch["seq"], i32), "active": (pod_batch["active"], b8),
+        "packed": (packed, i32)})
+    has_spread, has_topo, _, has_soft = terms
+    name = scan_instance(has_spread, has_topo, has_soft, nom is not None)
+    _launch("class_scan", "ktpu_class_scan", _ScanParams, _SCAN_INTS, dims,
+            ptrs, name)
+    LAUNCHES[name] += 1
+    return packed
+
+
+def _check_pod_rows(node_cfg: dict, usage: dict, pod_batch: dict) -> int:
+    """The shapes K7 and K8 index by (node tables, usage, pod rows, the
+    deduplicated mask and score rows); returns P."""
+    N, R = node_cfg["alloc"].shape
+    P = pod_batch["seq"].shape[0]
+    _check_shapes(node_cfg, usage, {}, pod_batch["unique_masks"],
+                  pod_batch["unique_scores"], pod_batch["resource_weights"])
+    for k, shape in (("req", (P, R)), ("nonzero_req", (P, 2)),
+                     ("mem_pressure_blocked", (P,)), ("mask_idx", (P,)),
+                     ("score_idx", (P,))):
+        _need(pod_batch[k], shape, k)
+    return P
+
+
+def _pod_rows(pod_batch: dict) -> dict:
+    """ptrs of the per-pod rows (PodBatchTensors.device) that the classic
+    scan and filter_score read, under the parameter blocks' names."""
+    return {"req": (pod_batch["req"], torch.float32),
+            "nz_req": (pod_batch["nonzero_req"], torch.float32),
+            "blocked": (pod_batch["mem_pressure_blocked"], torch.bool),
+            "mask_idx": (pod_batch["mask_idx"], torch.int32),
+            "score_idx": (pod_batch["score_idx"], torch.int32)}
+
+
+def _pod_scan_cuda(node_cfg, pod_batch, carry, terms, nom=None):
+    """Kernel K7: the classic per-pod scan of the whole batch in one
+    launch of the instance for its carried terms (and the nominated
+    overlay with `nom`); returns the [2, P] packed results and mutates the
+    `carry` copies. Index values (mask and score rows, term ids, domains,
+    nominated rows) come from tensorize and core."""
+    alloc = node_cfg["alloc"]
+    N, R = alloc.shape
+    P = _check_pod_rows(node_cfg, carry, pod_batch)
+    _need(pod_batch["active"], (P,), "active")
+    packed = torch.empty((2, P), dtype=torch.int32, device=alloc.device)
+    dims, ptrs = _term_params(pod_batch, carry, terms, nom, P, N, R,
+                              "pod_scan")
+    dims.update(N=N, R=R, P=P)
+    ptrs.update(_node_ptrs(node_cfg, carry, pod_batch["unique_masks"],
+                           pod_batch["unique_scores"],
+                           pod_batch["resource_weights"]))
+    ptrs.update(_pod_rows(pod_batch))
+    ptrs.update(seq=(pod_batch["seq"], torch.int32),
+                active=(pod_batch["active"], torch.bool),
+                packed=(packed, torch.int32))
+    has_spread, has_topo, _, has_soft = terms
+    name = scan_instance(has_spread, has_topo, has_soft, nom is not None,
+                         "pod_scan")
+    _launch("pod_scan", "ktpu_pod_scan", _PodScanParams, _POD_SCAN_INTS,
+            dims, ptrs, name)
     LAUNCHES[name] += 1
     return packed
 
 
 def schedule_batch_packed(node_cfg: dict, usage: dict, pod_batch: dict,
                           nom: dict = None) -> Tuple[torch.Tensor, dict]:
-    """The class-route scan (batch.py schedule_batch ->
-    _schedule_batch_classes), with the nominated-reservation overlay when
-    `nom` is given. Returns ([2, P] int32 packed assign + score bits,
-    post-batch usage). Plain on the CPU; K1 + K2 on CUDA."""
-    _check_slice(pod_batch)
+    """batch.py schedule_batch: the class route (_schedule_batch_classes;
+    K1 + K2 on CUDA) for a batch with class tables, the classic per-pod
+    route (K7 on CUDA) for one without; with the nominated-reservation
+    overlay when `nom` is given. Returns ([2, P] int32 packed assign +
+    score bits, post-batch usage). Plain on the CPU."""
     if nom is not None and "nom_row" not in pod_batch:
         # no pod holds a nomination of its own (batch.py reads -1)
-        cidx = pod_batch["class_idx"]
-        pod_batch = dict(pod_batch, nom_row=torch.full_like(cidx, -1))
-    cls, rw, ms, carry, terms = _scan_setup(node_cfg, usage, pod_batch, nom)
-    scan = _class_scan_cuda if _on_cuda(node_cfg["alloc"]) \
-        else _class_scan_plain
-    packed = scan(node_cfg, pod_batch, cls, rw, ms, carry, terms, nom)
+        pod_batch = dict(pod_batch,
+                         nom_row=torch.full_like(pod_batch["seq"], -1))
+    cuda = _on_cuda(node_cfg["alloc"])
+    if "class_req" in pod_batch:
+        cls, rw, ms, carry, terms = _scan_setup(node_cfg, usage, pod_batch,
+                                                nom)
+        scan = _class_scan_cuda if cuda else _class_scan_plain
+        packed = scan(node_cfg, pod_batch, cls, rw, ms, carry, terms, nom)
+    else:
+        carry, terms = _carry_setup(usage, pod_batch)
+        scan = _pod_scan_cuda if cuda else _pod_scan_plain
+        packed = scan(node_cfg, pod_batch, carry, terms, nom)
     return packed, _usage_out(carry)
 
 
@@ -772,12 +1017,109 @@ def schedule_batch(node_cfg: dict, usage: dict, pod_batch: dict,
     return packed[0], packed[1].view(torch.float32), new_usage
 
 
-def filter_score(node_cfg: dict, usage: dict, pod_batch: dict):
-    """The vmapped [P, N] fits mask and score matrix (batch.py
-    filter_score): not ported yet."""
-    raise NotImplementedError(
-        "filter_score: the [P, N] fits and scores kernel is not ported yet "
-        "(ROADMAP: port slice 5)")
+# ------------------------------------------------------------ K8
+
+
+#: pods per chunk of filter_score_plain: its [pods, N, R] fits
+#: intermediate stays within 2^24 elements
+_FILTER_CHUNK_ELEMS = 1 << 24
+
+
+def filter_score_plain(node_cfg: dict, usage: dict, pod_batch: dict):
+    """(fits [P, N] bool, where(fits, score, NEG) [P, N] f32) against the
+    frozen snapshot (batch.py filter_score): _pod_feasible / _pod_score
+    for every pod and row, no in-batch updates, no nominated overlay, no
+    topology or soft terms; the spread term from the frozen spread_base
+    row (a zero-weight + 0.0 without spread tables). Chunked over pods so
+    that the card holds it at 16,384 pods x 8,192 rows."""
+    alloc = node_cfg["alloc"]
+    N, R = alloc.shape
+    P = pod_batch["seq"].shape[0]
+    um, us = pod_batch["unique_masks"], pod_batch["unique_scores"]
+    rw = pod_batch["resource_weights"]
+    has_spread = pod_batch.get("spread_base") is not None
+    fits_out = torch.empty((P, N), dtype=torch.bool, device=alloc.device)
+    score_out = torch.empty((P, N), dtype=torch.float32,
+                            device=alloc.device)
+    step = max(1, _FILTER_CHUNK_ELEMS // max(1, N * R))
+    for a in range(0, P, step):
+        b = min(P, a + step)
+        fits = _pod_feasible_plain(
+            node_cfg, usage["used"], usage["pod_count"],
+            pod_batch["req"][a:b], pod_batch["mem_pressure_blocked"][a:b],
+            um[pod_batch["mask_idx"][a:b].long()])
+        score = _pod_score_plain(
+            node_cfg, usage["nonzero_used"],
+            pod_batch["nonzero_req"][a:b],
+            us[pod_batch["score_idx"][a:b].long()], rw)
+        if has_spread:
+            g = pod_batch["spread_gidx"][a:b].long()
+            use_spread = torch.where(g >= 0, 1.0, 0.0)[:, None]
+            score = score + pod_batch["spread_weight"] * use_spread \
+                * spread_score(pod_batch["spread_base"][g.clamp_min(0)],
+                               fits, pod_batch["spread_zone"],
+                               pod_batch["spread_zinit"])
+        else:
+            score = score + 0.0
+        fits_out[a:b] = fits
+        score_out[a:b] = torch.where(fits, score, NEG)
+    return fits_out, score_out
+
+
+#: K8's parameter block (KtpuFilterParams in csrc/filter_score.cu)
+_FILTER_PTRS = (
+    "alloc", "max_pods", "node_ok", "mem_pressure", "valid",
+    "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
+    "req", "nz_req", "blocked", "mask_idx", "score_idx", "spread_gidx",
+    "spread_base", "zone_of", "zinit", "spread_w", "fits", "score")
+_FILTER_INTS = ("N", "R", "P", "G", "Z", "has_spread")
+
+
+class _FilterParams(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_void_p) for k in _FILTER_PTRS] + \
+        [(k, ctypes.c_int) for k in _FILTER_INTS]
+
+
+def filter_score(node_cfg: dict, usage: dict, pod_batch: dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The [P, N] fits mask and masked score matrix against the frozen
+    snapshot (batch.py filter_score): plain on the CPU, kernel K8 on CUDA
+    (its instance with spread groups counts as filter_score_spread). No
+    scheduler route calls it; gang_feasible reads its mask."""
+    alloc = node_cfg["alloc"]
+    if not _on_cuda(alloc):
+        return filter_score_plain(node_cfg, usage, pod_batch)
+    f32, i32 = torch.float32, torch.int32
+    N, R = alloc.shape
+    P = _check_pod_rows(node_cfg, usage, pod_batch)
+    fits = torch.empty((P, N), dtype=torch.bool, device=alloc.device)
+    score = torch.empty((P, N), dtype=f32, device=alloc.device)
+    dims = {"N": N, "R": R, "P": P}
+    ptrs = {**_node_ptrs(node_cfg, usage, pod_batch["unique_masks"],
+                         pod_batch["unique_scores"],
+                         pod_batch["resource_weights"]),
+            **_pod_rows(pod_batch), "fits": (fits, torch.bool),
+            "score": (score, f32)}
+    if pod_batch.get("spread_base") is not None:
+        G = pod_batch["spread_base"].shape[0]
+        Z = pod_batch["spread_zinit"].shape[0]
+        if Z * 4 > 48 * 1024:
+            raise ValueError(f"filter_score: {Z} zones exceed the kernel's "
+                             "48 KB of zone sums in shared memory")
+        _need(pod_batch["spread_base"], (G, N), "spread_base")
+        _need(pod_batch["spread_gidx"], (P,), "spread_gidx")
+        _need(pod_batch["spread_zone"], (N,), "spread_zone")
+        dims.update(G=G, Z=Z, has_spread=1)
+        ptrs.update(spread_gidx=(pod_batch["spread_gidx"], i32),
+                    spread_base=(pod_batch["spread_base"], f32),
+                    zone_of=(pod_batch["spread_zone"], i32),
+                    zinit=(pod_batch["spread_zinit"], f32),
+                    spread_w=(pod_batch["spread_weight"].reshape(1), f32))
+    name = "filter_score" + "_spread" * bool(dims.get("has_spread"))
+    _launch("filter_score", "ktpu_filter_score", _FilterParams,
+            _FILTER_INTS, dims, ptrs, name)
+    LAUNCHES[name] += 1
+    return fits, score
 
 
 # ------------------------------------------------------------ K3

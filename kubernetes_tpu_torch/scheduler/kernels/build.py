@@ -31,7 +31,9 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "apply_dirty": "apply_dirty.cu",
            "drf_dominant": "drf_dominant.cu",
            "drf_order": "drf_order.cu",
-           "price_nodes": "price_nodes.cu"}
+           "price_nodes": "price_nodes.cu",
+           "pod_scan": "pod_scan.cu",
+           "filter_score": "filter_score.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

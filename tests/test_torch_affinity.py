@@ -21,7 +21,8 @@ _soft_write) ride the class scan. Here on the CPU:
   nomination) against the JAX `schedule_batch(..., nom)`, with and
   without each carry, and the reference's nominated BatchScheduler tests
   against the JAX class route;
-- the routes of port slice 5 still raise.
+- the routes of port slice 5 (the classic per-pod branch and
+  filter_score) against the JAX ones on the same inter-pod batch.
 
 Everything is small and changes no process-wide state (monkeypatch
 only), as these tests share worker processes with the rest of the suite.
@@ -565,33 +566,42 @@ def _batch_sched(**kw):
 
 @pytest.mark.parametrize("route", ["classic", "nominated", "filter_score"])
 def test_slice4_routes_still_raise(route, monkeypatch):
-    """The classic per-pod branch and filter_score still raise, naming
-    port slice 5. The nominated overlay was ported in slice 4: a batch of
-    inter-pod pods beside a ghost nomination schedules as the JAX
-    BatchScheduler schedules it."""
-    pods = [_anti(tapi, 0, (0,)), _preferred(tapi, 1, (0,))]
-    if route == "nominated":
-        out = []
-        for api, cache_cls, sched_cls, nom_cls, kw in (
-                (japi, JCache, JBatch, JNominatedPodMap, {}),
-                (tapi, TCache, TBatch, NominatedPodMap, {"device": "cpu"})):
-            nominated = nom_cls()
-            nominated.add(workload.make_pod(api, 99), "node-0")
-            sched, _ = workload.build(api, cache_cls, sched_cls, None, 16,
-                                      "uniform", nominated=nominated, **kw)
-            res = sched.schedule([_anti(api, 0, (0,)),
-                                  _preferred(api, 1, (0,))])
-            out.append([(r.node_name, np.float32(r.score).view(np.int32))
-                        for r in res])
-        assert out[0] == out[1]
-        assert all(n for n, _ in out[1])
+    """The routes outside slice 4 when it landed now schedule as JAX
+    does. The nominated overlay (slice 4): a batch of inter-pod pods
+    beside a ghost nomination schedules as the JAX BatchScheduler
+    schedules it. The classic per-pod branch (slice 5): the same batch
+    with KTPU_CLASS_SCAN=0 in both packages. filter_score (slice 5): the
+    anti-affinity fixture's [P, N] fits and scores equal JAX's."""
+    if route == "filter_score":
+        node_cfg, usage, pb = _case("anti")
+        ci = pb["class_idx"]
+        classic = {k: v for k, v in pb.items() if not k.startswith("class_")}
+        classic.update(req=pb["class_req"][ci],
+                       nonzero_req=pb["class_nz"][ci],
+                       mem_pressure_blocked=pb["class_blocked"][ci],
+                       mask_idx=pb["class_mask_idx"][ci],
+                       score_idx=pb["class_score_idx"][ci])
+        ref = jb.filter_score(node_cfg, usage, classic)
+        got = tb.filter_score(*tables_from_numpy(node_cfg, usage, classic,
+                                                 "cpu"))
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(_bits(r), _bits(g))
         return
     if route == "classic":
         monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
-        call = lambda: _batch_sched().schedule(pods)        # noqa: E731
-    else:
-        node_cfg, usage, pb = _case("anti")
-        call = lambda: tb.filter_score(                     # noqa: E731
-            *tables_from_numpy(node_cfg, usage, pb, "cpu"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        call()
+    out = []
+    for api, cache_cls, sched_cls, nom_cls, kw in (
+            (japi, JCache, JBatch, JNominatedPodMap, {}),
+            (tapi, TCache, TBatch, NominatedPodMap, {"device": "cpu"})):
+        nominated = nom_cls()
+        if route == "nominated":
+            nominated.add(workload.make_pod(api, 99), "node-0")
+        sched, _ = workload.build(api, cache_cls, sched_cls, None, 16,
+                                  "uniform", nominated=nominated, **kw)
+        assert sched.class_scan == (route != "classic")
+        res = sched.schedule([_anti(api, 0, (0,)),
+                              _preferred(api, 1, (0,))])
+        out.append([(r.node_name, np.float32(r.score).view(np.int32))
+                    for r in res])
+    assert out[0] == out[1]
+    assert all(n for n, _ in out[1])

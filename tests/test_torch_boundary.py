@@ -5,8 +5,9 @@
   interpreter, and in the source of every module);
 - an entry point with the default device runs on CUDA, and raises when
   there is none (never a quiet run on the CPU);
-- batches outside this slice raise NotImplementedError instead of
-  scheduling differently.
+- batches outside the ported slices raise NotImplementedError instead
+  of scheduling differently; the routes a slice ported schedule as the
+  JAX package does.
 """
 
 import ast
@@ -15,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -120,51 +122,78 @@ def _sched(**kw):
     return sched
 
 
-def _anti_pod(i):
-    pod = workload.make_pod(tapi, i)
-    pod.spec.affinity = tapi.Affinity(pod_anti_affinity=tapi.PodAntiAffinity(
+def _anti_pod(i, api=tapi):
+    pod = workload.make_pod(api, i)
+    pod.spec.affinity = api.Affinity(pod_anti_affinity=api.PodAntiAffinity(
         required_during_scheduling_ignored_during_execution=[
-            tapi.PodAffinityTerm(
-                label_selector=tapi.LabelSelector(
+            api.PodAffinityTerm(
+                label_selector=api.LabelSelector(
                     match_labels={"app": "bench"}),
-                topology_key=tapi.wellknown.LABEL_HOSTNAME)]))
+                topology_key=api.wellknown.LABEL_HOSTNAME)]))
     return pod
 
 
-def _preferred_pod(i):
-    pod = workload.make_pod(tapi, i)
-    pod.spec.affinity = tapi.Affinity(pod_anti_affinity=tapi.PodAntiAffinity(
+def _preferred_pod(i, api=tapi):
+    pod = workload.make_pod(api, i)
+    pod.spec.affinity = api.Affinity(pod_anti_affinity=api.PodAntiAffinity(
         preferred_during_scheduling_ignored_during_execution=[
-            tapi.WeightedPodAffinityTerm(
-                weight=10, pod_affinity_term=tapi.PodAffinityTerm(
-                    label_selector=tapi.LabelSelector(
+            api.WeightedPodAffinityTerm(
+                weight=10, pod_affinity_term=api.PodAffinityTerm(
+                    label_selector=api.LabelSelector(
                         match_labels={"app": "bench"}),
-                    topology_key=tapi.wellknown.LABEL_HOSTNAME))]))
+                    topology_key=api.wellknown.LABEL_HOSTNAME))]))
     return pod
+
+
+def _jax_sched():
+    import kubernetes_tpu.api as japi
+    from kubernetes_tpu.scheduler.cache import Cache as JCache
+    from kubernetes_tpu.scheduler.core import BatchScheduler as JBatch
+    from kubernetes_tpu.scheduler.priorities import SpreadListers as JL
+    sched, _ = workload.build(japi, JCache, JBatch, JL, 16, "uniform")
+    return sched, japi
+
+
+def _classic_like_jax(make):
+    """The port's BatchScheduler and the JAX one, both built with the
+    environment as it stands (KTPU_CLASS_SCAN=0 here), on the pods `make`
+    builds with each package's api: (node, score bits) of each pod."""
+    out = []
+    for sched, api in (_jax_sched(), (_sched(), tapi)):
+        assert not sched.class_scan
+        res = sched.schedule(make(api))
+        out.append([(r.node_name, np.float32(r.score).view(np.int32))
+                    for r in res])
+    assert out[0] == out[1]
+    return [n for n, _ in out[1]]
 
 
 def test_required_anti_affinity_batch_raises(monkeypatch):
     """Ported in slice 3: the batch schedules on the class route, with
-    the counters in the scan (one pod per hostname). Only the classic
-    per-pod branch (slice 5) still raises for it."""
+    the counters in the scan (one pod per hostname). Ported in slice 5:
+    with KTPU_CLASS_SCAN=0 the classic per-pod branch schedules it as the
+    JAX classic branch does."""
     res = _sched().schedule([_anti_pod(i) for i in range(4)])
     nodes = [r.node_name for r in res]
     assert None not in nodes and len(set(nodes)) == 4
     monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        _sched().schedule([_anti_pod(0), _anti_pod(1)])
+    nodes = _classic_like_jax(lambda api: [_anti_pod(i, api)
+                                           for i in range(4)])
+    assert None not in nodes and len(set(nodes)) == 4
 
 
 def test_preferred_pod_affinity_batch_raises(monkeypatch):
     """Ported in slice 3: the soft credit tables ride the class scan.
-    Only the classic per-pod branch (slice 5) still raises for it."""
+    Ported in slice 5: with KTPU_CLASS_SCAN=0 they ride the classic
+    per-pod branch, as in the JAX package."""
     sched = _sched()
     pods = [_preferred_pod(i) for i in range(4)]
     assert sched._soft_plan(pods) is not None
     assert all(r.node_name for r in sched.schedule(pods))
     monkeypatch.setenv("KTPU_CLASS_SCAN", "0")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        _sched().schedule([_preferred_pod(0)])
+    nodes = _classic_like_jax(lambda api: [_preferred_pod(i, api)
+                                           for i in range(4)])
+    assert all(nodes)
 
 
 def test_nominated_reservation_raises():
@@ -209,8 +238,14 @@ def test_gang_batch_raises():
 @pytest.mark.parametrize("env", [("KTPU_CLASS_SCAN", "0"),
                                  ("KTPU_SPECULATIVE", "1")])
 def test_unported_kernel_switches_raise(monkeypatch, env):
+    """KTPU_SPECULATIVE=1 selects the speculative cohort kernel, not
+    ported: it raises. KTPU_CLASS_SCAN=0 selects the classic per-pod
+    kernel, ported in slice 5: it schedules as the JAX package does."""
     monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError):
+    if env[0] == "KTPU_CLASS_SCAN":
+        assert all(_classic_like_jax(lambda api: [workload.make_pod(api, 0)]))
+        return
+    with pytest.raises(NotImplementedError, match="speculative"):
         _sched().schedule([workload.make_pod(tapi, 0)])
 
 
@@ -256,3 +291,23 @@ def test_kernel_launchers_check_shapes():
     with pytest.raises(ValueError, match="unique_masks"):
         kb._check_shapes(cfg, usage, cls, pb["unique_masks"][:, :5],
                          pb["unique_scores"], rw)
+
+
+def test_classic_launchers_refuse_cpu_tensors_and_bad_shapes():
+    """K7's and K8's launchers: CPU tensors raise before any pointer is
+    taken, and shapes the kernels would index out of bounds raise."""
+    cfg, usage, pb = _cpu_batch()
+    pb = {k: v for k, v in pb.items() if not k.startswith("class_")}
+    carry, terms = kb._carry_setup(usage, pb)
+    with pytest.raises(ValueError, match="CUDA"):
+        kb._pod_scan_cuda(cfg, pb, carry, terms)
+    with pytest.raises(ValueError, match="req"):
+        kb._pod_scan_cuda(cfg, dict(pb, req=pb["req"][:, :1]), carry, terms)
+    with pytest.raises(ValueError, match="mask_idx"):
+        kb._pod_scan_cuda(cfg, dict(pb, mask_idx=pb["mask_idx"][:2]), carry,
+                          terms)
+    with pytest.raises(ValueError, match="CUDA"):
+        kb._launch("filter_score", "ktpu_filter_score", kb._FilterParams,
+                   kb._FILTER_INTS, {}, {"alloc": (cfg["alloc"],
+                                                   torch.float32)},
+                   "filter_score")

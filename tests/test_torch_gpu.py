@@ -73,13 +73,29 @@ def _state(seed, N=1024, R=8, C=4, P=2048, G=2, Z=8):
 
 def _plain(fn, *args):
     """Run `fn` with the kernels patched to their plain versions."""
-    saved = (kb.class_ms_init, kb._class_scan_cuda)
-    kb.class_ms_init, kb._class_scan_cuda = (kb.class_ms_init_plain,
-                                             kb._class_scan_plain)
+    saved = (kb.class_ms_init, kb._class_scan_cuda, kb._pod_scan_cuda)
+    kb.class_ms_init, kb._class_scan_cuda, kb._pod_scan_cuda = (
+        kb.class_ms_init_plain, kb._class_scan_plain, kb._pod_scan_plain)
     try:
         return fn(*args)
     finally:
-        kb.class_ms_init, kb._class_scan_cuda = saved
+        kb.class_ms_init, kb._class_scan_cuda, kb._pod_scan_cuda = saved
+
+
+CLASS_TABLES = ("class_req", "class_nz", "class_blocked", "class_mask_idx",
+                "class_score_idx", "class_idx")
+
+
+def _classic(pb):
+    """The same batch without class tables: each pod's rows taken from
+    its class, as tensorize builds them (the classic route's input)."""
+    ci = pb["class_idx"]
+    out = {k: v for k, v in pb.items() if k not in CLASS_TABLES}
+    out.update(req=pb["class_req"][ci], nonzero_req=pb["class_nz"][ci],
+               mem_pressure_blocked=pb["class_blocked"][ci],
+               mask_idx=pb["class_mask_idx"][ci],
+               score_idx=pb["class_score_idx"][ci])
+    return out
 
 
 def _nom(node_cfg, usage, pb, seed):
@@ -221,6 +237,57 @@ def test_nominated_scan_kernels_match_plain(cuda, spread, topo, dir2, soft):
     # the overlay decided something: the same batch without it differs
     free, _ = kb.schedule_batch_packed(tc, tu, tpb)
     assert not torch.equal(free[0], packed[0])
+
+
+@pytest.mark.parametrize("nom", [False, True])
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+def test_pod_scan_kernels_match_plain(cuda, spread, topo, dir2, soft, nom):
+    """K7, each instance with and without the nominated overlay, against
+    its plain version on the card (packed results and every post-batch
+    usage table bit for bit), and deciding as K2 does on the same batch
+    with class tables."""
+    node_cfg, usage, pb = _state(4)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, 4, topo, dir2, soft)
+    tnom = nom_from_numpy(_nom(node_cfg, usage, pb, 4), cuda) if nom \
+        else None
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    name = kb.scan_instance(spread, topo, soft, nom, "pod_scan")
+    before = dict(kb.LAUNCHES)
+    packed, new_usage = kb.schedule_batch_packed(tc, tu, tpb, tnom)
+    assert kb.LAUNCHES[name] == before[name] + 1
+    assert kb.LAUNCHES["class_ms_init"] == before["class_ms_init"]
+    ref, ref_usage = _plain(kb.schedule_batch_packed, tc, tu, tpb, tnom)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, ref)
+    assert set(new_usage) == set(ref_usage)
+    for k in ref_usage:
+        assert torch.equal(new_usage[k].view(torch.int32),
+                           ref_usage[k].view(torch.int32)), k
+    assert (packed[0] >= 0).sum() > 1000
+    _, _, cpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    by_class, _ = kb.schedule_batch_packed(tc, tu, cpb, tnom)
+    assert torch.equal(by_class[0], packed[0])
+
+
+@pytest.mark.parametrize("spread", [False, True])
+def test_filter_score_kernel_matches_plain(cuda, spread):
+    """K8 against filter_score_plain on the card: fits equal, masked
+    score bits equal."""
+    node_cfg, usage, pb = _state(5)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    name = "filter_score" + "_spread" * spread
+    before = kb.LAUNCHES[name]
+    fits, score = kb.filter_score(tc, tu, tpb)
+    assert kb.LAUNCHES[name] == before + 1
+    ref_fits, ref_score = kb.filter_score_plain(tc, tu, tpb)
+    torch.cuda.synchronize()
+    assert torch.equal(fits, ref_fits)
+    assert torch.equal(score.view(torch.int32), ref_score.view(torch.int32))
+    assert 0 < int(fits.sum()) < fits.numel()
 
 
 def _storm_tables(n_nodes, preemptor):

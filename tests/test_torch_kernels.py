@@ -261,15 +261,26 @@ def test_schedule_batch_chained_launch_bit_exact(spread):
 
 
 def test_schedule_batch_routes_outside_the_slice_raise():
-    """The classic per-pod branch and filter_score are port slice 5 and
-    raise. The nominated overlay is ported (slice 4; its own fixtures are
-    in tests/test_torch_affinity.py): a batch with reservations on every
+    """The routes that were outside the first slices now schedule as the
+    reference does. The classic per-pod branch and filter_score are port
+    slice 5 (their own fixtures are in tests/test_torch_classic.py): the
+    batch without class tables schedules as the JAX classic branch does,
+    and filter_score gives the JAX [P, N] fits and scores. The nominated
+    overlay is ported (slice 4; its own fixtures are in
+    tests/test_torch_affinity.py): a batch with reservations on every
     third row schedules as the JAX class route does."""
     node_cfg, usage, pb = _batch(0, False, P=64)
     tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, "cpu")
-    classic = {k: v for k, v in tpb.items() if k not in CLASS_KEYS}
-    with pytest.raises(NotImplementedError, match="classic.*slice 5"):
-        tb.schedule_batch(tc, tu, classic)
+    ci = pb["class_idx"]
+    classic = {k: v for k, v in pb.items()
+               if k not in CLASS_KEYS + ("class_idx",)}
+    classic.update(req=pb["class_req"][ci], nonzero_req=pb["class_nz"][ci],
+                   mem_pressure_blocked=pb["class_blocked"][ci],
+                   mask_idx=pb["class_mask_idx"][ci],
+                   score_idx=pb["class_score_idx"][ci])
+    _, _, tclassic = tables_from_numpy(node_cfg, usage, classic, "cpu")
+    _assert_scan_equal(jb.schedule_batch(node_cfg, usage, classic),
+                       tb.schedule_batch(tc, tu, tclassic))
     N, R = node_cfg["alloc"].shape
     nom = {"used": np.zeros((N, R), np.float32),
            "count": np.zeros((N,), np.float32)}
@@ -279,8 +290,10 @@ def test_schedule_batch_routes_outside_the_slice_raise():
     got = tb.schedule_batch(tc, tu, tpb, {k: torch.from_numpy(v)
                                           for k, v in nom.items()})
     _assert_scan_equal(ref, got)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tb.filter_score(tc, tu, tpb)
+    ref_fits, ref_score = jb.filter_score(node_cfg, usage, classic)
+    fits, score = tb.filter_score(tc, tu, tclassic)
+    _bits_equal(ref_fits, fits)
+    _bits_equal(ref_score, score)
 
 
 # ------------------------------------------------------------ K3 + packing
