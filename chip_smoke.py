@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
-one process per source, all started together: K1-K8), then:
+one process per source, all started together: K1-K11), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -63,13 +63,42 @@ one process per source, all started together: K1-K8), then:
        launch on them;
      - `filter`: kernels.filter_score (K8), the [P, N] fits and scores,
        on the uniform and spread paths' first batches (16,384 pods x
-       8,192 rows); no scheduler route calls it.
+       8,192 rows); no scheduler route calls it;
+     - `gang`: BASELINE.json config 5, 50,000 pods onto 5,000 nodes
+       labelled tpu/slice = s{i // 8} (625 slices of 8): 2,000 PodGroups
+       of 8 with topologyKey tpu/slice, 2,000 PodGroups of 4 without a
+       key and 26,000 singletons of bench.py's three request shapes
+       (workload.gang_objects), created through the port's Client and
+       drained by Scheduler.drain_pipelined in batches of 16,384 (the
+       informer events delivered on the drain's thread by
+       workload.InformerPump, a FakeClock stepped past backoffs): every
+       batch carries PodGroup members and takes the all-or-nothing gang
+       scan K9 (its capacity-gated instance gang_scan_cap);
+     - `gang-feasible`: K8's [P, N] mask of the gang path's largest batch
+       and kernels.gang_feasible (K10) over its gangs; no scheduler route
+       calls it;
+     - `gang-storm`: bench.py preempt_main's gang_preempt at 5,000 nodes:
+       the storm cluster, 2 BatchScheduler.preempt_gang calls for a gang
+       of 8 with no topology key (the whole cluster one domain row of
+       every victim unit, U = 16,384), then 15 repeats for a gang of 8
+       members of 2 CPU / 3Gi at priority 1000, minMember 8, tpu/slice,
+       each pricing the 625 slices in one launch of K11 price_domains;
+       plans/s, and the host time of build_domain_tables;
+     - `gang-preemption`: the storm cluster through the Client and 10
+       such gangs arriving one after another, each drained until it is
+       bound (workload.drain_until_idle): priced (K11), its members
+       nominated across the winner slice's freed nodes, the chosen units
+       evicted, and the gang lands through the nominated overlay (K9's
+       gang_scan_cap_nom, its members exempt from their gang-mates'
+       reservations).
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
-     `anti-affinity` no two pods of a color may share a node, and on
-     `preemption` every evicted victim must rank below its preemptor and
-     preemption_attempts must equal the plans made;
+     `anti-affinity` no two pods of a color may share a node, on
+     `preemption` and `gang-preemption` every evicted victim must rank
+     below its preemptor and preemption_attempts must equal the plans
+     made, every PodGroup binds whole and every tpu/slice gang inside one
+     slice, and a victim PodGroup is evicted whole or not at all;
   2. kernel phase: each kernel on the inputs the main paths gave it, held
      bit for bit against its plain PyTorch version on the card, and
      timed with CUDA events beside the plain version and, where one
@@ -82,13 +111,24 @@ one process per source, all started together: K1-K8), then:
      class tables dropped: its assign must equal K2's row for row, and
      its packed results and post-batch usage its plain version's bit for
      bit. K8 runs on the uniform and spread batches against its plain
-     version (fits equal, score bits equal);
+     version (fits equal, score bits equal). Each K9 instance is held on
+     the largest batch of its path (assign, the score bits of every pod,
+     rejected gangs' members included, and the committed usage bits), and
+     replays the uniform path's first batch as singletons in pod order,
+     where its assign and the active pods' score bits must equal K7's;
+     gang_scan_cap_nom with the own-gang exemption also replays the gang
+     path's largest batch cut to its first 2,048 entries (whole units;
+     the gangs among every fourth unit hold reservations, two to a node);
+     K10 on the gang-feasible path's mask; every K11 decision of the gang
+     storm and the gang-preemption loop (winner, chosen units, PDB
+     violations) against price_domains_plain;
   3. the `uniform`, `spread`, `anti-affinity`, `preferred` and
      `nominated` drains with the plain versions on the card (the kernels
      patched out in this script only): the binds must be equal. `uniform`
-     and `spread` are cut to their first two batches here (PLAIN_PODS),
-     which bind as in the whole drain, to keep the script well inside its
-     time;
+     and `spread` are cut to their first batch here (PLAIN_PODS), which
+     binds as in the whole drain, and the `gang` drain to its largest
+     (first) batch, held bit for bit in the kernel phase, to keep the
+     script inside its time;
   4. small drains (128 nodes, 1,024 pods) on the card against the same
      drains on the CPU: for `uniform` and `spread` the binds and score
      bits must be equal; for the nine-tenant scheduler loop (with
@@ -96,7 +136,10 @@ one process per source, all started together: K1-K8), then:
      not depend on thread timing) the binds and the DRF shares' bits;
      for the preemption loop (400 nodes, 30 preemptors, the same
      setting) the binds, the evicted victims and the nominations; for the
-     nine-tenant loop with KTPU_CLASS_SCAN=0 (K7) the binds.
+     nine-tenant loop with KTPU_CLASS_SCAN=0 (K7) the binds; for the gang
+     drain (128 nodes, 1,024 pods, gangs in proportion) the binds; for the
+     gang-preemption loop (400 nodes, 2 gangs) the binds, evicted victims
+     and nominations.
 
 It prints a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and as its last line
@@ -122,7 +165,7 @@ N_PODS = 50_000
 BATCH = 16_384
 SMALL_NODES, SMALL_PODS, SMALL_BATCH = 128, 1024, 256
 #: the depth of the uniform and spread drains with the plain versions
-PLAIN_PODS = 2 * BATCH
+PLAIN_PODS = BATCH
 #: BASELINE.json configs 3 and 4: 10k pods onto 1k nodes
 AFF_NODES, AFF_PODS = 1000, 10_000
 #: bench.py's `nominated` variant at its own size (its AFF_NODES and
@@ -150,6 +193,23 @@ CLASSIC_DRAINS = {"classic": ("uniform", True),
 CLASSIC_SCHED = {"classic-anti-affinity": SCHED_PATHS["anti-affinity"],
                  "classic-preferred": SCHED_PATHS["preferred"],
                  "classic-nominated": SCHED_PATHS["nominated"]}
+#: BASELINE.json config 5 (the gang drain): pods, nodes, PodGroups of 8
+#: on one tpu/slice and PodGroups of 4 without a key (the rest
+#: singletons); its small copy held between the card and the CPU
+GANG_NODES, GANG_PODS, GANG_SLICE_GANGS, GANG_PLAIN_GANGS = \
+    5000, 50_000, 2000, 2000
+SMALL_GANG = (SMALL_NODES, SMALL_PODS, 40, 40)
+#: bench.py preempt_main's gang_preempt at 5,000 nodes: repeats of
+#: preempt_gang, and the gangs of the gang-preemption loop (and of its
+#: small copy on 400 nodes)
+GANG_STORM_REPEATS = 15
+#: the gang storm's preempt_gang calls for a gang of 8 with no topology
+#: key (the whole cluster is one domain row, every victim unit in it)
+GANG_STORM_KEYLESS = 2
+#: the gang batch's entries K9's exempt-mates replay takes (whole units)
+MATES_REPLAY_ENTRIES = 2048
+GANG_PREEMPT_GANGS = 10
+SMALL_GANG_PREEMPT = (SMALL_STORM_NODES, 2)
 #: kernels each main path must launch
 PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "spread": ("class_ms_init", "class_scan_spread",
@@ -167,7 +227,15 @@ PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "classic-anti-affinity": ("pod_scan_topo",),
                 "classic-preferred": ("pod_scan_soft",),
                 "classic-nominated": ("pod_scan_nom",),
-                "filter": ("filter_score", "filter_score_spread")}
+                "filter": ("filter_score", "filter_score_spread"),
+                "gang": ("gang_scan_cap",),
+                "gang-feasible": ("filter_score", "gang_feasible"),
+                "gang-storm": ("price_domains",),
+                "gang-preemption": ("price_domains", "gang_scan_cap_nom")}
+#: the K9 instances, each held and timed on the largest batch of the
+#: path named
+GANG_ROWS = (("gang_scan_cap", "gang"),
+             ("gang_scan_cap_nom", "gang-preemption"))
 #: the K2 instances, each timed and held on a batch of the path named
 SCAN_ROWS = (("class_scan", "uniform", "batch.py:596"),
              ("class_scan_spread", "spread", "batch.py:163"),
@@ -231,6 +299,7 @@ class Port:
         from kubernetes_tpu_torch.scheduler.core import BatchScheduler
         from kubernetes_tpu_torch.scheduler.kernels import batch as kb
         from kubernetes_tpu_torch.scheduler.kernels import filter_score
+        from kubernetes_tpu_torch.scheduler.kernels import gang as gk
         from kubernetes_tpu_torch.scheduler.kernels import preempt as pk
         from kubernetes_tpu_torch.scheduler.nodeinfo import (NodeInfo,
                                                               pod_resource)
@@ -243,7 +312,7 @@ class Port:
         from kubernetes_tpu_torch.tenancy import kernels as tk
         from kubernetes_tpu_torch.utils.clock import FakeClock
         self.Scheduler, self.Client, self.tk = Scheduler, Client, tk
-        self.pk, self.FakeClock = pk, FakeClock
+        self.pk, self.gk, self.FakeClock = pk, gk, FakeClock
         self.precompute = precompute_pod_features
         self.TENANT_LABEL = TENANT_LABEL
         self.torch, self.api, self.wl = torch, api, workload
@@ -270,12 +339,14 @@ class Port:
         return pod
 
     def launches(self):
-        return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES}
+        return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES,
+                **self.gk.LAUNCHES}
 
     def reset_launches(self):
         self.kb.reset_launches()
         self.tk.reset_launches()
         self.pk.reset_launches()
+        self.gk.reset_launches()
 
 
 class Recorder:
@@ -287,6 +358,21 @@ class Recorder:
 
     def __init__(self, port):
         self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
+        self.gk = port.gk
+        #: (variant, K9 instance) -> the (node_cfg, usage, pod batch, gang
+        #: table, nom, exempt_mates) of its launch with the most entries
+        #: (the first of them)
+        self.gang_inputs = {}
+        self._gang_entries = {}
+        #: while a list: every price_domains call's (inputs, outputs)
+        self.domain_log = None
+        #: the gang storm's and the gang-preemption loop's calls
+        self.storm_domains = []
+        self.loop_domains = []
+        #: seconds of every build_domain_tables call (host)
+        self.domain_tables_s = []
+        #: (fits [P, N], members [G, M]) of the gang-feasible path
+        self.feasible_inputs = None
         #: paths whose every nominated scan launch is kept (inputs and
         #: outputs) to be held against the plain versions after the drain
         self.nom_paths = ("nominated", "preemption")
@@ -383,6 +469,42 @@ class Recorder:
                                        tuple(o.clone() for o in out)))
             return out
         pk.price_nodes = price
+        gk = self.gk
+        self._orig_gang = (gk.gang_schedule_packed, pk.price_domains,
+                           pk.build_domain_tables)
+        orig_gang, orig_price_dom, orig_tabs = self._orig_gang
+
+        def gang(node_cfg, usage, pod_batch, gang_tab, nom=None,
+                 exempt_mates=False):
+            has_cap = all(k in gang_tab for k in gk.CAP_KEYS)
+            name = gk.gang_instance(has_cap,
+                                    pod_batch.get("soft_dom") is not None,
+                                    nom is not None)
+            key = (self.variant, name)
+            entries = int((gang_tab["pod_idx"] >= 0).sum())
+            if entries > self._gang_entries.get(key, -1):
+                self._gang_entries[key] = entries
+                self.gang_inputs[key] = (clone(node_cfg), clone(usage),
+                                         clone(pod_batch), clone(gang_tab),
+                                         clone(nom), exempt_mates)
+            return timed(orig_gang, node_cfg, usage, pod_batch, gang_tab,
+                         nom, exempt_mates)
+
+        def domains(*args):
+            out = timed(orig_price_dom, *args)
+            if self.domain_log is not None:
+                self.domain_log.append((tuple(a.clone() for a in args),
+                                        tuple(o.clone() for o in out)))
+            return out
+
+        def tables(*args, **kw):
+            t0 = time.perf_counter()
+            out = orig_tabs(*args, **kw)
+            self.domain_tables_s.append(time.perf_counter() - t0)
+            return out
+        gk.gang_schedule_packed = gang
+        pk.price_domains = domains
+        pk.build_domain_tables = tables
         return self
 
     def __exit__(self, *exc):
@@ -391,6 +513,8 @@ class Recorder:
         for k, v in self._orig_tk.items():
             setattr(self.tk, k, v)
         self.pk.price_nodes = self._orig_pk
+        (self.gk.gang_schedule_packed, self.pk.price_domains,
+         self.pk.build_domain_tables) = self._orig_gang
 
 
 class PlainOnCard:
@@ -400,10 +524,11 @@ class PlainOnCard:
 
     def __init__(self, port):
         self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
+        self.gk = port.gk
         self._orig = []
 
     def __enter__(self):
-        kb, tk, pk = self.kb, self.tk, self.pk
+        kb, tk, pk, gk = self.kb, self.tk, self.pk, self.gk
         for mod, name, plain in (
                 (kb, "class_ms_init", kb.class_ms_init_plain),
                 (kb, "_class_scan_cuda", kb._class_scan_plain),
@@ -411,7 +536,10 @@ class PlainOnCard:
                 (kb, "apply_dirty", kb.apply_dirty_plain),
                 (tk, "drf_dominant", tk.drf_dominant_plain),
                 (tk, "drf_order", tk.drf_order_plain),
-                (pk, "price_nodes", pk.price_nodes_plain)):
+                (pk, "price_nodes", pk.price_nodes_plain),
+                (gk, "_gang_scan_cuda", gk.gang_schedule_plain),
+                (gk, "gang_feasible", gk.gang_feasible_plain),
+                (pk, "price_domains", pk.price_domains_plain)):
             self._orig.append((mod, name, getattr(mod, name)))
             setattr(mod, name, plain)
         return self
@@ -455,6 +583,25 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
         sched.queue.add(pod)
     setup_s = time.perf_counter() - t0
     sched.algorithm.refresh()
+    phases, latency = instrument(sched)
+    t0 = time.perf_counter()
+    n = sched.drain_pipelined()
+    wall = time.perf_counter() - t0
+    sched.stop()
+    stored = client.pods().list()
+    return {"sched": sched, "client": client, "pods": stored, "bound": n,
+            "seeds": seeds,
+            "binds": {p.metadata.key(): p.spec.node_name or None
+                      for p in stored},
+            "wall": wall, "setup_s": setup_s, "latency": latency,
+            "phases": phases, "commit_thread": sched._commit_async,
+            "phase_stats": dict(sched.algorithm.phase_stats)}
+
+
+def instrument(sched):
+    """(phases, latency): host seconds of the drain's phases and the
+    launch-to-committed latency of each batch, taken by wrapping the
+    drain's own methods here (the package has no such hooks)."""
     phases = {"drf_order": 0.0, "launch": 0.0, "finish": 0.0,
               "commit": 0.0}
     latency = []
@@ -492,18 +639,191 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
         return fut
     sched._finish_pipelined = finish
     algo.reset_phase_stats()
+    return phases, latency
+
+
+def run_gang_drain(port, device, n_nodes, n_pods, slice_gangs, plain_gangs,
+                   batch):
+    """BASELINE.json config 5 (workload.gang_objects) through the port's
+    Client: nodes, PodGroups and pods created, then the Scheduler's
+    informers listed and fed on this thread (workload.InformerPump) and
+    Scheduler.drain_pipelined driven until nothing is pending
+    (workload.drain_until_idle, a FakeClock stepped past backoffs)."""
+    api, wl = port.api, port.wl
+    nodes, groups, pods = wl.gang_objects(api, n_nodes, n_pods, slice_gangs,
+                                          plain_gangs)
     t0 = time.perf_counter()
-    n = sched.drain_pipelined()
+    clock = port.FakeClock()
+    client = port.Client(validate=False)
+    for node in nodes:
+        client.nodes().create(node)
+    for g in groups:
+        client.pod_groups("default").create(g)
+    for pod in pods:
+        client.pods().create(pod)
+    sched = port.Scheduler(client, batch_size=batch, device=device,
+                           clock=clock)
+    pump = wl.InformerPump(sched.informers)
+    setup_s = time.perf_counter() - t0
+    sched.algorithm.refresh()
+    phases, latency = instrument(sched)
+    t0 = time.perf_counter()
+    try:
+        bound = wl.drain_until_idle(sched, pump, clock)
+    finally:
+        pump.close()
     wall = time.perf_counter() - t0
     sched.stop()
     stored = client.pods().list()
-    return {"sched": sched, "client": client, "pods": stored, "bound": n,
-            "seeds": seeds,
+    return {"sched": sched, "pods": stored, "bound": bound, "groups": groups,
             "binds": {p.metadata.key(): p.spec.node_name or None
                       for p in stored},
             "wall": wall, "setup_s": setup_s, "latency": latency,
             "phases": phases, "commit_thread": sched._commit_async,
-            "phase_stats": dict(algo.phase_stats)}
+            "phase_stats": dict(sched.algorithm.phase_stats),
+            "gangs": (sched.gang_metrics.gangs_admitted.value(),
+                      sched.gang_metrics.gangs_rejected.value())}
+
+
+def check_gangs(port, label, n_nodes, pods, binds, groups):
+    """Every PodGroup bound whole (all members or none, and here all),
+    every gang with a topology key inside one of its domains."""
+    lab = port.api.wellknown.LABEL_POD_GROUP
+    members = {}
+    for pod in pods:
+        g = pod.metadata.labels.get(lab)
+        if g:
+            members.setdefault(g, []).append(binds[pod.metadata.key()])
+    slice_of = {port.wl.slice_node(port.api, i).metadata.name:
+                f"s{i // port.wl.SLICE_NODES}" for i in range(n_nodes)}
+    for g in groups:
+        nodes = members.get(g.metadata.name, [])
+        placed = [n for n in nodes if n]
+        if len(nodes) < g.spec.min_member or len(placed) != len(nodes):
+            fail(f"{label}: PodGroup {g.metadata.name} bound {len(placed)} "
+                 f"of {len(nodes)} members (minMember "
+                 f"{g.spec.min_member})")
+        if g.spec.topology_key and len({slice_of[n] for n in placed}) != 1:
+            fail(f"{label}: PodGroup {g.metadata.name} spans slices "
+                 f"{sorted({slice_of[n] for n in placed})}")
+
+
+def run_gang_storm(port, device, n_nodes, repeats, keyless):
+    """bench.py preempt_main's gang_preempt: the storm cluster straight
+    into a cache, `keyless` BatchScheduler.preempt_gang calls for a gang
+    of 8 with no topology key (the whole cluster one domain), then
+    `repeats` for one gang of 8 on tpu/slice (workload.storm_gang), the
+    cache left as it is between them (the bench's repeated decision)."""
+    cache, pdbs = port.wl.storm_cache(port.api, port.Cache, n_nodes)
+    sched = port.BatchScheduler(cache, pdb_lister=lambda: pdbs,
+                                device=device)
+
+    def plans_of(members, key, n):
+        out = []
+        t0 = time.perf_counter()
+        for _ in range(n):
+            plan = sched.preempt_gang(members, 8, key)
+            out.append(None if plan is None else (
+                plan.domain, [v.metadata.key() for v in plan.victims],
+                [(m.metadata.key(), n) for m, n in plan.nominations],
+                plan.num_pdb_violations))
+        return out, time.perf_counter() - t0
+    _, free = port.wl.storm_gang(port.api, 1, topology_key="")
+    keyless_plans, keyless_s = plans_of(free, "", keyless)
+    _, members = port.wl.storm_gang(port.api, 0)
+    plans, elapsed = plans_of(members, port.wl.STORM_SLICE, repeats)
+    return {"plans": plans, "elapsed": elapsed,
+            "keyless_plans": keyless_plans, "keyless_s": keyless_s}
+
+
+def run_gang_preemption(port, device, n_nodes, n_gangs, batch):
+    """The storm cluster through the port's Client (nodes, bound victims,
+    the PDB object), then `n_gangs` gangs of 8 (workload.storm_gang)
+    arriving one after another, each drained until nothing is pending
+    (workload.drain_until_idle) before the next is created."""
+    clock = port.FakeClock()
+    client = port.Client(validate=False)
+    t0 = time.perf_counter()
+    victims = port.wl.storm_client(port.api, client, n_nodes)
+    sched = port.Scheduler(client, batch_size=batch, device=device,
+                           clock=clock)
+    pump = port.wl.InformerPump(sched.informers)
+    setup_s = time.perf_counter() - t0
+    algo = sched.algorithm
+    plans = []
+    preempt_gang = algo.preempt_gang
+
+    def counted(members, mm, tk):
+        plan = preempt_gang(members, mm, tk)
+        if plan is not None:
+            plans.append(plan.domain)
+        return plan
+    algo.preempt_gang = counted
+    bound = 0
+    groups = []
+    t0 = time.perf_counter()
+    try:
+        for g in range(n_gangs):
+            group, members = port.wl.storm_gang(port.api, g)
+            groups.append(group)
+            client.pod_groups("default").create(group)
+            for m in members:
+                client.pods().create(m)
+            pump.pump()
+            bound += port.wl.drain_until_idle(sched, pump, clock)
+    finally:
+        del algo.preempt_gang
+        pump.close()
+    wall = time.perf_counter() - t0
+    sched.stop()
+    pods = {p.metadata.key(): p for p in client.pods().list()}
+    return {"sched": sched, "bound": bound, "wall": wall,
+            "setup_s": setup_s, "plans": plans, "groups": groups,
+            "victims": victims, "pods": pods,
+            "binds": {k: p.spec.node_name or None for k, p in pods.items()},
+            "evicted": sorted(v.metadata.key() for v in victims
+                              if v.metadata.key() not in pods),
+            "nominated": {k: p.status.nominated_node_name
+                          for k, p in pods.items()
+                          if p.metadata.name.startswith("gang")},
+            "attempts": sched.metrics.preemption_attempts.value(),
+            "evictions": sched.metrics.preemption_victims.value()}
+
+
+def check_gang_preemption(port, label, r, n_nodes, n_gangs):
+    """Every gang bound whole inside one slice, every evicted victim below
+    the gangs' priority, a victim PodGroup evicted whole or not at all,
+    no node over capacity, preemption_attempts equal to the plans made."""
+    gangs = {k: p for k, p in r["pods"].items()
+             if p.metadata.name.startswith("gang")}
+    if len(gangs) != 8 * n_gangs or r["bound"] != 8 * n_gangs:
+        fail(f"{label}: {r['bound']} of {8 * n_gangs} gang members bound")
+    pods = list(r["pods"].values())
+    check_gangs(port, label, n_nodes, list(gangs.values()),
+                {k: p.spec.node_name for k, p in gangs.items()},
+                r["groups"])
+    prio = {v.metadata.key(): v.spec.priority for v in r["victims"]}
+    above = [k for k in r["evicted"] if prio[k] >= PREEMPTOR_PRIORITY]
+    if above:
+        fail(f"{label}: evicted victims at or above the gangs' priority: "
+             f"{above[:5]}")
+    if not r["evicted"]:
+        fail(f"{label}: no victim was evicted")
+    lab = port.api.wellknown.LABEL_POD_GROUP
+    evicted = set(r["evicted"])
+    vgroups = {}
+    for v in r["victims"]:
+        g = v.metadata.labels.get(lab)
+        if g:
+            vgroups.setdefault(g, []).append(v.metadata.key() in evicted)
+    split = [g for g, e in vgroups.items() if any(e) and not all(e)]
+    if split:
+        fail(f"{label}: victim PodGroups evicted in part: {split[:5]}")
+    check_capacity(port, label, n_nodes, pods,
+                   {p.metadata.key(): p.spec.node_name for p in pods})
+    if r["attempts"] != len(r["plans"]):
+        fail(f"{label}: preemption_attempts {r['attempts']} != "
+             f"{len(r['plans'])} plans made")
 
 
 def run_drain(port, variant, device, n_nodes, n_pods, batch, chain):
@@ -752,6 +1072,14 @@ def kernel_phase(port, rec, launches):
                  "shape": f"D={D} ({n_live} rows) N={cap}"})
     rows.extend(drf_rows(port, rec, launches))
     rows.append(price_row(port, rec, launches))
+    # ---- K9 per instance, the singleton replay against K7, K10, K11
+    for name, path in GANG_ROWS:
+        rows.append(gang_row(port, rec, launches, name, path))
+    rows[-2]["singleton_replay_equals_k7"] = gang_singleton_replay(port,
+                                                                   rec)
+    rows[-1]["mates_replay"] = gang_mates_replay(port, rec)
+    rows.append(feasible_row(port, rec, launches))
+    rows.append(domains_row(port, rec, launches))
     return rows
 
 
@@ -1179,6 +1507,344 @@ def price_row(port, rec, launches):
                      "rows, storm's last decision)"}
 
 
+def gang_table_of_singletons(torch, pb):
+    """The entry stream of a batch whose active pods are each a unit of
+    their own, in pod order (core._gang_device_table's layout for a batch
+    without PodGroups), with the capacity gate's need / greq."""
+    P = pb["seq"].shape[0]
+    N = pb["unique_masks"].shape[1]
+    dev = pb["seq"].device
+    idx = pb["active"].nonzero().flatten().to(torch.int32)
+    pod_idx = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    pod_idx[:idx.numel()] = idx
+    need = torch.zeros((P,), dtype=torch.float32, device=dev)
+    need[:idx.numel()] = 1.0
+    greq = torch.zeros_like(pb["req"])
+    greq[:idx.numel()] = pb["req"][idx.long()]
+    return {"pod_idx": pod_idx,
+            "start": torch.ones((P,), dtype=torch.bool, device=dev),
+            "end": torch.ones((P,), dtype=torch.bool, device=dev),
+            "gang_id": torch.arange(P, dtype=torch.int32, device=dev),
+            "entry_dom_idx": torch.full((P,), -1, dtype=torch.int32,
+                                        device=dev),
+            "pin_dom": torch.full((P,), -1, dtype=torch.int32, device=dev),
+            "dom_tab": torch.full((1, N), -1, dtype=torch.int32,
+                                  device=dev),
+            "need": need, "greq": greq}
+
+
+def gang_members_table(torch, gt):
+    """[G, M] int32 pod rows of the gangs (units of more than one entry)
+    of a gang table, -1 padded."""
+    import numpy as np
+    pod_idx = gt["pod_idx"].cpu().numpy()
+    gid = gt["gang_id"].cpu().numpy()
+    units = {}
+    for t, (i, g) in enumerate(zip(pod_idx, gid)):
+        if i >= 0:
+            units.setdefault(int(g), []).append(int(i))
+    gangs = [m for m in units.values() if len(m) > 1]
+    M = max((len(m) for m in gangs), default=1)
+    out = np.full((max(len(gangs), 1), M), -1, np.int32)
+    for r, m in enumerate(gangs):
+        out[r, :len(m)] = m
+    return torch.tensor(out, device=gt["pod_idx"].device)
+
+
+def gang_row(port, rec, launches, name, path):
+    """K9's instance on the largest batch of `path`: held against
+    gang_schedule_plain on the card (assign, the score bits of every pod,
+    the committed usage bits), K9 alone timed on a fresh carry."""
+    torch, gk = port.torch, port.gk
+    if (path, name) not in rec.gang_inputs:
+        fail(f"the {path} path never launched {name}")
+    node_cfg, usage, pb, gt, nom, mates = rec.gang_inputs[(path, name)]
+    packed_k, use_k = gk.gang_schedule_packed(node_cfg, usage, pb, gt, nom,
+                                              mates)
+    with PlainOnCard(port):
+        plain_ms, (packed_p, use_p) = time_host(
+            torch, lambda: gk.gang_schedule_packed(node_cfg, usage, pb, gt,
+                                                   nom, mates))
+    if not torch.equal(packed_k, packed_p):
+        fail(f"K9 {name} disagrees with its plain version on the {path} "
+             f"batch ({int((packed_k != packed_p).sum())} packed entries)")
+    if set(use_k) != set(use_p) or not all(
+            bits_equal(torch, use_k[k], use_p[k]) for k in use_p):
+        fail(f"K9 {name} committed usage disagrees on the {path} batch")
+    err = max(max_abs(torch, packed_k[0], packed_p[0]),
+              max_abs(torch, packed_k[1].view(torch.float32),
+                      packed_p[1].view(torch.float32)),
+              *(max_abs(torch, use_k[k], use_p[k]) for k in use_p))
+
+    def scan_only():
+        # a fresh carry for each run; only the scan is timed
+        carry, _ = port.kb._carry_setup(usage, pb)
+        return lambda: gk._gang_scan_cuda(node_cfg, pb, gt, carry, nom,
+                                          mates)
+    runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
+    ms = sum(runs[1:]) / 2   # the first run pays the library load
+    N, R = node_cfg["alloc"].shape
+    P = pb["seq"].shape[0]
+    T = gt["pod_idx"].shape[0]
+    entries = int((gt["pod_idx"] >= 0).sum())
+    placed = int((packed_k[0] >= 0).sum())
+    units = int(gt["start"][gt["pod_idx"] >= 0].sum())
+    gated = 0
+    if "need" in gt:
+        gated = int((gt["start"] & (gt["entry_dom_idx"] >= 0)
+                     & (gt["pin_dom"] < 0) & (gt["need"] > 0)
+                     & (gt["pod_idx"] >= 0)).sum())
+    rejected = int(((packed_k[0] < 0) & pb["active"]).sum())
+    bytes_ = nbytes(*node_cfg.values(), *usage.values(), pb["req"],
+                    pb["nonzero_req"], pb["mem_pressure_blocked"],
+                    pb["mask_idx"], pb["score_idx"], pb["seq"],
+                    pb["active"], pb["unique_masks"], pb["unique_scores"],
+                    pb["resource_weights"], *gt.values(), packed_k,
+                    *use_k.values())
+    # per (entry, row), as pod_scan_row counts the step: fits 2R + 2, the
+    # domain mask 3, the resource score ~25, the select, the tie penalty
+    # and the argmax compare 5; with the overlay the 2R + 2 folds; per
+    # placing member the R + 3 usage adds; per gated gang start, at every
+    # row, R subtractions, divisions, floors and minima and the slot
+    # count, its clamp and the domain sum (4R + 6)
+    per_row = 2 * R + 2 + 3 + 25 + 5
+    if nom is not None:
+        bytes_ += nbytes(*nom.values(), pb["nom_row"])
+        per_row += 2 * R + 2
+    ops = entries * N * per_row + placed * (R + 3) + gated * N * (4 * R + 6)
+    b = bound(bytes_, ops)
+    return {"name": name, "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/gang_scan.cu + pod.cuh",
+            "replaces": "kubernetes_tpu/scheduler/kernels/gang.py:93",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "match": True,
+            "bytes": bytes_, "ops": ops,
+            "shape": f"T={T} ({entries} entries, {units} units, {gated} "
+                     f"gated gang starts, {placed} placed) P={P} N={N} "
+                     f"R={R} ({path} batch)",
+            "rejected_pods": rejected}
+
+
+def gang_singleton_replay(port, rec):
+    """K9 on the uniform path's first batch as singletons in pod order
+    (class tables dropped) against K7 pod_scan on the same batch: the same
+    assign and the same score bits on every active pod (gang.py :30-33);
+    a pad's score is NEG in the gang scan, which never scans a pad."""
+    torch, kb, gk = port.torch, port.kb, port.gk
+    node_cfg, usage, pb, _ = rec.scan_inputs["uniform"]
+    cpb = classic_batch(kb, pb)
+    gt = gang_table_of_singletons(torch, cpb)
+    packed_g, use_g = gk.gang_schedule_packed(node_cfg, usage, cpb, gt)
+    packed_c, use_c = kb.schedule_batch_packed(node_cfg, usage, cpb)
+    torch.cuda.synchronize()
+    active = cpb["active"]
+    if not torch.equal(packed_g[0], packed_c[0]):
+        n = int((packed_g[0] != packed_c[0]).sum())
+        fail(f"K9 on the uniform batch as singletons assigns {n} pods "
+             "unlike K7")
+    if not torch.equal(packed_g[1][active], packed_c[1][active]):
+        fail("K9 on the uniform batch as singletons scores active pods "
+             "unlike K7")
+    for k in ("used", "nonzero_used", "pod_count"):
+        if not bits_equal(torch, use_g[k], use_c[k]):
+            fail(f"K9 on the uniform batch as singletons ends with {k} "
+                 "unlike K7")
+    return {"pods": int(active.sum()),
+            "placed": int((packed_g[0] >= 0).sum())}
+
+
+def gang_mates_replay(port, rec, entries=MATES_REPLAY_ENTRIES):
+    """K9 with the nominated overlay and the own-gang exemption (the
+    instance the gang-preemption path launches, there on batches of one
+    gang) on the gang path's largest batch cut to its first `entries`
+    entries (whole units), at the path's full width: the members of the
+    gangs among every fourth unit hold reservations, two to a node, so
+    those gangs read the overlay less their own reservations and every
+    other unit reads them. Held against the plain version on the card
+    (packed results and usage bits)."""
+    import numpy as np
+    torch, gk = port.torch, port.gk
+    node_cfg, usage, pb, gt, _, _ = rec.gang_inputs[("gang",
+                                                     "gang_scan_cap")]
+    end = gt["end"].cpu().numpy()
+    cut = int(np.flatnonzero(end[entries - 1:])[0]) + entries
+    g = {k: (v if k == "dom_tab" else v[:cut]) for k, v in gt.items()}
+    pod_idx = g["pod_idx"].cpu().numpy()
+    gid = g["gang_id"].cpu().numpy()
+    N, R = node_cfg["alloc"].shape
+    n_nodes = int(node_cfg["valid"].sum())
+    rng = np.random.default_rng(0)
+    nom_row = np.full((pb["seq"].shape[0],), -1, np.int32)
+    used = np.zeros((N, R), np.float32)
+    count = np.zeros((N,), np.float32)
+    req = pb["req"].cpu().numpy()
+    units = sorted(set(int(x) for x in gid[pod_idx >= 0]))
+    nominated = 0
+    for u in units[::4]:
+        members = pod_idx[(gid == u) & (pod_idx >= 0)]
+        if len(members) < 2:
+            continue
+        for j, i in enumerate(members):
+            if j % 2 == 0:
+                r = int(rng.integers(0, n_nodes))
+            nom_row[i] = r
+            used[r] += req[i]
+            count[r] += 1.0
+            nominated += 1
+    dev = pb["seq"].device
+    pbn = dict(pb, nom_row=torch.tensor(nom_row, device=dev))
+    nom = {"used": torch.tensor(used, device=dev),
+           "count": torch.tensor(count, device=dev)}
+    packed_k, use_k = gk.gang_schedule_packed(node_cfg, usage, pbn, g, nom,
+                                              exempt_mates=True)
+    ms = time_cuda(torch, lambda: gk.gang_schedule_packed(
+        node_cfg, usage, pbn, g, nom, exempt_mates=True), reps=2, warm=0)
+    with PlainOnCard(port):
+        plain_ms, (packed_p, use_p) = time_host(
+            torch, lambda: gk.gang_schedule_packed(node_cfg, usage, pbn, g,
+                                                   nom, exempt_mates=True))
+    if not torch.equal(packed_k, packed_p):
+        fail("K9 gang_scan_cap_nom with exempt mates disagrees with its "
+             f"plain version on the gang batch's first {cut} entries "
+             f"({int((packed_k != packed_p).sum())} packed entries)")
+    if not all(bits_equal(torch, use_k[k], use_p[k]) for k in use_p):
+        fail("K9 gang_scan_cap_nom with exempt mates: committed usage "
+             "disagrees")
+    return {"entries": cut, "units": len(units),
+            "nominated_members": nominated,
+            "placed": int((packed_k[0] >= 0).sum()), "ms": ms,
+            "plain_ms": plain_ms, "equal": True}
+
+
+def domains_vectorized(torch, a):
+    """price_domains as one plain PyTorch expression (torch.cumsum and
+    whole-tensor reductions, no loop over the units): the yardstick
+    beside K11, timed, not held bit for bit."""
+    (base, need, dslots, valid, pdb, top, psum, gcnt, startr,
+     row_valid) = a
+    U = valid.shape[1]
+    cums = base[:, None] + torch.cumsum(torch.where(valid, dslots, 0.0), 1)
+    fit0 = base >= need
+    fitk = (cums >= need) & valid
+    kidx = fitk.to(torch.int32).argmax(1)
+    feasible = (fitk.any(1) | fit0) & row_valid
+    chosen = valid & (torch.arange(U, device=valid.device)[None, :]
+                      <= kidx[:, None]) & (~fit0)[:, None] \
+        & feasible[:, None]
+    nviol = (chosen & pdb).sum(1)
+    topv = torch.where(chosen, top, -2**31).amax(1)
+    psumv = torch.where(chosen, psum, 0.0).sum(1)
+    cntv = torch.where(chosen, gcnt, 0).sum(1)
+    startv = torch.where(chosen & (top == topv[:, None]), startr, -1).amax(1)
+    m = feasible
+    for vals in (nviol, topv, psumv, cntv, -startv):
+        big = float("inf") if vals.dtype == torch.float32 else 2**31 - 1
+        m = m & (vals == torch.where(m, vals, big).min())
+    winner = torch.where(m.any(), m.to(torch.int32).argmax(), -1)
+    return winner, chosen, nviol
+
+
+def domains_row(port, rec, launches):
+    """K11 on the gang storm's last decision's inputs: timed beside the
+    plain version and the one-expression yardstick."""
+    torch, pk = port.torch, port.pk
+    if not rec.storm_domains:
+        fail("the gang storm never reached price_domains (K11)")
+    args, _ = rec.storm_domains[-1]
+    got = pk.price_domains(*args)
+    ref = pk.price_domains_plain(*args)
+    torch.cuda.synchronize()
+    if not decisions_equal(torch, got, ref):
+        fail("K11 price_domains disagrees with its plain version")
+    ms = time_cuda(torch, lambda: pk.price_domains(*args), reps=200, warm=5)
+    plain_ms, _ = time_host(torch, lambda: pk.price_domains_plain(*args))
+    # the keyless gang's decision (the storm's first): one row of U units
+    free_args, _ = rec.storm_domains[0]
+    free_ms = time_cuda(torch, lambda: pk.price_domains(*free_args), reps=5,
+                        warm=1)
+    free_plain_ms, _ = time_host(torch,
+                                 lambda: pk.price_domains_plain(*free_args))
+    lib_ms = time_cuda(torch, lambda: domains_vectorized(torch, args),
+                       reps=50, warm=3)
+    D, U = args[2].shape
+    bytes_ = nbytes(*args, *got)
+    # pass 1 walks each domain's units to its first fitting prefix (all U
+    # where none fits): 3 operations a unit; then one cost pass over U
+    # (6 a unit) and five narrowing passes over the rows
+    cums = torch.cumsum(torch.where(args[3], args[2], 0.0), 1) \
+        + args[0][:, None]
+    fitk = (cums >= args[1]) & args[3]
+    walked = int(torch.where(fitk.any(1), fitk.to(torch.int32).argmax(1)
+                             + 1, U).sum())
+    ops = walked * 3 + D * U * 6 + 6 * D
+    b = bound(bytes_, ops)
+    return {"name": "price_domains", "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/price_domains.cu"
+                      " + price.cuh",
+            "replaces": "kubernetes_tpu/scheduler/kernels/preempt.py:581",
+            "launches": launches["price_domains"], "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms, "match": True,
+            "library_call": "the plain expression with torch.cumsum and "
+                            "whole-tensor reductions (no one library call "
+                            "prices domains)",
+            "bytes": bytes_, "ops": ops,
+            "shape": f"D={D} U={U} ({int(args[9].sum())} domain rows, gang "
+                     "storm's last decision)",
+            "keyless_ms": free_ms, "keyless_plain_ms": free_plain_ms,
+            "keyless_shape": list(free_args[2].shape)}
+
+
+def feasible_row(port, rec, launches):
+    """K10 on the gang-feasible path's inputs (K8's mask of the gang
+    batch, the batch's gangs): timed beside the plain version and the
+    PyTorch expression fits.any(1), gather, .all(1)."""
+    torch, gk = port.torch, port.gk
+    fits, members = rec.feasible_inputs
+    got = gk.gang_feasible(fits, members)
+    plain_ms, want = time_host(torch, lambda: gk.gang_feasible_plain(
+        fits, members))
+    if not torch.equal(got, want):
+        fail("K10 gang_feasible disagrees with its plain version")
+    ms = time_cuda(torch, lambda: gk.gang_feasible(fits, members), reps=50,
+                   warm=3)
+    lib_ms = time_cuda(torch, lambda: (
+        fits.any(1)[members.clamp_min(0).long()] | (members < 0)).all(1),
+                       reps=50, warm=3)
+    P, N = fits.shape
+    G, M = members.shape
+    bytes_ = nbytes(fits, members, got)
+    b = bound(bytes_, P * N + 2 * G * M)
+    return {"name": "gang_feasible", "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/gang_feasible.cu",
+            "replaces": "kubernetes_tpu/scheduler/kernels/gang.py:75",
+            "launches": launches["gang_feasible"], "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms, "match": True,
+            "library_call": "(fits.any(1)[members] | members < 0).all(1), "
+                            "one expression of four calls",
+            "bytes": bytes_, "ops": P * N + 2 * G * M,
+            "feasible_gangs": int(got.sum()),
+            "shape": f"P={P} N={N} G={G} M={M} (gang batch)"}
+
+
+def verify_domains(port, log, label):
+    """Every K11 decision kept in `log` against price_domains_plain on the
+    same inputs; returns the number held."""
+    torch, pk = port.torch, port.pk
+    bad = sum(not decisions_equal(torch, got, pk.price_domains_plain(*args))
+              for args, got in log)
+    torch.cuda.synchronize()
+    if bad or not log:
+        fail(f"{label}: {bad} of {len(log)} K11 decisions differ from "
+             "price_domains_plain (or none was priced)")
+    return len(log)
+
+
 def verify_nom_launches(port, rec):
     """Every nominated scan launch kept on the nominated and preemption
     paths, held against the plain versions on the same inputs. Returns
@@ -1330,6 +1996,16 @@ def main() -> None:
     kb = port.kb
     dev = torch.device("cuda")
 
+    #: (label, seconds since the previous lap) of the script's phases
+    laps = []
+    t_lap = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        laps.append((label, round(now - t_lap[0], 1)))
+        t_lap[0] = now
+    lap("build")
+
     # ---- main paths: counts zeroed just before each, read just after
     rec = Recorder(port)
     per_path = {}
@@ -1341,11 +2017,13 @@ def main() -> None:
             sched, pods, res, wall = run_drain(
                 port, variant, dev, N_NODES, N_PODS, BATCH, chain)
             per_path[variant] = port.launches()
+            lap(variant)
             drains[variant] = (sched, pods, res, wall)
         rec.variant = "scheduler"
         port.reset_launches()
         sp = run_scheduler_drain(port, dev, N_NODES, N_PODS, BATCH)
         per_path["scheduler"] = port.launches()
+        lap("scheduler")
         aff = {}
         for path, (variant, n_nodes, n_pods) in SCHED_PATHS.items():
             rec.variant = path
@@ -1353,6 +2031,7 @@ def main() -> None:
             aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
                                             BATCH, variant)
             per_path[path] = port.launches()
+            lap(path)
         # the classic per-pod route (K7) over the same clusters
         with env_set("KTPU_CLASS_SCAN", "0"):
             for path, (variant, chain) in CLASSIC_DRAINS.items():
@@ -1361,27 +2040,55 @@ def main() -> None:
                 drains[path] = run_drain(port, variant, dev, N_NODES, N_PODS,
                                          BATCH, chain)
                 per_path[path] = port.launches()
+                lap(path)
             for path, (variant, n_nodes, n_pods) in CLASSIC_SCHED.items():
                 rec.variant = path
                 port.reset_launches()
                 aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
                                                 BATCH, variant)
                 per_path[path] = port.launches()
+                lap(path)
         rec.variant = "storm"
         rec.price_log = rec.storm_price
         port.reset_launches()
         storm = run_storm(port, dev, STORM_NODES, STORM_PODS, True)
         per_path["storm"] = port.launches()
+        lap("storm")
         rec.price_log = None
         rec.variant = "preemption"
         port.reset_launches()
         loop = run_preemption_loop(port, dev, STORM_NODES, STORM_PODS, BATCH)
         per_path["preemption"] = port.launches()
+        lap("preemption")
+        # gangs: BASELINE.json config 5, the gang storm, the gang loop
+        rec.variant = "gang"
+        port.reset_launches()
+        gang = run_gang_drain(port, dev, GANG_NODES, GANG_PODS,
+                              GANG_SLICE_GANGS, GANG_PLAIN_GANGS, BATCH)
+        per_path["gang"] = port.launches()
+        lap("gang")
+        rec.variant = "gang-storm"
+        rec.domain_log = rec.storm_domains
+        port.reset_launches()
+        gstorm = run_gang_storm(port, dev, STORM_NODES, GANG_STORM_REPEATS,
+                                GANG_STORM_KEYLESS)
+        per_path["gang-storm"] = port.launches()
+        lap("gang-storm")
+        storm_tables_s = list(rec.domain_tables_s)
+        rec.variant = "gang-preemption"
+        rec.domain_log = rec.loop_domains
+        port.reset_launches()
+        gloop = run_gang_preemption(port, dev, STORM_NODES,
+                                    GANG_PREEMPT_GANGS, BATCH)
+        per_path["gang-preemption"] = port.launches()
+        lap("gang-preemption")
+        rec.domain_log = None
     # the serial control: no kernel prices it
     port.reset_launches()
     serial = run_storm(port, dev, STORM_NODES, STORM_PODS, False)
     if port.launches()["price_nodes"]:
         fail("the serial storm (KTPU_PREEMPT_KERNEL=0) launched K6")
+    lap("serial storm")
     # filter_score, the [P, N] entry point, on the uniform and spread
     # paths' first batches (no scheduler route calls it)
     port.reset_launches()
@@ -1392,6 +2099,22 @@ def main() -> None:
             fail(f"filter_score: no pod fits anywhere on the {path} batch")
         del fits
     per_path["filter"] = port.launches()
+    lap("filter")
+    # gang_feasible (K10), the per-gang reduction of K8's mask, on the gang
+    # path's largest batch (no scheduler route calls it)
+    if ("gang", "gang_scan_cap") not in rec.gang_inputs:
+        fail("the gang path never launched gang_scan_cap")
+    node_cfg, usage, pb, gt = rec.gang_inputs[("gang", "gang_scan_cap")][:4]
+    port.reset_launches()
+    fits, _ = port.filter_score(node_cfg, usage, pb)
+    members = gang_members_table(torch, gt)
+    feasible = port.gk.gang_feasible(fits, members)
+    per_path["gang-feasible"] = port.launches()
+    lap("gang-feasible")
+    rec.feasible_inputs = (fits, members)
+    if not bool(feasible.all()):
+        fail(f"gang-feasible: {int((~feasible).sum())} gangs of the "
+             "batch fit nowhere")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             if per_path[path][k] == 0:
@@ -1540,6 +2263,96 @@ def main() -> None:
           f"kernel calls {busy} ms of {wall * 1e3} ms wall, idle share "
           f"{1 - busy / (wall * 1e3)} {tag}")
 
+    # ---- the gang drain (BASELINE.json config 5)
+    if gang["bound"] != GANG_PODS:
+        fail(f"gang: drain bound {gang['bound']} of {GANG_PODS}")
+    check_capacity(port, "gang", GANG_NODES, gang["pods"], gang["binds"])
+    check_gangs(port, "gang", GANG_NODES, gang["pods"], gang["binds"],
+                gang["groups"])
+    lat = [t * 1e3 for t in gang["latency"]]
+    busy = sum(a.elapsed_time(b) for v, a, b in rec.events if v == "gang")
+    wall = gang["wall"]
+    print(f"main path: gang drain_pipelined of {GANG_PODS} pods "
+          f"({GANG_SLICE_GANGS} PodGroups of 8 on one tpu/slice, "
+          f"{GANG_PLAIN_GANGS} of 4, the rest singletons) onto {GANG_NODES} "
+          f"nodes in {GANG_NODES // 8} slices, batches of {BATCH}, commit "
+          f"thread {'on' if gang['commit_thread'] else 'off'}: all bound in "
+          f"the store, every PodGroup whole, every slice gang in one slice, "
+          f"capacity held; {wall} s = {GANG_PODS / wall} pods/s; batch "
+          f"latency (launch to committed) p50 {pct(lat, 0.5)} ms p99 "
+          f"{pct(lat, 0.99)} ms over {len(lat)} batches; gangs admitted/"
+          f"rejected {gang['gangs']}; launches {per_path['gang']}; host "
+          f"phases (s): launch {gang['phases']['launch']} finish "
+          f"{gang['phases']['finish']} commit {gang['phases']['commit']}, "
+          f"inside them {gang['phase_stats']}; cluster set-up "
+          f"{gang['setup_s']} s; device busy in the kernel calls {busy} ms "
+          f"of {wall * 1e3} ms wall, idle share {1 - busy / (wall * 1e3)} "
+          f"{tag}")
+    print(f"gang-feasible: K8 + K10 on the gang path's largest batch: "
+          f"{int(feasible.sum())} of {members.shape[0]} gangs feasible; "
+          f"launches {per_path['gang-feasible']}")
+    # ---- the gang storm: every K11 decision against the plain version
+    held = verify_domains(port, rec.storm_domains, "gang-storm")
+    plans = [p for p in gstorm["plans"] if p is not None]
+    free = [p for p in gstorm["keyless_plans"] if p is not None]
+    if len(plans) != GANG_STORM_REPEATS or len(free) != GANG_STORM_KEYLESS \
+            or held != GANG_STORM_REPEATS + GANG_STORM_KEYLESS:
+        fail(f"gang-storm: {len(plans)} + {len(free)} plans, {held} "
+             f"decisions for {GANG_STORM_REPEATS} + {GANG_STORM_KEYLESS} "
+             "calls")
+    if any(p != plans[0] for p in plans) or any(p != free[0] for p in free):
+        fail("gang-storm: the repeated decision changed between repeats")
+    free_shape = tuple(rec.storm_domains[0][0][2].shape)
+    if free_shape[0] != 1 or free_shape[1] <= 1024 or free[0][0] != "":
+        fail(f"gang-storm: the keyless gang priced [D, U] = "
+             f"{list(free_shape)} in domain {free[0][0]!r}, not the whole "
+             "cluster in one row")
+    shape = tuple(rec.storm_domains[-1][0][2].shape)
+    free_tables_s = storm_tables_s[:GANG_STORM_KEYLESS]
+    keyed_tables_s = storm_tables_s[GANG_STORM_KEYLESS:]
+    busy = sum(a.elapsed_time(b) for v, a, b in rec.events
+               if v == "gang-storm")
+    print(f"main path: gang-storm of {GANG_STORM_REPEATS} "
+          f"BatchScheduler.preempt_gang calls (8 members of 2 CPU / 3Gi at "
+          f"priority {PREEMPTOR_PRIORITY}, minMember 8, tpu/slice) on "
+          f"{STORM_NODES} nodes ({3 * STORM_NODES} bound victims): "
+          f"{len(plans)} plans, each choosing slice {plans[0][0]} and "
+          f"evicting {len(plans[0][1])} victims with {plans[0][3]} PDB "
+          f"violations, "
+          f"in {gstorm['elapsed']} s = {len(plans) / gstorm['elapsed']} "
+          f"plans/s; K11 over [D, U] = {list(shape)}, all {held} decisions "
+          f"equal to price_domains_plain on the card, device busy in K11 "
+          f"{busy} ms; build_domain_tables (host) "
+          f"{sum(keyed_tables_s) / max(len(keyed_tables_s), 1)} s a call; "
+          f"before them {len(free)} calls for a gang of 8 with no topology "
+          f"key: the whole cluster one row, K11 over [D, U] = "
+          f"{list(free_shape)}, each evicting {len(free[0][1])} victims "
+          f"across {len({n for _, n in free[0][2]})} nodes, "
+          f"{gstorm['keyless_s'] / len(free)} s a plan, of which "
+          f"build_domain_tables {sum(free_tables_s) / len(free_tables_s)} s;"
+          f" "
+          f"launches {per_path['gang-storm']} {tag}")
+    # ---- the gang-preemption loop
+    check_gang_preemption(port, "gang-preemption", gloop, STORM_NODES,
+                          GANG_PREEMPT_GANGS)
+    held = verify_domains(port, rec.loop_domains, "gang-preemption")
+    busy = sum(a.elapsed_time(b) for v, a, b in rec.events
+               if v == "gang-preemption")
+    wall = gloop["wall"]
+    print(f"main path: gang-preemption of {GANG_PREEMPT_GANGS} gangs of 8 "
+          f"arriving one after another on the storm cluster ({STORM_NODES}"
+          f" nodes through the Client with the PDB): every gang bound whole "
+          f"in one slice, capacity held, {len(gloop['evicted'])} victims "
+          f"evicted, all below priority {PREEMPTOR_PRIORITY}, no victim "
+          f"PodGroup split, preemption_attempts {gloop['attempts']} = plans "
+          f"made, {held} K11 decisions equal to price_domains_plain; {wall} "
+          f"s; cluster set-up {gloop['setup_s']} s; launches "
+          f"{per_path['gang-preemption']}; phase stats "
+          f"{gloop['sched'].algorithm.phase_stats}; device busy in the "
+          f"kernel calls {busy} ms of {wall * 1e3} ms wall, idle share "
+          f"{1 - busy / (wall * 1e3)} {tag}")
+
+    lap("checks of the main paths")
     # ---- kernel phase (on the main path's own inputs)
     rows = kernel_phase(port, rec, launches)
     for r in rows:
@@ -1551,6 +2364,7 @@ def main() -> None:
               f"{r['bound_by']}); {r['launches']} launches on the main "
               f"path {tag}")
 
+    lap("kernel phase")
     # ---- the same drains with the plain versions on the card
     for variant, chain in (("uniform", True), ("spread", False)):
         port.reset_launches()
@@ -1582,6 +2396,10 @@ def main() -> None:
         print(f"plain versions on the card: {path} drain binds equal the "
               f"kernels' ({pr['wall']} s) {tag}")
 
+    # the gang drain with the plain versions: its largest (first) batch,
+    # held in gang_row above, to keep the script inside its time
+
+    lap("plain drains")
     # ---- small drain: card against CPU
     for variant in ("uniform", "spread"):
         _, _, gres, _ = run_drain(port, variant, dev, SMALL_NODES,
@@ -1654,6 +2472,34 @@ def main() -> None:
           f" tenants, {SMALL_NODES} nodes, batches of {SMALL_BATCH}, "
           "KTPU_CLASS_SCAN=0, KTPU_COMMIT_THREAD=0): card equals CPU, binds")
 
+    # ---- small gang drain and gang-preemption loop: card against CPU,
+    # commit stage inline
+    with env_set("KTPU_COMMIT_THREAD", "0"):
+        small = [run_gang_drain(port, d, *SMALL_GANG, SMALL_BATCH)
+                 for d in (dev, "cpu")]
+    g, c = small
+    if g["bound"] != SMALL_GANG[1] or g["binds"] != c["binds"]:
+        fail("small gang drain: the card's binds differ from the CPU's")
+    check_gangs(port, "small gang drain", SMALL_GANG[0], g["pods"],
+                g["binds"], g["groups"])
+    with env_set("KTPU_COMMIT_THREAD", "0"):
+        small = [run_gang_preemption(port, d, *SMALL_GANG_PREEMPT,
+                                     SMALL_BATCH) for d in (dev, "cpu")]
+    for r, d in zip(small, ("card", "CPU")):
+        check_gang_preemption(port, f"small gang-preemption ({d})", r,
+                              *SMALL_GANG_PREEMPT)
+    g, c = small
+    for key in ("binds", "evicted", "nominated", "attempts", "evictions"):
+        if g[key] != c[key]:
+            fail(f"small gang-preemption loop: the card's {key} differ "
+                 "from the CPU's")
+    print(f"small gang drain ({SMALL_GANG[1]} pods, {SMALL_GANG[0]} nodes) "
+          f"and gang-preemption loop ({SMALL_GANG_PREEMPT[1]} gangs, "
+          f"{SMALL_GANG_PREEMPT[0]} nodes), KTPU_COMMIT_THREAD=0: card "
+          "equals CPU, binds (and evicted victims and nominations)")
+
+    lap("small drains")
+    print(f"script phases (s): {laps}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,16 @@
 The JAX package holds its state as numpy arrays before upload: the mirror's
 TensorMirror.t.cfg_arrays() / usage_arrays() and a PodBatchTensors batch's
 fields (its device() dict under the same keys, with the class tables for
-the class route or without them for the classic per-pod route and
-filter_score), the victim-pricing tables
-of kernels/preempt.py (VictimTables.arrays) and the nominated
-reservations ({used, count}). tables_from_numpy, victim_tables_from_numpy
-and nom_from_numpy turn such dicts into torch tensors on one device with
-the same keys, shapes, dtypes (float32 / int32 / bool) and padding, so the
-two packages can be fed identical state. It is the port's stand-in for
-loading weights.
+the class route or without them for the classic per-pod route, the gang
+scan and filter_score), the gang entry stream of core._gang_device_table,
+the victim-pricing tables of kernels/preempt.py (VictimTables.arrays and
+the whole-gang DomainTables.arrays) and the nominated reservations
+({used, count}). tables_from_numpy, gang_table_from_numpy,
+victim_tables_from_numpy, domain_tables_from_numpy and nom_from_numpy
+turn such dicts into torch tensors on one device with the same keys,
+shapes, dtypes (float32 / int32 / bool) and padding, so the two packages
+can be fed identical state. It is the port's stand-in for loading
+weights.
 """
 
 from __future__ import annotations
@@ -59,6 +61,22 @@ def victim_tables_from_numpy(arrays: dict, device="cpu"
     """VictimTables.arrays (free0, cfree0, need, need_cnt, freed, fcnt,
     valid, pdb, top, psum, gcnt, startr, row_valid) -> the same dict of
     tensors on `device`; need_cnt becomes a 0-d float32 tensor."""
+    return _convert(arrays, torch.device(device))
+
+
+def gang_table_from_numpy(gang_tab: dict, device="cpu"
+                          ) -> Dict[str, torch.Tensor]:
+    """The gang entry stream (pod_idx, start, end, gang_id, entry_dom_idx,
+    pin_dom, dom_tab, and the capacity gate's need / greq when present)
+    -> the same dict of tensors on `device`."""
+    return _convert(gang_tab, torch.device(device))
+
+
+def domain_tables_from_numpy(arrays: dict, device="cpu"
+                             ) -> Dict[str, torch.Tensor]:
+    """DomainTables.arrays (base, need, dslots, valid, pdb, top, psum,
+    gcnt, startr, row_valid) -> the same dict of tensors on `device`;
+    need becomes a 0-d float32 tensor."""
     return _convert(arrays, torch.device(device))
 
 

@@ -30,24 +30,36 @@ struct KtpuPod {
 // row subtracts 0.0, which is exact. Without the overlay (nom_r null) the
 // usage is read as it is (the reference adds and subtracts zeros).
 // `mask` is the pod's static mask at the row.
-__device__ __forceinline__ bool ktpu_pod_fits(
+//
+// ktpu_pod_fits_ex takes the exemption as a row of its own: `ex_r` [R]
+// and `ex_cnt` are what the row's reservations less (null: 0.0). The gang
+// scan passes its unit's reservations there (gang_scan.cu).
+__device__ __forceinline__ bool ktpu_pod_fits_ex(
     const KtpuNodeCfg& cfg, int r, int R, const KtpuPod& pod, bool mask,
     const float* used_r, const float* nom_r, float cnt, float nom_cnt,
-    bool self) {
+    const float* ex_r, float ex_cnt) {
   if (!(mask && cfg.node_ok[r] && cfg.valid[r])) return false;
   if (pod.blocked && cfg.mem_pressure[r]) return false;
   float c = cnt;
-  if (nom_r != nullptr)
-    c = __fsub_rn(__fadd_rn(cnt, nom_cnt), self ? 1.0f : 0.0f);
+  if (nom_r != nullptr) c = __fsub_rn(__fadd_rn(cnt, nom_cnt), ex_cnt);
   if (!(__fadd_rn(c, 1.0f) <= cfg.max_pods[r])) return false;
   const float* alloc_r = cfg.alloc + (size_t)r * R;
   for (int j = 0; j < R; ++j) {
     float eff = used_r[j];
     if (nom_r != nullptr)
-      eff = __fsub_rn(__fadd_rn(eff, nom_r[j]), self ? pod.req[j] : 0.0f);
+      eff = __fsub_rn(__fadd_rn(eff, nom_r[j]),
+                      ex_r != nullptr ? ex_r[j] : 0.0f);
     if (!(__fadd_rn(pod.req[j], eff) <= alloc_r[j])) return false;
   }
   return true;
+}
+
+__device__ __forceinline__ bool ktpu_pod_fits(
+    const KtpuNodeCfg& cfg, int r, int R, const KtpuPod& pod, bool mask,
+    const float* used_r, const float* nom_r, float cnt, float nom_cnt,
+    bool self) {
+  return ktpu_pod_fits_ex(cfg, r, R, pod, mask, used_r, nom_r, cnt, nom_cnt,
+                          self ? pod.req : nullptr, self ? 1.0f : 0.0f);
 }
 
 // _pod_score at row r: rw0 LeastRequested + rw1 BalancedAllocation over

@@ -5,15 +5,15 @@ PyTorch and CUDA.
                 DRF order (tenancy/) -> batch -> assume -> bind, with
                 schedule_pending and the pipelined drain (drain_pipelined)
   core.py       BatchScheduler: the class-scan batch (kernels K1-K3),
-                the classic per-pod scan (K7, KTPU_CLASS_SCAN=0) and
-                preemption (K6)
+                the classic per-pod scan (K7, KTPU_CLASS_SCAN=0), the
+                all-or-nothing gang scan (K9) and preemption, single-pod
+                (K6) and whole-gang over ICI domains (K11)
   queue.py      SchedulingQueue (copy), gang.py the host-side gang gate
   drain.py      the single-threaded chained drain, the smallest caller
                 of the chained launch
 
-Not ported yet (ROADMAP): the gang kernels and whole-gang preemption,
-the affinity-mask device route, speculative cohorts and the sharded
-scan; those routes raise NotImplementedError.
+Not ported yet (ROADMAP): the affinity-mask device route, speculative
+cohorts and the sharded scan; those routes raise NotImplementedError.
 """
 
 from .cache import Cache, Snapshot

@@ -16,11 +16,18 @@ a whole batch:
                                instance)
     -> [(pod, node_name | None)]
 
+A batch that carries a PodGroup member takes the all-or-nothing gang
+scan instead (kernels/gang.py, K9): its placement units flattened into an
+entry stream (_gang_device_table), no in-scan spread or topology tables,
+no serial reassignment in repair, and gang atomicity enforced after it.
+
 `preempt` prices a pod that failed the scan against every candidate
 node's lower-priority victims at once (kernels/preempt.py build_victim_
 tables on the host, K6 price_nodes on the card) and returns the plan the
 scheduler loop nominates and evicts by; KTPU_PREEMPT_KERNEL=0 keeps the
 reference's serial reprieve search (preemption.py) as the control.
+`preempt_gang` prices a parked gang over every ICI domain at once
+(build_domain_tables on the host, K11 price_domains on the card).
 
 `schedule_launch` / `schedule_finish` split a batch so a drain can chain
 the next batch on the previous one's post-batch usage, still on the card.
@@ -33,10 +40,9 @@ here: soft_batch_limit and topo_scan_likely (drain sub-chunking) and
 explain / FitError (failure diagnosis).
 
 Routes outside the ported slices raise NotImplementedError at the point
-where they would reach an unported kernel: gang batches, whole-gang
-preemption (preempt_gang), speculative cohorts and the sharded mesh
-(ROADMAP). KTPU_CLASS_SCAN=0 routes batches to the classic per-pod scan
-(K7), the reference's parity control of the class route.
+where they would reach an unported kernel: speculative cohorts and the
+sharded mesh (ROADMAP). KTPU_CLASS_SCAN=0 routes batches to the classic
+per-pod scan (K7), the reference's parity control of the class route.
 """
 
 from __future__ import annotations
@@ -141,6 +147,10 @@ class PendingBatch:
     #: the same for the in-scan soft credit tables (channel + template
     #: order; see _assign_soft_terms)
     soft_sig: Optional[Tuple] = None
+    #: gang placement units [(pod indices, topology key, is_gang, pin)]
+    #: when the batch went through the gang kernel; schedule_finish uses
+    #: them to demote whole gangs when repair invalidates any member
+    gang_units: Optional[list] = None
 
 
 class _RepairReassigner:
@@ -330,8 +340,8 @@ class BatchScheduler:
         self._seq_base = 0  # selectHost round-robin state across batches
         # True while host-computed static scores contribute (chain pre-check)
         self._static_likely = False
-        #: gang.GangManager; a batch carrying PodGroup members would route
-        #: to the all-or-nothing kernel (not ported: raises)
+        #: gang.GangManager; a batch carrying PodGroup members routes to
+        #: the all-or-nothing kernel (kernels/gang.py, K9)
         self.gang = None
         #: tenancy.DRFAccount, installed by the scheduler shell: the
         #: preemption kernel folds its over-share ranks into the victim
@@ -1418,16 +1428,19 @@ class BatchScheduler:
             and self.tracer.enabled else None
         t_tz = tr.now() if tr is not None else 0.0
         t_prep = _time.perf_counter()
-        if self.gang is not None and self.gang.batch_groups(pods) is not None:
-            raise NotImplementedError(
-                "BatchScheduler: gang batches route to the all-or-nothing "
-                "kernel, which is not ported yet (ROADMAP: gang kernels)")
         extra_mask, profiles, extra_group = self._residual_mask(pods)
         residual_free = extra_mask is None and not any(
             helpers.pod_host_ports(p) or _pod_has_conflict_volumes(p)
             for p in pods)
         affinity_chainable = affinity_only and not any(
             helpers.pod_host_ports(p) for p in pods)
+        #: gang units present -> the all-or-nothing kernel decides this
+        #: batch. Gang batches CHAIN like singleton batches: the kernel's
+        #: trial/commit carry isolates uncommitted (rejected-gang) state,
+        #: so its post-batch usage is exactly committed-gang placements —
+        #: each of which the commit path assumes (bind or reservation)
+        gang_units = self.gang.batch_groups(pods) \
+            if self.gang is not None else None
         batch = PodBatchTensors(pods, self.mirror, self.terms,
                                 extra_mask=extra_mask,
                                 extra_group=extra_group,
@@ -1436,8 +1449,16 @@ class BatchScheduler:
         w = self.scorer.weights
         batch.resource_weights[0] = w.get("LeastRequestedPriority", 1)
         batch.resource_weights[1] = w.get("BalancedResourceAllocation", 1)
-        spread_sig = self._assign_spread_groups(pods, batch)
-        topo_cover = self._assign_topology_terms(pods, batch, profiles)
+        # gang batches skip the in-scan spread/topology tables — the
+        # gang kernel's trial/commit scan does not carry them; repair
+        # (with whole-gang demotion) validates affinity interactions.
+        # Soft credit tables and the nominated reservations ride both
+        # kernels.
+        spread_sig = None
+        topo_cover = "fallback"
+        if gang_units is None:
+            spread_sig = self._assign_spread_groups(pods, batch)
+            topo_cover = self._assign_topology_terms(pods, batch, profiles)
         soft_sig = self._assign_soft_terms(pods, batch)
         self.phase_stats["term_prep_s"] += _time.perf_counter() - t_prep
         if tr is not None:
@@ -1470,7 +1491,7 @@ class BatchScheduler:
             return None
         if chaining and not self.mirror.device_ready():
             return None  # tensorize grew the column axis; chain handle stale
-        if self.class_scan:
+        if gang_units is None and self.class_scan:
             # the incremental class-indexed scan: per-(template, score-row)
             # masked-score rows, one column refresh per winner (K1 + K2);
             # without the tables the batch takes the classic per-pod scan
@@ -1481,8 +1502,18 @@ class BatchScheduler:
             self.chained_launches += 1
         else:
             node_cfg, usage = self.mirror.device_cfg_usage()
-        packed, new_usage = schedule_batch_packed(
-            node_cfg, usage, batch.device(self.device), nom_dev)
+        if gang_units is not None:
+            from .kernels.gang import gang_schedule_packed
+            # a gang's members do not see their gang-mates' reservations
+            # (their own trial placements take that space); every other
+            # unit still does (ROADMAP Queue C, the reference's overlay)
+            packed, new_usage = gang_schedule_packed(
+                node_cfg, usage, batch.device(self.device),
+                self._gang_device_table(gang_units, batch), nom_dev,
+                exempt_mates=True)
+        else:
+            packed, new_usage = schedule_batch_packed(
+                node_cfg, usage, batch.device(self.device), nom_dev)
         return PendingBatch(pods=pods, profiles=profiles, batch=batch,
                             packed=packed, new_usage=new_usage,
                             residual_free=residual_free,
@@ -1490,6 +1521,7 @@ class BatchScheduler:
                             chained=chaining,
                             usage_epoch=self.mirror.usage_epoch,
                             spread_sig=spread_sig, soft_sig=soft_sig,
+                            gang_units=gang_units,
                             inscan_cover=(affinity_chainable
                                           and topo_cover != "fallback"))
 
@@ -1556,12 +1588,19 @@ class BatchScheduler:
                     r.retry = True
         t1 = _time.perf_counter()
         if not (pending.inscan_cover and not pending.stale_winners):
-            self._repair_batch(out, pending.profiles, pending.stale_winners,
-                               batch=pending.batch)
+            self._repair_batch(
+                out, pending.profiles, pending.stale_winners,
+                # no serial reassignment for gang batches: the reassigner
+                # is blind to the gang's ICI-domain pin, so a "repaired"
+                # member could land outside the slice — demote-and-retry
+                # instead, and atomicity below demotes its gang with it
+                batch=None if pending.gang_units else pending.batch)
         # else: the batch carries no (anti-)affinity interaction and no
         # ports/volumes — the overlay walk would re-prove what the scan
         # decided
         self.phase_stats["repair_s"] += _time.perf_counter() - t1
+        if pending.gang_units:
+            self._enforce_gang_atomicity(out, pending.gang_units)
         if not any(r.retry for r in out):
             # every surviving assignment flows through cache.assume_pod, so
             # the chained usage matches host truth (or gets scatter-repaired).
@@ -1577,6 +1616,95 @@ class BatchScheduler:
                  for k in ("used", "nonzero_used", "pod_count")},
                 epoch=pending.usage_epoch)
         return out
+
+    def _enforce_gang_atomicity(self, results: List[ScheduleResult],
+                                units: list) -> None:
+        """Post-repair all-or-nothing: host repair may demote individual
+        members (ports/affinity/volume conflicts the kernel cannot see); a
+        gang that lost ANY member binds none, and the survivors retry
+        together next cycle. Kernel-level rejections (the whole gang
+        already unassigned) park as unschedulable instead and are counted
+        as rejected."""
+        gm = self.gang
+        for idxs, _tk, is_gang, _pin in units:
+            if not is_gang:
+                continue
+            rs = [results[i] for i in idxs]
+            placed = sum(1 for r in rs if r.node_name is not None)
+            if 0 < placed < len(rs):
+                for r in rs:
+                    r.node_name = None
+                    r.reassigned = False
+                    r.retry = True
+            elif placed == 0 and gm is not None and gm.metrics is not None:
+                gm.metrics.gangs_rejected.inc()
+
+    def _gang_device_table(self, units: list, batch: PodBatchTensors) -> dict:
+        """Flattened gang-entry tensors for kernels/gang.py (entry-stream
+        layout documented there). The entry axis equals the batch's padded
+        pod axis; padding entries are their own empty units. Topology-key
+        domain vectors come from the incremental topology index
+        (TopologyIndex.node_domain_vector)."""
+        P = batch.req.shape[0]
+        N = self.mirror.t.capacity
+        pod_idx = np.full((P,), -1, np.int32)
+        start = np.zeros((P,), bool)
+        end = np.zeros((P,), bool)
+        # pads default to their own (position-numbered) unit ids; real
+        # units use list order, which pad positions can never collide with
+        gang_id = np.arange(P, dtype=np.int32)
+        entry_dom = np.full((P,), -1, np.int32)
+        pin_dom = np.full((P,), -1, np.int32)
+        # capacity-aware domain feasibility inputs: the gang's in-batch
+        # member count and elementwise-max member request, read by the
+        # kernel at each gang's start entry (kernels/gang.py need / greq)
+        need = np.zeros((P,), np.float32)
+        greq = np.zeros((P, batch.req.shape[1]), np.float32)
+        req_np = np.asarray(batch.req)
+        dom_index: Dict[str, int] = {}
+        dom_rows: List[np.ndarray] = []
+        t = 0
+        for u, (idxs, tk, _is_gang, pin) in enumerate(units):
+            d = -1
+            p_id = -1
+            if tk:
+                d = dom_index.get(tk, -1)
+                if d < 0:
+                    d = len(dom_rows)
+                    dom_index[tk] = d
+                    dom_rows.append(self.topology.node_domain_vector(tk)
+                                    [:N].astype(np.int32))
+                if pin is not None:
+                    # the gang's earlier batches reserved in this domain:
+                    # seed the kernel's carry so stragglers only join it.
+                    # Interning handles a value no live node carries (the
+                    # slice vanished) — the id matches nothing and the
+                    # members wait for the permit timeout to clear the pin
+                    p_id = self.topology._dom_id(tk, pin)
+            unit_greq = req_np[idxs].max(axis=0) if idxs else None
+            for j, i in enumerate(idxs):
+                pod_idx[t] = i
+                start[t] = j == 0
+                end[t] = j == len(idxs) - 1
+                gang_id[t] = u
+                entry_dom[t] = d
+                pin_dom[t] = p_id
+                need[t] = len(idxs)
+                greq[t] = unit_greq
+                t += 1
+        start[t:] = True
+        end[t:] = True
+        from .tensorize import _bucket
+        K = _bucket(len(dom_rows), minimum=1)
+        dom_tab = np.full((K, N), -1, np.int32)
+        if dom_rows:
+            dom_tab[:len(dom_rows)] = np.stack(dom_rows)
+        put = self.mirror.put
+        return {"pod_idx": put(pod_idx), "start": put(start),
+                "end": put(end), "gang_id": put(gang_id),
+                "entry_dom_idx": put(entry_dom), "pin_dom": put(pin_dom),
+                "need": put(need), "greq": put(greq),
+                "dom_tab": put(dom_tab)}
 
     def _nominated_device(self) -> Optional[dict]:
         """Aggregated nominated-pod reservations as device tensors
@@ -1818,13 +1946,74 @@ class BatchScheduler:
                 pod, node, self.nominated.pods_for_node(node)))
 
     def preempt_gang(self, members: List[Pod], min_member: int,
-                     topology_key: Optional[str]):
-        """Whole-gang preemption over ICI domains (price_domains): not
-        ported yet."""
-        raise NotImplementedError(
-            "BatchScheduler.preempt_gang: whole-gang preemption prices ICI "
-            "domains with the gang tables, which are not ported yet "
-            "(ROADMAP: gang scheduling)")
+                     topology_key: str):
+        """Whole-gang preemption: price `min_member` member placements
+        against every ICI domain at once (kernels/preempt.py
+        build_domain_tables on the host, K11 price_domains on the card)
+        and return a GangPreemptionPlan — the victims to evict plus a
+        nomination per member spread across the winning domain's freed
+        nodes, so the nominated-reservation overlay shields the whole
+        slice until the gang lands. Pure computation; the shell performs
+        the API writes. Returns None when no domain can ever hold the
+        gang."""
+        if not members or min_member < 1:
+            return None
+        from ..convert import domain_tables_from_numpy
+        from . import preemption as pre
+        from .kernels import preempt as pk
+        self.refresh()
+        infos = self.snapshot.node_infos
+        rep = members[0]
+        t = self.mirror.t
+        vec = (self.terms.tolerations_vector(rep)
+               & self.terms.node_selector_vector(rep)
+               & t.node_ok & t.valid)
+        candidates = []
+        for row in np.nonzero(vec)[0]:
+            name = self.mirror.name_of.get(int(row))
+            ni = infos.get(name) if name else None
+            if ni is None or ni.node is None:
+                continue
+            dom = ni.node.metadata.labels.get(topology_key) \
+                if topology_key else ""
+            if dom is None:
+                continue  # the label is the slice membership card
+            candidates.append((name, ni, dom))
+        pdbs = list(self.pdb_lister())
+        tabs = pk.build_domain_tables(members, candidates, infos, pdbs,
+                                      min_member,
+                                      overshare=self._overshare_ranks())
+        if tabs is None:
+            return None
+        a = domain_tables_from_numpy(tabs.arrays, self.device)
+        winner_d, chosen_d, nviol_d = pk.price_domains(
+            *(a[k] for k in pk.DOMAIN_KEYS))
+        winner = int(winner_d)
+        if winner < 0:
+            return None
+        chosen = chosen_d[winner].cpu().numpy()
+        victims = tabs.expand(winner, chosen)
+        # spread the members over the domain's post-eviction slots in
+        # sorted node order — the nomination layout
+        nominations: List[Tuple[Pod, str]] = []
+        ordered = sorted(members, key=lambda p: p.metadata.key())
+        it = iter(ordered)
+        done = False
+        for node, slots in tabs.node_slots(winner, chosen):
+            for _ in range(slots):
+                m = next(it, None)
+                if m is None:
+                    done = True
+                    break
+                nominations.append((m, node))
+            if done:
+                break
+        if len(nominations) < min(min_member, len(ordered)):
+            return None  # the slot estimate shrank under us; retry later
+        return pre.GangPreemptionPlan(
+            domain=tabs.domains[winner], victims=victims,
+            nominations=nominations,
+            num_pdb_violations=int(nviol_d[winner]))
 
     def _fits_predicates(self, pod: Pod) -> Dict[str, object]:
         """The predicate set a fit check runs (same assembly as the

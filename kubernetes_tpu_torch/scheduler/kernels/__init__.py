@@ -3,6 +3,9 @@ behind wrappers that take the plain PyTorch version on CPU tensors."""
 
 from .batch import (LAUNCHES, apply_dirty, class_ms_init, filter_score,
                     reset_launches, schedule_batch, schedule_batch_packed)
+from .gang import (gang_feasible, gang_schedule_batch,
+                   gang_schedule_packed)
 
 __all__ = ["LAUNCHES", "apply_dirty", "class_ms_init", "filter_score",
+           "gang_feasible", "gang_schedule_batch", "gang_schedule_packed",
            "reset_launches", "schedule_batch", "schedule_batch_packed"]

@@ -33,7 +33,10 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "drf_order": "drf_order.cu",
            "price_nodes": "price_nodes.cu",
            "pod_scan": "pod_scan.cu",
-           "filter_score": "filter_score.cu"}
+           "filter_score": "filter_score.cu",
+           "gang_scan": "gang_scan.cu",
+           "gang_feasible": "gang_feasible.cu",
+           "price_domains": "price_domains.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

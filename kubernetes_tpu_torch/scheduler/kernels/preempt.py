@@ -10,22 +10,29 @@ charges the group's top/sum priority and cluster-wide member count while
 freeing only its on-node resources), with a unit cache keyed by
 NodeInfo.generation, the PDB fingerprint and the over-share ranks.
 
-The device program prices them:
+Whole-gang preemption prices a parked gang over every ICI domain
+instead: build_domain_tables merges each domain's nodes' units into one
+band-ordered [D, U] row, each unit carrying the member slots its eviction
+adds (per-node slot curves), and the fit is minMember slots in one
+domain.
 
-    price_nodes -> K6  csrc/price_nodes.cu   first fitting victim prefix
-                       per row, its cost vector, and the lexicographic
-                       winner (pickOneNodeForPreemption's narrowing)
+The device programs price them:
 
-`price_nodes_plain` is the plain PyTorch version in the JAX op order,
-with the prefix sums and the priority sum written as explicit loops over
-the unit axis (the order K6 adds in), and `price_nodes_reference` the
-numpy oracle of the reference. Dispatch is by tensor device, as in
-kernels/batch.py: a CPU tensor takes the plain version, a CUDA tensor
-launches K6 (a build or launch failure raises). LAUNCHES counts K6's
-launches.
+    price_nodes   -> K6   csrc/price_nodes.cu    first fitting victim
+                          prefix per row, its cost vector, and the
+                          lexicographic winner (pickOneNodeForPreemption's
+                          narrowing)
+    price_domains -> K11  csrc/price_domains.cu  the same over the domain
+                          rows, the fit counted in member slots
 
-Whole-gang pricing over ICI domains (price_domains and its tables) needs
-the gang tables and is not ported yet: those entry points raise.
+Both share csrc/price.cuh (the blocked prefix, the chunked sum and the
+narrowing). `price_nodes_plain` / `price_domains_plain` are the plain
+PyTorch versions in the JAX op order, with the prefix sums and the
+priority sum written as explicit loops over the unit axis (the order the
+kernels add in), and `price_nodes_reference` the numpy oracle of the
+reference. Dispatch is by tensor device, as in kernels/batch.py: a CPU
+tensor takes the plain version, a CUDA tensor launches the kernel (a
+build or launch failure raises). LAUNCHES counts their launches.
 """
 
 from __future__ import annotations
@@ -47,22 +54,26 @@ INT32_MAX = np.int32(2**31 - 1)
 INT32_MIN = np.int32(-(2**31))
 
 #: kernel launches by name; the wrapper adds one per launch
-LAUNCHES: Dict[str, int] = {"price_nodes": 0}
+LAUNCHES: Dict[str, int] = {"price_nodes": 0, "price_domains": 0}
 
 #: the widest resource row K6 prices (cpu, memory and the preemptor's
 #: extended scalars); csrc/price_nodes.cu KTPU_PRICE_MAX_R
 MAX_R = 16
 #: the reference's f32 sums over the unit axis, as XLA on the CPU orders
-#: them: jnp.cumsum adds sequentially inside blocks of PREFIX_BLOCK units
-#: and carries the blocks' inclusive prefix (taken the same way, one
-#: level up) into each later block; jnp.sum adds sequentially inside
-#: chunks of SUM_CHUNK units and then the chunk totals in order. Both are
-#: plain sequential sums up to 16 units. That order is reproduced here
-#: (and in K6) for up to MAX_V units per node
+#: them at any unit count: jnp.cumsum adds sequentially inside blocks of
+#: PREFIX_BLOCK units and carries the blocks' inclusive prefix (taken the
+#: same way, one level up, as many levels as the count needs) into each
+#: later block; jnp.sum adds sequentially inside chunks of SUM_CHUNK units
+#: and then sums the chunk totals the same way, one level up. Both are
+#: plain sequential sums up to 16 units. That order, which holds at the
+#: power-of-two widths the tables are bucketed to, is reproduced here,
+#: in K6 (up to MAX_V units per node) and in K11 (up to MAX_U units per
+#: domain: a gang with no topology key prices the whole cluster as one
+#: domain row)
 PREFIX_BLOCK = 16
 SUM_CHUNK = 32
 MAX_V = 1024
-
+MAX_U = 1 << 24
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -347,38 +358,54 @@ def _lexi_winner_plain(feasible, crits):
     return torch.where(m.any(), first, -1).to(torch.int32)
 
 
-def _prefix_blocked(cols: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Inclusive prefix sums of `cols` (one tensor per unit) in the
+def _prefix_blocked(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of `x` along dim 1 (the unit axis) in the
     reference's order (PREFIX_BLOCK): sequential inside each block, the
     blocks' own inclusive prefix, taken the same way, added in front of
     every later block."""
     B = PREFIX_BLOCK
-    inb = []
-    for b0 in range(0, len(cols), B):
-        acc = cols[b0]
-        inb.append(acc)
-        for c in cols[b0 + 1:b0 + B]:
-            acc = acc + c
-            inb.append(acc)
-    if len(cols) <= B:
-        return inb
-    totals = [inb[min(b0 + B, len(cols)) - 1]
-              for b0 in range(0, len(cols), B)]
-    ptot = _prefix_blocked(totals)
-    return [x if v < B else ptot[v // B - 1] + x
-            for v, x in enumerate(inb)]
+    V = x.shape[1]
+    nb = -(-V // B)
+    xb = torch.zeros((x.shape[0], nb * B) + tuple(x.shape[2:]),
+                     dtype=x.dtype, device=x.device)
+    xb[:, :V] = x
+    xb = xb.view((x.shape[0], nb, B) + tuple(x.shape[2:]))
+    # the zeros padding the last block come after every real unit: no
+    # prefix that is kept reads them
+    inb = xb.clone()
+    for j in range(1, B):
+        inb[:, :, j] = inb[:, :, j - 1] + xb[:, :, j]
+    if nb > 1:
+        ptot = _prefix_blocked(inb[:, :, B - 1])
+        inb[:, 1:] = ptot[:, :-1].unsqueeze(2) + inb[:, 1:]
+    return inb.reshape((x.shape[0], nb * B) + tuple(x.shape[2:]))[:, :V]
 
 
-def _sum_chunked(cols: List[torch.Tensor]) -> torch.Tensor:
-    """The sum of `cols` in the reference's order (SUM_CHUNK):
-    sequential inside each chunk, then the chunk totals in order."""
-    total = None
-    for c0 in range(0, len(cols), SUM_CHUNK):
-        part = cols[c0]
-        for c in cols[c0 + 1:c0 + SUM_CHUNK]:
-            part = part + c
-        total = part if total is None else total + part
-    return total
+def _sum_chunked(x: torch.Tensor) -> torch.Tensor:
+    """The sum of [N, V] `x` over dim 1 in the reference's order
+    (SUM_CHUNK): sequential inside each chunk, then the chunk totals
+    summed the same way."""
+    C = SUM_CHUNK
+    part = x[:, 0::C].clone()
+    for j in range(1, C):
+        col = x[:, j::C]  # element j of every chunk that has one
+        part[:, :col.shape[1]] = part[:, :col.shape[1]] + col
+    return part[:, 0] if part.shape[1] == 1 else _sum_chunked(part)
+
+
+def _prefix_costs_plain(chosen, pdb, top, psum, gcnt, startr):
+    """Per-row cost vector of the chosen unit prefix (preempt.py
+    _prefix_costs): PDB violations, top priority, priority sum (in the
+    SUM_CHUNK order), victims charged, latest start among the top
+    priority."""
+    nviol = (chosen & pdb).sum(dim=1).to(torch.int32)
+    topv = torch.where(chosen, top, torch.full_like(top, int(INT32_MIN))) \
+        .amax(dim=1)
+    psumv = _sum_chunked(torch.where(chosen, psum, 0.0))
+    cntv = torch.where(chosen, gcnt, 0).sum(dim=1).to(torch.int32)
+    startv = torch.where(chosen & (top == topv[:, None]), startr,
+                         torch.full_like(startr, -1)).amax(dim=1)
+    return nviol, topv, psumv, cntv, startv
 
 
 def price_nodes_plain(free0, cfree0, need, need_cnt, freed, fcnt, valid,
@@ -386,32 +413,23 @@ def price_nodes_plain(free0, cfree0, need, need_cnt, freed, fcnt, valid,
     """price_nodes in plain PyTorch: (winner row or -1, chosen [N, V],
     k [N] units in the prefix, nviol [N]). The same f32 operations as
     the reference (preempt.py price_nodes with _prefix_costs and
-    _lexi_winner); the prefix sums and the priority sum are written out
-    over v in the reference's order (PREFIX_BLOCK, SUM_CHUNK), the order
-    K6 adds in."""
-    N, V = valid.shape
+    _lexi_winner); the prefix sums and the priority sum add in the
+    reference's order (PREFIX_BLOCK, SUM_CHUNK), the order K6 adds in."""
+    V = valid.shape[1]
     dev = valid.device
     fit0 = (free0 >= need).all(dim=1) & (cfree0 >= need_cnt)
-    cum = _prefix_blocked([freed[:, v, :] for v in range(V)])
-    cumc = _prefix_blocked([fcnt[:, v] for v in range(V)])
-    elig = torch.zeros((N, V), dtype=torch.bool, device=dev)
-    for v in range(V):
-        elig[:, v] = ((free0 + cum[v]) >= need).all(dim=1) \
-            & ((cfree0 + cumc[v]) >= need_cnt) & valid[:, v]
+    cum = _prefix_blocked(freed)
+    cumc = _prefix_blocked(fcnt)
+    elig = ((free0[:, None, :] + cum) >= need).all(dim=2) \
+        & ((cfree0[:, None] + cumc) >= need_cnt) & valid
     # first fitting prefix; a node the preemptor already fits is not a
     # preemption candidate
     kidx = torch.argmax(elig.to(torch.int32), dim=1)
     feasible = elig.any(dim=1) & ~fit0 & row_valid
     vidx = torch.arange(V, device=dev)
     chosen = valid & (vidx[None, :] <= kidx[:, None]) & feasible[:, None]
-    nviol = (chosen & pdb).sum(dim=1).to(torch.int32)
-    topv = torch.where(chosen, top, torch.full_like(top, int(INT32_MIN))) \
-        .amax(dim=1)
-    psumv = _sum_chunked([torch.where(chosen[:, v], psum[:, v], 0.0)
-                          for v in range(V)])
-    cntv = torch.where(chosen, gcnt, 0).sum(dim=1).to(torch.int32)
-    startv = torch.where(chosen & (top == topv[:, None]), startr,
-                         torch.full_like(startr, -1)).amax(dim=1)
+    nviol, topv, psumv, cntv, startv = _prefix_costs_plain(
+        chosen, pdb, top, psum, gcnt, startr)
     winner = _lexi_winner_plain(feasible,
                                 (nviol, topv, psumv, cntv, -startv))
     return winner, chosen, (kidx + 1).to(torch.int32), nviol
@@ -515,26 +533,250 @@ def price_nodes(free0, cfree0, need, need_cnt, freed, fcnt, valid, pdb,
     return winner, chosen, k, nviol
 
 
+
+
 # ------------------------------------------------- whole-gang (domains)
 
 
-def _gang_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: whole-gang pricing over ICI domains needs the gang "
-        "tables, which are not ported yet (ROADMAP: gang scheduling)")
+@dataclass
+class DomainTables:
+    """price_domains input + metadata: one row per ICI domain, units
+    merged across the domain's nodes in band order; per-node slot
+    curves for the post-winner member spread."""
+
+    domains: List[str]
+    #: domain -> [(node name, slot curve [len(units)+1])]
+    nodes: Dict[str, List[Tuple[str, np.ndarray]]]
+    #: per-domain merged unit stream [(unit, node name, per-node j)]
+    units: List[List[Tuple[_Unit, str, int]]]
+    res_names: List[str]
+    arrays: Dict[str, np.ndarray] = field(default_factory=dict)
+
+    def expand(self, row: int, chosen: np.ndarray) -> List[Pod]:
+        out: List[Pod] = []
+        for v, (unit, _n, _j) in enumerate(self.units[row]):
+            if v < len(chosen) and chosen[v]:
+                out.extend(sorted(unit.evict,
+                                  key=lambda p: p.metadata.key()))
+        return out
+
+    def node_slots(self, row: int, chosen: np.ndarray
+                   ) -> List[Tuple[str, int]]:
+        """Member slots per node of the winner domain AFTER the chosen
+        evictions, in sorted node order — the nomination spread."""
+        evicted: Dict[str, int] = {}
+        for v, (_u, node, j) in enumerate(self.units[row]):
+            if v < len(chosen) and chosen[v]:
+                evicted[node] = max(evicted.get(node, 0), j + 1)
+        out = []
+        for node, curve in self.nodes[self.domains[row]]:
+            out.append((node, int(curve[evicted.get(node, 0)])))
+        return out
 
 
-def build_domain_tables(*args, **kw):
-    """Whole-gang tables (preempt.py build_domain_tables): not ported."""
-    raise _gang_slice("build_domain_tables")
+def _slot_curve(free0: np.ndarray, cfree0: float, units: List[_Unit],
+                q: np.ndarray, qmask: np.ndarray) -> np.ndarray:
+    """[len(units)+1] member-slots on one node after evicting the first
+    j units: min over requested resources of floor(free / q), capped by
+    freed pod-count slots; monotone non-decreasing in j."""
+    curves = np.zeros((len(units) + 1,), np.int64)
+    free = free0.astype(np.float32).copy()
+    cfree = np.float32(cfree0)
+    for j in range(len(units) + 1):
+        if j > 0:
+            free = free + units[j - 1].freed
+            cfree = cfree + np.float32(units[j - 1].fcnt)
+        per_res = np.where(qmask, np.floor(free / np.maximum(q, 1e-9)),
+                           np.float32(np.inf))
+        slots = min(float(per_res.min()), float(np.floor(cfree)))
+        curves[j] = max(0, int(slots))
+    # eviction only frees capacity; enforce monotonicity against any
+    # f32 floor jitter so merged per-domain deltas stay non-negative
+    np.maximum.accumulate(curves, out=curves)
+    return curves
 
 
-def _slot_curve(*args, **kw):
-    """Per-node member-slot curve (preempt.py _slot_curve): not ported."""
-    raise _gang_slice("_slot_curve")
+def build_domain_tables(members: Sequence[Pod],
+                        candidates: Sequence[Tuple[str, NodeInfo, str]],
+                        infos: Dict[str, NodeInfo], pdbs,
+                        min_member: int,
+                        overshare: Optional[Dict[str, int]] = None
+                        ) -> Optional[DomainTables]:
+    """Whole-gang tables: `candidates` are (node, info, domain value)
+    triples of screen-passing nodes carrying the gang's topology label.
+    The member request is the elementwise MAX over members (a slot that
+    holds the largest member holds any member), the fit threshold
+    `min_member` slots inside ONE domain."""
+    if not members or not candidates:
+        return None
+    need = pod_resource(members[0]).clone()
+    for m in members[1:]:
+        r = pod_resource(m)
+        need.milli_cpu = max(need.milli_cpu, r.milli_cpu)
+        need.memory = max(need.memory, r.memory)
+        for k, v in r.scalar_resources.items():
+            need.scalar_resources[k] = max(need.scalar_resources.get(k, 0),
+                                           v)
+    res_names = _res_columns(need)
+    q = _res_row(need, res_names)
+    qmask = q > 0
+    # victims must sit strictly below EVERY member's priority
+    prio = min(helpers.pod_priority(m) for m in members)
+    group_bound = bound_group_index(infos)
+    gkey = pod_group_key(members[0])
+    per_dom: Dict[str, List[Tuple[str, NodeInfo]]] = {}
+    for name, ni, dom in candidates:
+        per_dom.setdefault(dom, []).append((name, ni))
+    domains = sorted(per_dom)
+    all_rows: List[List[_Unit]] = []
+    node_units: Dict[str, List[_Unit]] = {}
+    for dom in domains:
+        for name, ni in sorted(per_dom[dom]):
+            units, _cacheable = _node_units(prio, ni, pdbs, group_bound,
+                                            res_names, overshare=overshare)
+            # the preemptor gang itself may already hold bound members
+            # (a partially-recovered slice): never price them as victims
+            if gkey is not None:
+                units = [u for u in units if u.key != f"group:{gkey}"]
+            node_units[name] = units
+            all_rows.append(units)
+    _rank_and_sort(all_rows)
+    t = DomainTables(domains=domains, nodes={}, units=[],
+                     res_names=res_names)
+    base: List[float] = []
+    merged_rows: List[List[Tuple[_Unit, str, int]]] = []
+    for dom in domains:
+        slots0 = 0.0
+        merged: List[Tuple[_Unit, str, int]] = []
+        t.nodes[dom] = []
+        for name, ni in sorted(per_dom[dom]):
+            units = node_units[name]
+            curve = _slot_curve(
+                _res_row(ni.allocatable, res_names)
+                - _res_row(ni.requested, res_names),
+                float(ni.allocatable.allowed_pod_number - len(ni.pods)),
+                units, q, qmask)
+            t.nodes[dom].append((name, curve))
+            slots0 += float(curve[0])
+            for j, u in enumerate(units):
+                merged.append((u, name, j))
+        # cross-node merge in the shared band order; per-node unit order
+        # is preserved (same sort key), so slot deltas stay additive
+        merged.sort(key=lambda e: (e[0].pdb, -e[0].oshare, e[0].top,
+                                   -e[0].startr, e[0].key, e[1]))
+        merged_rows.append(merged)
+        base.append(slots0)
+    D = _bucket_pow2(len(domains))
+    U = _bucket_pow2(max((len(m) for m in merged_rows), default=1))
+    t.units = merged_rows
+    a = t.arrays
+    a["base"] = np.zeros((D,), np.float32)
+    a["need"] = np.float32(min_member)
+    a["dslots"] = np.zeros((D, U), np.float32)
+    a["valid"] = np.zeros((D, U), bool)
+    a["pdb"] = np.zeros((D, U), bool)
+    a["top"] = np.full((D, U), INT32_MIN, np.int32)
+    a["psum"] = np.zeros((D, U), np.float32)
+    a["gcnt"] = np.zeros((D, U), np.int32)
+    a["startr"] = np.full((D, U), -1, np.int32)
+    a["row_valid"] = np.zeros((D,), bool)
+    for i, dom in enumerate(domains):
+        a["base"][i] = base[i]
+        a["row_valid"][i] = True
+        curves = dict(t.nodes[dom])
+        for v, (u, name, j) in enumerate(merged_rows[i]):
+            curve = curves[name]
+            a["dslots"][i, v] = float(curve[j + 1] - curve[j])
+            a["valid"][i, v] = True
+            a["pdb"][i, v] = u.pdb
+            a["top"][i, v] = u.top
+            a["psum"][i, v] = u.psum
+            a["gcnt"][i, v] = u.gcnt
+            a["startr"][i, v] = u.startr
+    return t
 
 
-def price_domains(*args, **kw):
-    """[D, U] whole-gang pricing (preempt.py price_domains): not
-    ported."""
-    raise _gang_slice("price_domains")
+#: the inputs of price_domains, in its argument order (the keys of
+#: DomainTables.arrays)
+DOMAIN_KEYS = ("base", "need", "dslots", "valid", "pdb", "top", "psum",
+               "gcnt", "startr", "row_valid")
+
+
+def price_domains_plain(base, need, dslots, valid, pdb, top, psum, gcnt,
+                        startr, row_valid):
+    """price_domains in plain PyTorch: (winner row or -1, chosen [D, U],
+    nviol [D]). The same f32 operations as the reference (preempt.py
+    price_domains with _prefix_costs and _lexi_winner); the slot prefix
+    and the priority sum add in the reference's order (PREFIX_BLOCK,
+    SUM_CHUNK), the order K11 adds in."""
+    D, U = valid.shape
+    cum = _prefix_blocked(torch.where(valid, dslots, 0.0))
+    fitk = (base[:, None] + cum >= need) & valid
+    fit0 = base >= need
+    kidx = torch.argmax(fitk.to(torch.int32), dim=1)
+    feasible = (fitk.any(dim=1) | fit0) & row_valid
+    uidx = torch.arange(U, device=valid.device)
+    # a domain that already holds the gang evicts nothing
+    chosen = valid & (uidx[None, :] <= kidx[:, None]) & (~fit0)[:, None] \
+        & feasible[:, None]
+    nviol, topv, psumv, cntv, startv = _prefix_costs_plain(
+        chosen, pdb, top, psum, gcnt, startr)
+    winner = _lexi_winner_plain(feasible,
+                                (nviol, topv, psumv, cntv, -startv))
+    return winner, chosen, nviol
+
+
+def _check_domain_inputs(base, need, dslots, valid, pdb, top, psum, gcnt,
+                         startr, row_valid) -> None:
+    """The shapes K11 indexes by: a mismatch would read out of bounds on
+    the card, so it raises here."""
+    if dslots.dim() != 2:
+        raise ValueError(f"price_domains: dslots {tuple(dslots.shape)}, "
+                         "need [D, U]")
+    D, U = dslots.shape
+    if D < 1 or not 1 <= U <= MAX_U:
+        raise ValueError(f"price_domains: D={D} U={U}; the port prices "
+                         f"D >= 1 and 1 <= U <= {MAX_U}")
+    have = dict(base=base, need=need, valid=valid, pdb=pdb, top=top,
+                psum=psum, gcnt=gcnt, startr=startr, row_valid=row_valid)
+    want = {"base": (D,), "need": (), "row_valid": (D,)}
+    for k, t in have.items():
+        shape = want.get(k, (D, U))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"price_domains: {k} has shape "
+                             f"{tuple(t.shape)}, K11 needs {shape}")
+
+
+def price_domains(base, need, dslots, valid, pdb, top, psum, gcnt, startr,
+                  row_valid):
+    """[D, U] whole-gang pricing (preempt.py price_domains): minMember
+    member slots in one domain; a domain already holding them wins with
+    no eviction. Returns (winner row or -1 as a 0-d int32 tensor, chosen
+    [D, U] bool, nviol [D] int32): plain on the CPU, kernel K11 on
+    CUDA."""
+    args = (base, need, dslots, valid, pdb, top, psum, gcnt, startr,
+            row_valid)
+    _check_domain_inputs(*args)
+    if not _on_cuda(dslots):
+        return price_domains_plain(*args)
+    from .build import check
+    D, U = dslots.shape
+    dev = dslots.device
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    winner = torch.empty((), dtype=i32, device=dev)
+    chosen = torch.empty((D, U), dtype=b8, device=dev)
+    nviol = torch.empty((D,), dtype=i32, device=dev)
+    # per-row cost vectors and the narrowing mask, between the passes
+    iscratch = torch.empty((4, D), dtype=i32, device=dev)
+    fscratch = torch.empty((D,), dtype=f32, device=dev)
+    types = (f32, f32, f32, b8, b8, i32, f32, i32, i32, b8)
+    ptrs = [_ptr(t, dt, name) for t, dt, name in zip(args, types,
+                                                    DOMAIN_KEYS)]
+    ptrs += [_ptr(winner, i32, "winner"), _ptr(chosen, b8, "chosen"),
+             _ptr(nviol, i32, "nviol"), _ptr(iscratch, i32, "iscratch"),
+             _ptr(fscratch, f32, "fscratch")]
+    rc = _fn("price_domains", "ktpu_price_domains",
+             [_P] * 15 + [_I] * 2 + [_P])(*ptrs, D, U, _stream(dslots))
+    check(rc, "price_domains")
+    LAUNCHES["price_domains"] += 1
+    return winner, chosen, nviol

@@ -3,9 +3,9 @@
 Port of kubernetes_tpu/scheduler/scheduler.py to the GPU. The shell is the
 reference's, line for line, with these differences:
 
-  - `device=None` means CUDA: the BatchScheduler (kernels K1-K3, and K6
-    for preemption) and the DRF account (K4, K5) run there; tests pass
-    device="cpu".
+  - `device=None` means CUDA: the BatchScheduler (kernels K1-K3, K7 on
+    the classic route, K9 for gang batches, K6 and K11 for preemption)
+    and the DRF account (K4, K5) run there; tests pass device="cpu".
   - one card, no mesh: `mesh=` or KTPU_MESH raise NotImplementedError.
   - the commit thread overlaps the drain when the algorithm's device is
     CUDA (the reference asks jax for its backend); KTPU_COMMIT_THREAD
@@ -13,8 +13,8 @@ reference's, line for line, with these differences:
   - scheduler extenders are not ported: a non-empty `extenders=` raises.
   - where the reference prints an exception from preemption and carries
     on, the port lets NotImplementedError through, so an unported route
-    (whole-gang preemption, preempt_gang) stops the drain loudly. The run
-    loop keeps the error; stop() and wait_for_idle() raise it. The
+    stops the drain loudly. The run loop keeps the error; stop() and
+    wait_for_idle() raise it. The
     failed writes of the nominate/evict half are counted and logged once
     a streak (SwallowedErrors) where the reference passes on them.
     `disable_preemption=True` keeps its meaning. The reference's extender
@@ -1595,8 +1595,15 @@ class Scheduler:
                 self._swallowed.swallow("evict", e)
 
     def _try_preempt_gang(self, pod: Pod) -> None:
-        """Whole-gang preemption: price every ICI domain for the parked
-        gang's demand shape (core.preempt_gang, not ported: raises)."""
+        """Whole-gang preemption: a parked gang is a demand SHAPE —
+        minMember placements of the member request inside one ICI domain.
+        Price every domain with the victim-pricing kernel
+        (core.preempt_gang, K11), evict the chosen units (whole PodGroups
+        — evicting 1 of 4 workers buys nothing), and nominate every
+        member across the freed nodes so the nominated-reservation
+        overlay holds the slice until the gang's members drain through
+        the queue. An unported route (NotImplementedError) goes through,
+        as in _try_preempt."""
         from ..api.scheduling import pod_group_key
         gkey = pod_group_key(pod)
         if gkey is None or self.gang is None:
@@ -1607,7 +1614,64 @@ class Scheduler:
         mm = self.gang.min_member(gkey)
         if mm is None:
             return  # PodGroup object gone; members park until it returns
-        self.algorithm.preempt_gang(members, mm, self.gang.topology_key(gkey))
+        # a standing nomination set means an earlier attempt already
+        # priced this gang and its victims are still terminating — wait
+        # for the deletions to reach the cache instead of re-evicting.
+        # The bar is min(minMember, members): a plan nominates at most
+        # that many (slot-limited domains, members arriving late), so
+        # demanding ALL members would re-price (and re-evict) every cycle
+        infos = self.algorithm.snapshot.node_infos
+        from .preemption import node_could_ever_fit
+        standing = 0
+        for m in members:
+            nn = self.queue.nominated.node_for(m.metadata.key())
+            if nn:
+                ni = infos.get(nn)
+                if ni is not None and node_could_ever_fit(m, ni):
+                    standing += 1
+                else:
+                    self.queue.nominated.delete(m)
+        if standing >= min(mm, len(members)):
+            return
+        try:
+            plan = self.algorithm.preempt_gang(members, mm,
+                                               self.gang.topology_key(gkey))
+        except NotImplementedError:
+            raise
+        except Exception:
+            import traceback
+            traceback.print_exc()
+            return
+        if plan is None:
+            return
+        for member, node_name in plan.nominations:
+            def set_nominated(cur, node_name=node_name):
+                cur.status.nominated_node_name = node_name
+                return cur
+            try:
+                updated = self.client.pods(member.metadata.namespace).patch(
+                    member.metadata.name, set_nominated)
+                self._swallowed.ok("gang_nominate")
+            except Exception as e:
+                # member vanished mid-plan; the rest still nominate
+                self._swallowed.swallow("gang_nominate", e)
+                continue
+            self.queue.nominated.add(updated, node_name)
+            self.queue.update(member, updated)
+        self.metrics.preemption_attempts.inc()
+        self.metrics.preemption_victims.inc(len(plan.victims))
+        for victim in plan.victims:
+            self._record_event(
+                victim, "Preempted",
+                f"Preempted by gang {gkey} for domain {plan.domain}")
+            try:
+                self.client.pods(victim.metadata.namespace).delete(
+                    victim.metadata.name)
+                self._swallowed.ok("gang_evict")
+            except Exception as e:
+                # already deleted / API fault: the eviction retries on
+                # the gang's next failed attempt
+                self._swallowed.swallow("gang_evict", e)
 
     def _record_event(self, pod: Pod, reason: str, message: str) -> None:
         """Ref: client-go tools/record EventRecorder -> apiserver Events;

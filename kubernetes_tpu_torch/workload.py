@@ -5,9 +5,12 @@ The same shapes as the repository's bench.py (make_node / make_pod, its
 ones `pod-affinity`, `pod-anti-affinity` and `preferred-affinity`, and
 `nominated`, whose uniform pods schedule beside ghost nominations on
 every fourth node): nodes of 4 CPU, 32Gi and 110 pods in 16 zones; pods
-of three request shapes. Also bench.py preempt_main's preemption storm: a
-full cluster of bound low-priority victims under a PodDisruptionBudget,
-and the high-priority pods that must preempt them. Every function here
+of three request shapes. Also BASELINE.json config 5's gang mix (the same
+pods in PodGroups of 8 on one tpu/slice, PodGroups of 4 without a
+topology key, and singletons), and bench.py preempt_main's preemption
+storm: a full cluster of bound low-priority victims under a
+PodDisruptionBudget, the high-priority pods that must preempt them, and
+its gangs that must preempt a whole slice. Every function here
 takes the API module to build with, so one seeded fixture can be built in
 this package's types and in the reference package's.
 """
@@ -156,10 +159,65 @@ def build(api, cache_cls, scheduler_cls, listers_cls, n_nodes: int,
     return sched, cache
 
 
-# ------------------------------------------------------------ preemption
+# ------------------------------------------------------------ gangs
 
-#: the storm's node label grouping 8 nodes into one slice (bench.py SLICE)
+#: the node label grouping 8 nodes into one ICI slice (bench.py SLICE)
 STORM_SLICE = "tpu/slice"
+#: nodes per slice
+SLICE_NODES = 8
+
+
+def slice_node(api, i: int):
+    """Node i of make_node, labelled with its slice (tpu/slice = s{i//8})
+    as bench.py preempt_main labels its nodes."""
+    node = make_node(api, i)
+    node.metadata.labels[STORM_SLICE] = f"s{i // SLICE_NODES}"
+    return node
+
+
+def pod_group(api, name: str, min_member: int, topology_key: str = "",
+              timeout: int = None):
+    """A PodGroup in the default namespace (the scheduler's default permit
+    timeout unless `timeout` is given)."""
+    sched = importlib.import_module(api.__name__ + ".scheduling")
+    spec = sched.PodGroupSpec(min_member=min_member,
+                              topology_key=topology_key)
+    if timeout is not None:
+        spec.schedule_timeout_seconds = timeout
+    return sched.PodGroup(
+        metadata=api.ObjectMeta(name=name, namespace="default"), spec=spec)
+
+
+def gang_objects(api, n_nodes: int, n_pods: int, slice_gangs: int,
+                 plain_gangs: int, seed: int = 0):
+    """(nodes, groups, pods) of BASELINE.json config 5, "batched gang
+    assignment, 50k pending pods x 5k nodes, mixed resource shapes":
+    n_nodes slice_node nodes; `slice_gangs` PodGroups of 8 (minMember 8,
+    topologyKey tpu/slice), `plain_gangs` PodGroups of 4 (minMember 4, no
+    topology key) and singletons up to n_pods, the units in one seeded
+    shuffle; pod i (make_pod, request shape i % 3) is created in that
+    order, so a gang's members mix shapes."""
+    nodes = [slice_node(api, i) for i in range(n_nodes)]
+    units = ([("sg", 8)] * slice_gangs + [("pg", 4)] * plain_gangs
+             + [(None, 1)] * (n_pods - 8 * slice_gangs - 4 * plain_gangs))
+    order = np.random.default_rng(seed).permutation(len(units))
+    groups, pods = [], []
+    for u in order:
+        kind, size = units[u]
+        name = None
+        if kind is not None:
+            name = f"{kind}{len(groups)}"
+            groups.append(pod_group(api, name, size,
+                                    STORM_SLICE if kind == "sg" else ""))
+        for _ in range(size):
+            pod = make_pod(api, len(pods))
+            if name is not None:
+                pod.metadata.labels[api.wellknown.LABEL_POD_GROUP] = name
+            pods.append(pod)
+    return nodes, groups, pods
+
+
+# ------------------------------------------------------------ preemption
 
 
 def storm_objects(api, n_nodes: int, seed: int = 0):
@@ -174,9 +232,7 @@ def storm_objects(api, n_nodes: int, seed: int = 0):
     nodes, victims = [], []
     k = 0
     for i in range(n_nodes):
-        node = make_node(api, i)
-        node.metadata.labels[STORM_SLICE] = f"s{i // 8}"
-        nodes.append(node)
+        nodes.append(slice_node(api, i))
         for j in range(3):
             prio = int(rng.choice((0, 10, 100)))
             labels = {"band": f"b{prio}"}
@@ -238,6 +294,22 @@ def storm_preemptor(api, i: int):
             resources=api.ResourceRequirements(requests={
                 "cpu": api.Quantity("2"),
                 "memory": api.Quantity("3Gi")}))]))
+
+
+def storm_gang(api, g: int, size: int = 8, topology_key: str = STORM_SLICE):
+    """(PodGroup, members) of gang g of the storm: `size` members of
+    storm_preemptor's shape (2 CPU, 3Gi, priority 1000), minMember `size`,
+    topologyKey tpu/slice — bench.py preempt_main's gang_preempt demand
+    (`topology_key` "" makes it a gang with no topology key, which prices
+    the whole cluster as one domain)."""
+    group = pod_group(api, f"gang{g}", size, topology_key)
+    members = []
+    for j in range(size):
+        pod = storm_preemptor(api, 0)
+        pod.metadata.name = f"gang{g}-{j}"
+        pod.metadata.labels = {api.wellknown.LABEL_POD_GROUP: f"gang{g}"}
+        members.append(pod)
+    return group, members
 
 
 class InformerPump:

@@ -48,6 +48,7 @@ SLICE_MODULES = [
     "kubernetes_tpu_torch.scheduler.kernels",
     "kubernetes_tpu_torch.scheduler.kernels.batch",
     "kubernetes_tpu_torch.scheduler.kernels.build",
+    "kubernetes_tpu_torch.scheduler.kernels.gang",
     "kubernetes_tpu_torch.scheduler.kernels.preempt",
     "kubernetes_tpu_torch.scheduler.preemption",
     "kubernetes_tpu_torch.convert", "kubernetes_tpu_torch.workload",
@@ -224,14 +225,18 @@ def test_nominated_reservation_raises():
     assert out[0] == out[1] == ["node-0"] * 4
 
 
-def test_gang_batch_raises():
+def test_gang_batch_raises(monkeypatch):
+    """Gang batches are ported in slice 6 (tests/test_torch_gang.py); a
+    gang batch under a switch that is still unported, KTPU_SPECULATIVE=1,
+    raises before it reaches any kernel."""
+    monkeypatch.setenv("KTPU_SPECULATIVE", "1")
     sched = _sched()
 
     class Gangs:
         def batch_groups(self, pods):
-            return [([0], None, True)]
+            return [([0], "", True, None)]
     sched.gang = Gangs()
-    with pytest.raises(NotImplementedError, match="gang"):
+    with pytest.raises(NotImplementedError, match="speculative"):
         sched.schedule([workload.make_pod(tapi, 0)])
 
 

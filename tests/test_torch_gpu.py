@@ -475,3 +475,184 @@ def test_drf_order_kernel_single_tenant_keeps_pop_order(cuda):
                        torch.zeros(1000, dtype=torch.int32, device=cuda),
                        torch.from_numpy(pos).to(cuda)).cpu().numpy()
     assert got.tolist() == np.lexsort((pos, -prio)).tolist()
+
+
+# ------------------------------------------------------------ gangs
+
+
+def _gang_instance(seed, cap, soft, nom, N=512, P=256):
+    """A gang batch of 16 gangs of 8 (half on one of 6 domains), 16 of 4
+    and singletons, in kernels/gang.py's entry layout, with the capacity
+    gate's need / greq (`cap`), soft credits and the nominated overlay
+    (pods holding their own nomination)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    R = 3
+    node_cfg = {"alloc": rng.uniform(1000, 8000, (N, R)).astype(f32),
+                "max_pods": np.full((N,), 10, f32),
+                "node_ok": rng.random(N) > 0.05,
+                "mem_pressure": rng.random(N) > 0.9,
+                "valid": np.ones((N,), bool)}
+    usage = {"used": rng.uniform(0, 4000, (N, R)).astype(f32),
+             "nonzero_used": rng.uniform(0, 4000, (N, 2)).astype(f32),
+             "pod_count": rng.integers(0, 8, (N,)).astype(f32)}
+    pb = {"req": rng.uniform(100, 2500, (P, R)).astype(f32),
+          "nonzero_req": rng.uniform(100, 2500, (P, 2)).astype(f32),
+          "mem_pressure_blocked": rng.random(P) > 0.8,
+          "active": np.arange(P) < P - 3,
+          "seq": np.arange(P, dtype=np.int32),
+          "mask_idx": rng.integers(0, 3, (P,)).astype(np.int32),
+          "score_idx": np.zeros((P,), np.int32),
+          "nom_row": np.full((P,), -1, np.int32),
+          "unique_masks": rng.random((3, N)) > 0.2,
+          "unique_scores": rng.integers(0, 3, (1, N)).astype(f32),
+          "resource_weights": np.ones((2,), f32)}
+    dom_tab = rng.integers(-1, 6, (2, N)).astype(np.int32)
+    keys = ("pod_idx", "start", "end", "gang_id", "entry_dom_idx",
+            "pin_dom")
+    gt = {k: [] for k in keys}
+    need, greq = [], []
+    order = list(rng.permutation(P))
+    units = [8] * 16 + [4] * 16
+    units += [1] * (P - sum(units))
+    for u, size in enumerate(units):
+        members = [order.pop() for _ in range(size)]
+        d = int(rng.integers(0, 2)) if size == 8 and u % 2 == 0 else -1
+        pin = 3 if d >= 0 and u % 8 == 0 else -1
+        for j, i in enumerate(members):
+            for k, v in zip(keys, (i, j == 0, j == size - 1, u, d, pin)):
+                gt[k].append(v)
+            need.append(size)
+            greq.append(pb["req"][members].max(axis=0))
+    gt = {k: np.asarray(v, np.int32 if k not in ("start", "end") else bool)
+          for k, v in gt.items()}
+    gt["dom_tab"] = dom_tab
+    if cap:
+        gt["need"] = np.asarray(need, f32)
+        gt["greq"] = np.stack(greq).astype(f32)
+    if soft:
+        Ts, Ks, Ds, Sb = 4, 2, 8, 2
+        pb.update(
+            soft_dom=rng.integers(-1, Ds, (Ts, N)).astype(np.int32),
+            soft_cnt0=rng.integers(0, 3, (Ts, Ds)).astype(f32),
+            soft_base=rng.integers(-5, 6, (Sb, N)).astype(f32),
+            soft_base_idx=rng.integers(-1, Sb, (P,)).astype(np.int32),
+            soft_read_tids=rng.integers(-1, Ts, (P, Ks)).astype(np.int32),
+            soft_read_w=rng.integers(-3, 4, (P, Ks)).astype(f32),
+            soft_write_tids=rng.integers(-1, Ts, (P, Ks)).astype(np.int32),
+            soft_write_w=rng.integers(0, 4, (P, Ks)).astype(f32),
+            soft_weight=np.float32(1.0))
+    nom_t = None
+    if nom:
+        nom_t = {"used": rng.uniform(0, 800, (N, R)).astype(f32),
+                 "count": rng.integers(0, 2, (N,)).astype(f32)}
+        pb["nom_row"][:40] = rng.integers(0, N, (40,))
+    return node_cfg, usage, pb, gt, nom_t
+
+
+@pytest.mark.parametrize("cap", [False, True])
+@pytest.mark.parametrize("soft", [False, True])
+@pytest.mark.parametrize("nom", [False, True])
+def test_gang_scan_kernel_matches_plain(cuda, cap, soft, nom):
+    """Every K9 instance against gang_schedule_plain: assign, the score
+    bits of every pod and the committed usage bits."""
+    from kubernetes_tpu_torch.convert import gang_table_from_numpy
+    from kubernetes_tpu_torch.scheduler.kernels import gang as gk
+    nc, us, pb, gt, nm = _gang_instance(int(cap) + 2 * soft + 4 * nom, cap,
+                                        soft, nom)
+    c, u, p = tables_from_numpy(nc, us, pb, cuda)
+    g = gang_table_from_numpy(gt, cuda)
+    n = nom_from_numpy(nm, cuda)
+    name = gk.gang_instance(cap, soft, nom)
+    before = gk.LAUNCHES[name]
+    packed_k, use_k = gk.gang_schedule_packed(c, u, p, g, n)
+    assert gk.LAUNCHES[name] == before + 1
+    carry, _ = kb._carry_setup(u, p)
+    packed_p = gk.gang_schedule_plain(c, p, g, carry, n)
+    torch.cuda.synchronize()
+    assert torch.equal(packed_k, packed_p)
+    assert set(use_k) == set(carry)
+    for k in carry:
+        assert torch.equal(use_k[k].view(torch.int32),
+                           carry[k].view(torch.int32)), k
+    assert (packed_k[0] >= 0).any() and (packed_k[0] < 0).any()
+
+
+@pytest.mark.parametrize("cap", [False, True])
+def test_gang_scan_kernel_exempt_mates_matches_plain(cuda, cap):
+    """K9 with the overlay's own-gang exemption, as the core launches it:
+    every gang's members hold reservations, several on one node, and
+    read the overlay less their unit's; singletons keep their own."""
+    from kubernetes_tpu_torch.convert import gang_table_from_numpy
+    from kubernetes_tpu_torch.scheduler.kernels import gang as gk
+    nc, us, pb, gt, nm = _gang_instance(11 + int(cap), cap, True, True)
+    rng = np.random.default_rng(3)
+    multi = ~(gt["start"] & gt["end"])
+    pb["nom_row"][gt["pod_idx"][multi]] = rng.integers(0, 16, multi.sum())
+    c, u, p = tables_from_numpy(nc, us, pb, cuda)
+    g = gang_table_from_numpy(gt, cuda)
+    n = nom_from_numpy(nm, cuda)
+    name = gk.gang_instance(cap, True, True)
+    before = gk.LAUNCHES[name]
+    packed_k, use_k = gk.gang_schedule_packed(c, u, p, g, n,
+                                              exempt_mates=True)
+    assert gk.LAUNCHES[name] == before + 1
+    carry, _ = kb._carry_setup(u, p)
+    packed_p = gk.gang_schedule_plain(c, p, g, carry, n, exempt_mates=True)
+    torch.cuda.synchronize()
+    assert torch.equal(packed_k, packed_p)
+    for k in carry:
+        assert torch.equal(use_k[k].view(torch.int32),
+                           carry[k].view(torch.int32)), k
+    # the exemption decides: the reference's overlay places otherwise
+    ref, _ = gk.gang_schedule_packed(c, u, p, g, n)
+    assert not torch.equal(ref, packed_k)
+    assert (packed_k[0] >= 0).any() and (packed_k[0] < 0).any()
+
+
+def test_gang_feasible_kernel_matches_plain(cuda):
+    from kubernetes_tpu_torch.scheduler.kernels import gang as gk
+    rng = np.random.default_rng(5)
+    for P, N in ((300, 513), (64, 8192)):
+        fits = rng.random((P, N)) < 0.01
+        fits[::7] = False        # every seventh pod fits nowhere
+        fits = torch.tensor(fits, device=cuda)
+        members = torch.tensor(rng.integers(-1, P, (40, 8)),
+                               dtype=torch.int32, device=cuda)
+        got = gk.gang_feasible(fits, members)
+        want = gk.gang_feasible_plain(fits, members)
+        assert torch.equal(got, want)
+        assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("U", [4, 17, 32, 64, 2048, 16384])
+def test_price_domains_kernel_matches_plain(cuda, U):
+    """K11 against its plain version; from U = 2,048 on, a few domain
+    rows as wide as a gang with no topology key prices (the whole cluster
+    in one row), with a need that takes about half the units."""
+    from kubernetes_tpu_torch.convert import domain_tables_from_numpy
+    rng = np.random.default_rng(U)
+    f32 = np.float32
+    D = 700 if U <= 64 else 3
+    n_units = rng.integers(1, U + 1, D)
+    valid = np.arange(U)[None, :] < n_units[:, None]
+    a = {"base": rng.integers(0, 3, D).astype(f32),
+         "need": f32(8 if U <= 64 else U // 2),
+         "dslots": np.where(valid, rng.integers(0, 3, (D, U)), 0)
+         .astype(f32), "valid": valid,
+         "pdb": (rng.random((D, U)) < 0.05) & valid,
+         "top": np.where(valid, 2_000_000_000, np.iinfo(np.int32).min)
+         .astype(np.int32),
+         "psum": np.where(valid, rng.integers(1_999_999_000, 2_000_000_000,
+                                              (D, U)), 0).astype(f32),
+         "gcnt": rng.integers(1, 9, (D, U)).astype(np.int32),
+         "startr": rng.integers(0, 4, (D, U)).astype(np.int32),
+         "row_valid": rng.random(D) < 0.95}
+    t = domain_tables_from_numpy(a, cuda)
+    args = [t[k] for k in pk.DOMAIN_KEYS]
+    got = pk.price_domains(*args)
+    want = pk.price_domains_plain(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert int(got[0]) >= 0

@@ -18,7 +18,7 @@ schedule_pending and through drain_pipelined:
 Then the boundary: an unschedulable pod with preemption off, and with
 preemption on but nothing to evict, gives the same attribution,
 FailedScheduling event and pending state in both packages; an unported
-route (a gang member's batch) raises NotImplementedError out of the run
+route (KTPU_SPECULATIVE=1) raises NotImplementedError out of the run
 loop instead of being printed; a mesh, KTPU_MESH and extenders raise.
 """
 
@@ -267,27 +267,23 @@ def test_preemption_raises_instead_of_printing(how, thread, monkeypatch):
     assert out[1][8]["pod-0"] and not out[1][8]["pod-1"]
 
 
-def test_run_loop_keeps_the_error_and_stop_raises_it():
-    """A route that is still unported — a gang member's batch, which goes
-    to the gang kernels and, failing, to whole-gang preemption — stops
-    the run loop; wait_for_idle and stop raise the error."""
+def test_run_loop_keeps_the_error_and_stop_raises_it(monkeypatch):
+    """A route that is still unported — KTPU_SPECULATIVE=1, the
+    speculative cohort kernel — stops the run loop; wait_for_idle and
+    stop raise the error. (Gang batches, which this test drove until
+    slice 6 ported them, no longer raise.)"""
+    monkeypatch.setenv("KTPU_SPECULATIVE", "1")
     client = TClient(validate=False)
     sched = TScheduler(client, batch_size=8, device="cpu")
     client.nodes().create(make_node(tapi, 0))
-    from kubernetes_tpu_torch.api.scheduling import PodGroup, PodGroupSpec
-    client.pod_groups("default").create(PodGroup(
-        metadata=tapi.ObjectMeta(name="g", namespace="default"),
-        spec=PodGroupSpec(min_member=1)))
     sched.start()
     try:
-        pod = make_pod(tapi, 0, "64", "1Gi")
-        pod.metadata.labels[tapi.wellknown.LABEL_POD_GROUP] = "g"
-        client.pods().create(pod)
+        client.pods().create(make_pod(tapi, 0))
         # the pod reaches the loop through the informer thread
         deadline = time.time() + 60
         while sched._loop_error is None and time.time() < deadline:
             time.sleep(0.01)
-        with pytest.raises(NotImplementedError, match="gang"):
+        with pytest.raises(NotImplementedError, match="speculative"):
             sched.wait_for_idle(timeout=30)
     finally:
         with pytest.raises(NotImplementedError):
