@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
-one process per source, all started together: K1-K11), then:
+one process per source, all started together: K1-K12), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -91,10 +91,24 @@ one process per source, all started together: K1-K11), then:
        evicted, and the gang lands through the nominated overlay (K9's
        gang_scan_cap_nom, its members exempt from their gang-mates'
        reservations).
+     - `speculative` and `speculative-anti-affinity`: the speculative
+       cohort route (Scheduler(speculative=True), K12 spec_scan) with the
+       divergence oracle on (KTPU_SPEC_ORACLE=1: schedule_finish replays
+       each batch through K1 + K2): the `scheduler` path's nine-tenant
+       50,000 pods onto 5,000 nodes (the contention gate at its default),
+       then BASELINE.json config 3 (10,000 anti-affinity pods onto 1,000
+       nodes) with the gate forced open, as bench.py _spec_point forces
+       it, so that every cohort repairs (spec_scan_topo); likewise the
+       `preferred` (gate forced open, spec_scan_soft) and `nominated`
+       (spec_scan_nom) loops, which must bind as their serial paths did,
+       and `speculative-spread`, the stand-in spread drain with the
+       route and the oracle on the BatchScheduler (gate forced open,
+       spec_scan_spread), which must bind as `spread` did.
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
-     `anti-affinity` no two pods of a color may share a node, on
+     `anti-affinity` paths no two pods of a color may share a node, on
+     the speculative paths the oracle must count no divergence, on
      `preemption` and `gang-preemption` every evicted victim must rank
      below its preemptor and preemption_attempts must equal the plans
      made, every PodGroup binds whole and every tpu/slice gang inside one
@@ -121,7 +135,16 @@ one process per source, all started together: K1-K11), then:
      the gangs among every fourth unit hold reservations, two to a node);
      K10 on the gang-feasible path's mask; every K11 decision of the gang
      storm and the gang-preemption loop (winner, chosen units, PDB
-     violations) against price_domains_plain;
+     violations) against price_domains_plain. Each K12 instance replays
+     the batch of its K2 instance's path at full size and the default
+     cohort width, the gate forced open: its assign, active pods' score
+     bits and usage finals must equal K2's (a padding pod's score is its
+     frozen pick's, as in the JAX speculative kernel), and on a prefix of
+     the batch (2,048 pods of the uniform and anti-affinity batches, 256
+     of the others) everything, the cohort stats included, its plain
+     version's; it is timed beside K2 on the same batch, with its
+     accepted-cohort and repaired-pod shares, and on the uniform batch at
+     cohort widths 8, 16 and 32;
   3. the `uniform`, `spread`, `anti-affinity`, `preferred` and
      `nominated` drains with the plain versions on the card (the kernels
      patched out in this script only): the binds must be equal. `uniform`
@@ -139,7 +162,9 @@ one process per source, all started together: K1-K11), then:
      nine-tenant loop with KTPU_CLASS_SCAN=0 (K7) the binds; for the gang
      drain (128 nodes, 1,024 pods, gangs in proportion) the binds; for the
      gang-preemption loop (400 nodes, 2 gangs) the binds, evicted victims
-     and nominations.
+     and nominations; for the nine-tenant loop with
+     Scheduler(speculative=True) (K12) the binds and the speculative
+     counters.
 
 It prints a `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and as its last line
@@ -210,6 +235,47 @@ GANG_STORM_KEYLESS = 2
 MATES_REPLAY_ENTRIES = 2048
 GANG_PREEMPT_GANGS = 10
 SMALL_GANG_PREEMPT = (SMALL_STORM_NODES, 2)
+#: the speculative cohort route (Scheduler(speculative=True), K12) through
+#: the scheduler loop with the divergence oracle on (KTPU_SPEC_ORACLE=1):
+#: path -> (bench.py variant, nodes, pods, contention gate forced open as
+#: bench.py _spec_point forces it)
+SPEC_SCHED = {"speculative": ("tenants", N_NODES, N_PODS, False),
+              "speculative-anti-affinity": ("pod-anti-affinity", AFF_NODES,
+                                            AFF_PODS, True),
+              "speculative-preferred": ("preferred-affinity", AFF_NODES,
+                                        AFF_PODS, True),
+              "speculative-nominated": ("nominated", NOM_NODES, NOM_PODS,
+                                        False)}
+#: the class path each single-tenant speculative loop must bind as (the
+#: same cluster through K2: speculation changes no decision)
+SPEC_BINDS_AS = {"speculative-anti-affinity": "anti-affinity",
+                 "speculative-preferred": "preferred",
+                 "speculative-nominated": "nominated"}
+#: the stand-in spread drain with the speculative route and the oracle
+#: on the BatchScheduler (the gate forced open: every pod is in a spread
+#: group), which must bind as the `spread` path did
+SPEC_DRAINS = {"speculative-spread": "spread"}
+#: the K12 instances, each replayed on the batch of its K2 instance's path
+#: (SCAN_ROWS)
+SPEC_ROWS = (("spec_scan", "uniform"), ("spec_scan_spread", "spread"),
+             ("spec_scan_topo", "anti-affinity"),
+             ("spec_scan_soft", "preferred"), ("spec_scan_nom", "nominated"))
+#: pods of the prefix on which K12 is held against its plain version (the
+#: plain version takes about 1.6 ms a pod on the card): 2,048 of the
+#: uniform batch (mostly clean cohorts) and of the anti-affinity batch
+#: (every cohort repaired), SPEC_PLAIN_OTHER of the others
+SPEC_PLAIN_PODS = {"uniform": 2048, "anti-affinity": 2048}
+SPEC_PLAIN_OTHER = 256
+#: cohort widths swept on the uniform batch (bench.py _spec_kernel_micro)
+SPEC_WIDTHS = (8, 16, 32)
+#: the per-pod rows of a device batch (PodBatchTensors.device): a prefix
+#: of the batch cuts these
+POD_AXIS = ("req", "nonzero_req", "mem_pressure_blocked", "active", "seq",
+            "mask_idx", "score_idx", "nom_row", "spread_gidx",
+            "spread_match", "anti_tids", "aff_tids", "match_tids",
+            "cmatch_tids", "canti_tids", "soft_base_idx", "soft_read_tids",
+            "soft_read_w", "soft_write_tids", "soft_write_w", "class_idx",
+            "spec_plain")
 #: kernels each main path must launch
 PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "spread": ("class_ms_init", "class_scan_spread",
@@ -231,7 +297,14 @@ PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "gang": ("gang_scan_cap",),
                 "gang-feasible": ("filter_score", "gang_feasible"),
                 "gang-storm": ("price_domains",),
-                "gang-preemption": ("price_domains", "gang_scan_cap_nom")}
+                "gang-preemption": ("price_domains", "gang_scan_cap_nom"),
+                "speculative": ("class_ms_init", "spec_scan", "drf_dominant",
+                                "drf_order"),
+                "speculative-anti-affinity": ("class_ms_init",
+                                              "spec_scan_topo"),
+                "speculative-preferred": ("class_ms_init", "spec_scan_soft"),
+                "speculative-nominated": ("class_ms_init", "spec_scan_nom"),
+                "speculative-spread": ("class_ms_init", "spec_scan_spread")}
 #: the K9 instances, each held and timed on the largest batch of the
 #: path named
 GANG_ROWS = (("gang_scan_cap", "gang"),
@@ -276,6 +349,20 @@ def env_set(name: str, value: str):
             os.environ[name] = saved
 
 
+@contextlib.contextmanager
+def spec_gate(port, forced: bool):
+    """The speculative route's contention gate (KTPU_SPEC_MIN_PLAIN, read
+    when the module is imported) forced open for the block when
+    `forced`, as bench.py _spec_point forces it."""
+    saved = port.sk._SPEC_MIN_PLAIN
+    if forced:
+        port.sk._SPEC_MIN_PLAIN = 0.0
+    try:
+        yield
+    finally:
+        port.sk._SPEC_MIN_PLAIN = saved
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -301,6 +388,7 @@ class Port:
         from kubernetes_tpu_torch.scheduler.kernels import filter_score
         from kubernetes_tpu_torch.scheduler.kernels import gang as gk
         from kubernetes_tpu_torch.scheduler.kernels import preempt as pk
+        from kubernetes_tpu_torch.scheduler.kernels import speculative as sk
         from kubernetes_tpu_torch.scheduler.nodeinfo import (NodeInfo,
                                                               pod_resource)
         from kubernetes_tpu_torch.scheduler.priorities import SpreadListers
@@ -313,6 +401,7 @@ class Port:
         from kubernetes_tpu_torch.utils.clock import FakeClock
         self.Scheduler, self.Client, self.tk = Scheduler, Client, tk
         self.pk, self.gk, self.FakeClock = pk, gk, FakeClock
+        self.sk = sk
         self.precompute = precompute_pod_features
         self.TENANT_LABEL = TENANT_LABEL
         self.torch, self.api, self.wl = torch, api, workload
@@ -340,13 +429,14 @@ class Port:
 
     def launches(self):
         return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES,
-                **self.gk.LAUNCHES}
+                **self.gk.LAUNCHES, **self.sk.LAUNCHES}
 
     def reset_launches(self):
         self.kb.reset_launches()
         self.tk.reset_launches()
         self.pk.reset_launches()
         self.gk.reset_launches()
+        self.sk.reset_launches()
 
 
 class Recorder:
@@ -358,7 +448,10 @@ class Recorder:
 
     def __init__(self, port):
         self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
-        self.gk = port.gk
+        self.gk, self.sk = port.gk, port.sk
+        #: path -> K2's (packed, post-batch usage) on its recorded batch
+        #: (scan_row), which K12's replay must equal
+        self.k2_out = {}
         #: (variant, K9 instance) -> the (node_cfg, usage, pod batch, gang
         #: table, nom, exempt_mates) of its launch with the most entries
         #: (the first of them)
@@ -505,6 +598,13 @@ class Recorder:
         gk.gang_schedule_packed = gang
         pk.price_domains = domains
         pk.build_domain_tables = tables
+        sk = self.sk
+        self._orig_spec = sk.schedule_batch_speculative_packed
+        orig_spec = self._orig_spec
+
+        def spec(node_cfg, usage, pod_batch, nom=None, width=16):
+            return timed(orig_spec, node_cfg, usage, pod_batch, nom, width)
+        sk.schedule_batch_speculative_packed = spec
         return self
 
     def __exit__(self, *exc):
@@ -515,6 +615,7 @@ class Recorder:
         self.pk.price_nodes = self._orig_pk
         (self.gk.gang_schedule_packed, self.pk.price_domains,
          self.pk.build_domain_tables) = self._orig_gang
+        self.sk.schedule_batch_speculative_packed = self._orig_spec
 
 
 class PlainOnCard:
@@ -524,11 +625,11 @@ class PlainOnCard:
 
     def __init__(self, port):
         self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
-        self.gk = port.gk
+        self.gk, self.sk = port.gk, port.sk
         self._orig = []
 
     def __enter__(self):
-        kb, tk, pk, gk = self.kb, self.tk, self.pk, self.gk
+        kb, tk, pk, gk, sk = self.kb, self.tk, self.pk, self.gk, self.sk
         for mod, name, plain in (
                 (kb, "class_ms_init", kb.class_ms_init_plain),
                 (kb, "_class_scan_cuda", kb._class_scan_plain),
@@ -539,7 +640,8 @@ class PlainOnCard:
                 (pk, "price_nodes", pk.price_nodes_plain),
                 (gk, "_gang_scan_cuda", gk.gang_schedule_plain),
                 (gk, "gang_feasible", gk.gang_feasible_plain),
-                (pk, "price_domains", pk.price_domains_plain)):
+                (pk, "price_domains", pk.price_domains_plain),
+                (sk, "_spec_scan_cuda", sk._spec_scan_plain)):
             self._orig.append((mod, name, getattr(mod, name)))
             setattr(mod, name, plain)
         return self
@@ -551,7 +653,7 @@ class PlainOnCard:
 
 
 def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
-                        variant="tenants"):
+                        variant="tenants", speculative=None):
     """The scheduler loop on `device`, built as bench.py's run_config
     builds it: nodes and pods created through the port's Client, nodes
     and the variant's seeded bound pods fed to the cache, pods (features
@@ -559,12 +661,14 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
     compile warm-up batches are left out (nothing here compiles per
     shape). `variant` "tenants" is the nine-tenant mix, any other a
     bench.py pod variant (`nominated` installs its ghost nominations, as
-    bench.py's _install_variant_extras does). Returns the drain's
+    bench.py's _install_variant_extras does); `speculative` is the
+    Scheduler's argument (True: the speculative cohort route). Returns the drain's
     numbers; host phases and
     the launch-to-committed latency of each batch are taken by wrapping
     the drain's own methods here (the package has no such hooks)."""
     client = port.Client(validate=False)
-    sched = port.Scheduler(client, batch_size=batch, device=device)
+    sched = port.Scheduler(client, batch_size=batch, device=device,
+                           speculative=speculative)
     t0 = time.perf_counter()
     for i in range(n_nodes):
         node = port.wl.make_node(port.api, i)
@@ -826,8 +930,13 @@ def check_gang_preemption(port, label, r, n_nodes, n_gangs):
              f"{len(r['plans'])} plans made")
 
 
-def run_drain(port, variant, device, n_nodes, n_pods, batch, chain):
+def run_drain(port, variant, device, n_nodes, n_pods, batch, chain,
+              speculative=False):
+    """The stand-in drain (scheduler/drain.py) over bench.py's variant;
+    `speculative` turns the BatchScheduler's speculative route and its
+    divergence oracle on."""
     sched, cache = port.scheduler(n_nodes, variant, device)
+    sched.speculative = sched.spec_oracle = speculative
     pods = port.pods(n_pods, variant)
     t0 = time.perf_counter()
     res = port.drain(sched, pods, batch, chain=chain)
@@ -869,7 +978,9 @@ def check_affinity_drain(port, path, r):
     (and on the nominated variant the ghost reservations) counted, and on
     the pod-anti-affinity variant no two pods of a color (seeds included)
     on one node; the same gates for a path's classic run."""
-    variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED}[path]
+    variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED,
+                                **{k: v[:3] for k, v in
+                                   SPEC_SCHED.items()}}[path]
     if r["bound"] != n_pods:
         fail(f"{path}: drain_pipelined bound {r['bound']} of {n_pods}")
     binds = dict(r["binds"])
@@ -1015,11 +1126,16 @@ def kernel_phase(port, rec, launches):
     # ---- K2, one row per instance: K1 + K2 held against the plain
     # versions on a whole batch of the instance's path (the plain time is
     # that run's), K2 alone timed on a freshly prepared table and carry
+    k2_ms = {}
     for name, path, line in SCAN_ROWS:
         rows.append(scan_row(port, rec, launches, name, path, line))
+        k2_ms[path] = rows[-1]["ms"]
     # ---- K7, one row per instance, replayed on the same batches
     for name, path, line in POD_SCAN_ROWS:
         rows.append(pod_scan_row(port, rec, launches, name, path, line))
+    # ---- K12, one row per instance, replayed on the same batches
+    for name, path in SPEC_ROWS:
+        rows.append(spec_row(port, rec, launches, name, path, k2_ms[path]))
     # ---- K8 on the uniform and spread batches
     rows.extend(filter_rows(port, rec, launches))
     # ---- K3 apply_dirty
@@ -1094,6 +1210,7 @@ def scan_row(port, rec, launches, name, path, line):
         fail(f"the {path} batch runs {runs_name}, not {name}")
     packed_k, use_k, err, plain_ms = check_scan(port, node_cfg, usage, pb,
                                                 path, nom)
+    rec.k2_out[path] = (packed_k, use_k)
     cls = {k: pb[k] for k in kb._CLASS_KEYS}
     rw = pb["resource_weights"]
 
@@ -1104,15 +1221,36 @@ def scan_row(port, rec, launches, name, path, line):
                                            carry, terms, nom)
     runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
     ms = sum(runs[1:]) / 2   # the first run pays the library load
+    c = scan_costs(kb, node_cfg, usage, pb, nom, packed_k, use_k)
+    ops = c["P"] * (c["N"] * c["per_node"] + c["per_pod"]) + c["term_ops"]
+    b = bound(c["bytes"], ops)
+    return {"name": name, "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/class_scan.cu"
+                      " + class_step.cuh"
+                      + (" + affinity.cuh" if topo or soft else ""),
+            "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "match": True,
+            "bytes": c["bytes"], "ops": ops,
+            "shape": c["shape"] + f" ({path} batch)"}
+
+
+def scan_costs(kb, node_cfg, usage, pb, nom, packed, use_out):
+    """The work of K2's serial step on one batch, as scan_row and
+    spec_row count it: bytes (each input read once and each output
+    written once, the [C, N] table read and written once), ops per (pod,
+    node) and per pod, the ops that depend on the data (carried terms,
+    the nominees' own rows), the sizes and a shape string."""
     N, R = node_cfg["alloc"].shape
+    cls = {k: pb[k] for k in kb._CLASS_KEYS}
     C = cls["class_req"].shape[0]
     P = pb["class_idx"].shape[0]
-    # the [C, N] table is read and written once, like every input and
-    # output
     bytes_ = (nbytes(*node_cfg.values(), *usage.values(), *cls.values(),
-                     rw, pb["class_idx"], pb["seq"], pb["active"], packed_k,
-                     *use_k.values(), pb["unique_masks"],
-                     pb["unique_scores"]) + 2 * C * N * 4)
+                     pb["resource_weights"], pb["class_idx"], pb["seq"],
+                     pb["active"], packed, *use_out.values(),
+                     pb["unique_masks"], pb["unique_scores"]) + 2 * C * N * 4)
     # per (pod, node): feasibility compare, select, tie penalty mul + sub,
     # argmax compare; per pod the winner column over C classes and the
     # usage adds
@@ -1129,21 +1267,182 @@ def scan_row(port, rec, launches, name, path, line):
         selfs = int((pb["nom_row"] >= 0).sum())
         per_pod += R + 1
         term_ops += selfs * (2 * R + 30)
-    ops = P * (N * per_node + per_pod) + term_ops
+    dir2 = "cmatch_tids" in pb
+    return {"bytes": bytes_, "per_node": per_node, "per_pod": per_pod,
+            "term_ops": term_ops, "N": N, "R": R, "C": C, "P": P,
+            "shape": f"P={P} C={C} N={N} R={R} G={G} K={K} Ks={Ks}"
+                     f"{' dir2' if dir2 else ''}"
+                     f"{f' nominees={selfs}' if nom is not None else ''}"}
+
+
+def spec_plain_of(pb):
+    """The batch's spec_plain as tensorize.set_speculative marks it: no
+    carried-term read (required or waived (anti-)affinity lists, a spread
+    group, a soft credit read) and no nomination of its own."""
+    plain = pb["nom_row"] < 0
+    for k in ("anti_tids", "aff_tids", "cmatch_tids"):
+        if k in pb:
+            plain = plain & (pb[k] < 0).all(dim=1)
+    for k in ("spread_gidx", "soft_base_idx"):
+        if k in pb:
+            plain = plain & (pb[k] < 0)
+    return plain
+
+
+def prefix_batch(pb, n):
+    """The batch cut to its first n pods (whole cohorts)."""
+    return {k: v[:n].contiguous() if k in POD_AXIS else v
+            for k, v in pb.items()}
+
+
+def spec_stats(st, W, P):
+    """(accepted-cohort share, repaired-pod share) of K12's stats."""
+    st = st.cpu()
+    collided = st[:, 0] == 0
+    repaired = int((W - st[collided, 1]).sum())
+    return float(st[:, 0].float().mean()), repaired / P
+
+
+def hold_spec_on_k2(port, label, packed, use, packed_2, use_2, active):
+    """K12 against K2 on one batch: assign, the active pods' score bits
+    and every post-batch usage final. (A padding pod is never checked for
+    collisions: its score is its frozen pick's, as in the JAX speculative
+    kernel.) Returns the count of pads whose score bits differ."""
+    torch = port.torch
+    differ = (packed[0] != packed_2[0]).nonzero().flatten()
+    if len(differ):
+        q = int(differ[0])
+        fail(f"K12 and K2 decide differently on {label}: {len(differ)} "
+             f"pods, first pod {q}: K12 row {int(packed[0, q])}, K2 row "
+             f"{int(packed_2[0, q])}")
+    sd = packed[1] != packed_2[1]
+    q = (sd & active).nonzero().flatten()
+    if len(q):
+        q = int(q[0])
+        fail(f"K12 and K2 choose different scores on {label}: first active"
+             f" pod {q}: K12 bits {int(packed[1, q])}, K2 "
+             f"{int(packed_2[1, q])}")
+    if set(use) != set(use_2):
+        fail(f"K12 and K2 post-batch usage keys differ on {label}")
+    for k in use:
+        if not bits_equal(torch, use[k], use_2[k]):
+            fail(f"K12 and K2 post-batch usage {k} differs on {label}")
+    return int((sd & ~active).sum())
+
+
+def spec_row(port, rec, launches, name, path, k2_ms):
+    """K12's instance on the recorded batch of its K2 instance's path, at
+    full size and the default cohort width, the contention gate forced
+    open (spec_plain as set_speculative marks the batch): held against
+    K2's results on that batch (hold_spec_on_k2); on a prefix of the batch
+    (SPEC_PLAIN_PODS) held bit for bit, stats included, against its plain
+    version on the card; K12 alone timed on a fresh table and carry, beside
+    K2's time on the same batch; on the uniform batch the widths of
+    SPEC_WIDTHS too."""
+    torch, kb, sk = port.torch, port.kb, port.sk
+    node_cfg, usage, pb0, nom = rec.scan_inputs[path]
+    pb = dict(pb0, spec_plain=spec_plain_of(pb0))
+    spread, topo, dir2, soft = kb._scan_terms(pb)
+    runs_name = kb.scan_instance(spread, topo, soft, nom is not None,
+                                 "spec_scan")
+    if runs_name != name:
+        fail(f"the {path} batch runs {runs_name}, not {name}")
+    P = pb["class_idx"].shape[0]
+    W = sk.cohort_width(P)
+    packed_2, use_2 = rec.k2_out[path]
+    label = f"the {path} batch (width {W})"
+    packed, use, st = sk.schedule_batch_speculative_packed(
+        node_cfg, usage, pb, nom, width=W)
+    torch.cuda.synchronize()
+    pads = hold_spec_on_k2(port, label, packed, use, packed_2, use_2,
+                           pb["active"])
+    acc, rep = spec_stats(st, W, P)
+    # against the plain version on a prefix
+    n = SPEC_PLAIN_PODS.get(path, SPEC_PLAIN_OTHER)
+    pp = prefix_batch(pb, n)
+    packed_pk, use_pk, st_pk = sk.schedule_batch_speculative_packed(
+        node_cfg, usage, pp, nom, width=W)
+    plain_ms, (a, sc, use_p, st_p) = time_host(
+        torch, lambda: sk.schedule_batch_speculative_plain(
+            node_cfg, usage, pp, nom, W))
+    packed_p = kb.pack_results(a, sc)
+    torch.cuda.synchronize()
+    if not torch.equal(packed_pk, packed_p) or not torch.equal(st_pk, st_p):
+        fail(f"K12 {name} disagrees with its plain version on the first {n}"
+             f" pods of the {path} batch ({int((packed_pk != packed_p).sum())}"
+             f" packed entries, stats equal: {torch.equal(st_pk, st_p)})")
+    if set(use_pk) != set(use_p) or not all(
+            bits_equal(torch, use_pk[k], use_p[k]) for k in use_p):
+        fail(f"K12 {name} post-batch usage disagrees with its plain version"
+             f" on the first {n} pods of the {path} batch")
+    err = max(max_abs(torch, packed_pk[0], packed_p[0]),
+              max_abs(torch, packed_pk[1].view(torch.float32),
+                      packed_p[1].view(torch.float32)),
+              *(max_abs(torch, use_pk[k], use_p[k]) for k in use_p))
+    prefix_acc, prefix_rep = spec_stats(st_pk, W, n)
+    cls = {k: pb[k] for k in kb._CLASS_KEYS}
+    rw = pb["resource_weights"]
+
+    def spec_only(batch, width):
+        # a fresh table and carry for each run; only K12 is timed
+        _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, batch, nom)
+        return lambda: sk._spec_scan_cuda(node_cfg, batch, cls, rw, ms0,
+                                          carry, terms, nom, width)
+
+    def timed(batch, width):
+        runs = [time_cuda(torch, spec_only(batch, width), reps=1, warm=0)
+                for _ in range(3)]
+        return sum(runs[1:]) / 2   # the first run pays the library load
+    ms = timed(pb, W)
+    prefix_ms = timed(pp, W)
+    widths = {}
+    if path == "uniform":
+        for w in SPEC_WIDTHS:
+            pw, uw, sw = sk.schedule_batch_speculative_packed(
+                node_cfg, usage, pb, nom, width=w)
+            torch.cuda.synchronize()
+            hold_spec_on_k2(port, f"the {path} batch (width {w})", pw, uw,
+                            packed_2, use_2, pb["active"])
+            wa, wr = spec_stats(sw, w, P)
+            widths[str(w)] = {"ms": timed(pb, w), "accepted_cohorts":
+                              int(sw[:, 0].sum()), "cohorts": P // w,
+                              "accepted_cohort_share": wa,
+                              "repaired_pod_share": wr, "equals_k2": True}
+    c = scan_costs(kb, node_cfg, usage, pb, nom, packed, use)
+    N, R, C = c["N"], c["R"], c["C"]
+    cohorts = P // W
+    repaired = rep * P
+    # every pod's election (as K2's per (pod, node) base work), each
+    # cohort's W winner rows and W x C columns and W^2 checks; a repaired
+    # pod's serial step as K2 counts it (its share of the term ops)
+    ops = int(P * N * 5 + cohorts * W * (C * (2 * R + 28) + R + 3)
+              + cohorts * W * W * 4
+              + repaired * (N * c["per_node"] + c["per_pod"])
+              + c["term_ops"] * repaired / P)
+    bytes_ = c["bytes"] + nbytes(pb["spec_plain"], st)
     b = bound(bytes_, ops)
     return {"name": name, "route": "cuda",
-            "source": "kubernetes_tpu_torch/csrc/class_scan.cu"
+            "source": "kubernetes_tpu_torch/csrc/spec_scan.cu"
+                      " + class_step.cuh"
                       + (" + affinity.cuh" if topo or soft else ""),
-            "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
+            "replaces": "kubernetes_tpu/scheduler/kernels/"
+                        "speculative.py:229",
             "launches": launches[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None, "match": True,
+            "k2_ms": k2_ms, "k2_over_k12": k2_ms / ms,
+            "cohort_width": W, "accepted_cohort_share": acc,
+            "repaired_pod_share": rep,
+            "equals_k2": "assign, active score bits, usage finals",
+            "pad_score_bits_differ_from_k2": pads,
+            "plain_prefix_pods": n, "prefix_ms": prefix_ms,
+            "prefix_accepted_cohort_share": prefix_acc,
+            "prefix_repaired_pod_share": prefix_rep,
+            **({"widths": widths} if widths else {}),
             "bytes": bytes_, "ops": ops,
-            "shape": f"P={P} C={C} N={N} R={R} G={G} K={K} Ks={Ks}"
-                     f"{' dir2' if dir2 else ''}"
-                     f"{f' nominees={selfs}' if nom is not None else ''}"
-                     f" ({path} batch)"}
+            "shape": c["shape"] + f" W={W} ({path} batch; plain on its "
+                                  f"first {n} pods)"}
 
 
 def term_cost(kb, pb, usage, N):
@@ -2083,6 +2382,25 @@ def main() -> None:
         per_path["gang-preemption"] = port.launches()
         lap("gang-preemption")
         rec.domain_log = None
+        # the speculative cohort route (K12) with the divergence oracle
+        spec = {}
+        for path, (variant, n_nodes, n_pods, forced) in SPEC_SCHED.items():
+            rec.variant = path
+            port.reset_launches()
+            with env_set("KTPU_SPEC_ORACLE", "1"), spec_gate(port, forced):
+                spec[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
+                                                 BATCH, variant,
+                                                 speculative=True)
+            per_path[path] = port.launches()
+            lap(path)
+        for path, variant in SPEC_DRAINS.items():
+            rec.variant = path
+            port.reset_launches()
+            with spec_gate(port, True):
+                drains[path] = run_drain(port, variant, dev, N_NODES, N_PODS,
+                                         BATCH, False, speculative=True)
+            per_path[path] = port.launches()
+            lap(path)
     # the serial control: no kernel prices it
     port.reset_launches()
     serial = run_storm(port, dev, STORM_NODES, STORM_PODS, False)
@@ -2207,6 +2525,69 @@ def main() -> None:
               f"ms of {wall * 1e3} ms wall, idle share "
               f"{1 - busy / (wall * 1e3)} {tag}")
 
+    # ---- the speculative route: every pod bound, no divergence
+    for path, (variant, n_nodes, n_pods, forced) in SPEC_SCHED.items():
+        r = spec[path]
+        if variant == "tenants":
+            if r["bound"] != n_pods:
+                fail(f"{path}: drain_pipelined bound {r['bound']} of "
+                     f"{n_pods}")
+            check_capacity(port, path, n_nodes, r["pods"], r["binds"])
+        else:
+            check_affinity_drain(port, path, r)
+        m = r["sched"].metrics
+        algo = r["sched"].algorithm
+        div = m.speculative_divergences.value()
+        cohorts = m.speculative_cohorts.value()
+        if div or list(algo.spec_divergence_log):
+            fail(f"{path}: {div} speculative divergences under the oracle: "
+                 f"{list(algo.spec_divergence_log)[:5]}")
+        if not cohorts or len(algo.spec_batch_log) == 0:
+            fail(f"{path}: no batch took the speculative route")
+        lat = [t * 1e3 for t in r["latency"]]
+        busy = sum(a.elapsed_time(b) for v, a, b in rec.events if v == path)
+        wall = r["wall"]
+        print(f"main path: {path} drain_pipelined of {n_pods} pods "
+              f"(bench.py {variant}) onto {n_nodes} nodes, batches of "
+              f"{BATCH}, Scheduler(speculative=True), contention gate "
+              f"{'forced open' if forced else 'at its default'}, the "
+              f"divergence oracle ON (KTPU_SPEC_ORACLE=1: every batch "
+              f"replayed through K1 + K2 in schedule_finish, counted in the "
+              f"wall and the device time): all bound in the store, capacity "
+              f"held, scheduler_speculative_divergences_total {div}; "
+              f"{wall} s = {n_pods / wall} pods/s; cohorts {cohorts}, "
+              f"collided {m.speculative_collisions.value()}, repaired pods "
+              f"{m.speculative_repaired.value()}, per batch (width, "
+              f"cohorts, collided, repaired) {list(algo.spec_batch_log)}; "
+              f"batch latency (launch to committed) p50 {pct(lat, 0.5)} ms "
+              f"p99 {pct(lat, 0.99)} ms over {len(lat)} batches; launches "
+              f"{per_path[path]}; host phases (s): launch "
+              f"{r['phases']['launch']} finish {r['phases']['finish']} "
+              f"commit {r['phases']['commit']}, inside them "
+              f"{r['phase_stats']}; cluster set-up {r['setup_s']} s; device "
+              f"busy in the kernel calls {busy} ms of {wall * 1e3} ms wall, "
+              f"idle share {1 - busy / (wall * 1e3)} {tag}")
+    for path, cls_path in SPEC_BINDS_AS.items():
+        got, want = spec[path]["binds"], aff[cls_path]["binds"]
+        if got != want:
+            n = sum(got.get(k) != v for k, v in want.items())
+            fail(f"{path}: {n} binds differ from the {cls_path} path's "
+                 "(the serial scan's)")
+        print(f"{path}: the speculative route binds every pod as the "
+              f"{cls_path} path's serial scan did")
+    for path, variant in SPEC_DRAINS.items():
+        sched, _, res, _ = drains[path]
+        if list(sched.spec_divergence_log) or not sched.spec_batch_log:
+            fail(f"{path}: divergences {list(sched.spec_divergence_log)[:5]}"
+                 f", speculative batches {list(sched.spec_batch_log)}")
+        n = sum(res.binds.get(k) != v
+                for k, v in drains[variant][2].binds.items())
+        if n or len(res.binds) != len(drains[variant][2].binds):
+            fail(f"{path}: {n} binds differ from the {variant} path's")
+        print(f"{path}: the speculative route (oracle on, no divergence; "
+              f"per batch (width, cohorts, collided, repaired) "
+              f"{list(sched.spec_batch_log)}) binds every pod as the "
+              f"{variant} path's serial scan did")
     # ---- the storm: every K6 decision against the plain version
     bad = 0
     for args, got in rec.storm_price:
@@ -2471,6 +2852,31 @@ def main() -> None:
     print(f"small classic scheduler drain ({SMALL_PODS} pods of {N_TENANTS}"
           f" tenants, {SMALL_NODES} nodes, batches of {SMALL_BATCH}, "
           "KTPU_CLASS_SCAN=0, KTPU_COMMIT_THREAD=0): card equals CPU, binds")
+
+    # ---- small speculative scheduler loop (K12), nine tenants: card
+    # against CPU, commit stage inline
+    port.reset_launches()
+    with env_set("KTPU_COMMIT_THREAD", "0"):
+        small = [run_scheduler_drain(port, d, SMALL_NODES, SMALL_PODS,
+                                     SMALL_BATCH, speculative=True)
+                 for d in (dev, "cpu")]
+    g, c = small
+    if not port.launches()["spec_scan"]:
+        fail("small speculative scheduler drain: K12 never launched on the "
+             "card")
+    counters = [(r["sched"].metrics.speculative_cohorts.value(),
+                 r["sched"].metrics.speculative_collisions.value(),
+                 r["sched"].metrics.speculative_repaired.value())
+                for r in small]
+    if g["bound"] != SMALL_PODS or g["binds"] != c["binds"] or \
+            counters[0] != counters[1]:
+        fail("small speculative scheduler drain: the card's binds or "
+             f"speculative counters differ from the CPU's ({counters})")
+    print(f"small speculative scheduler drain ({SMALL_PODS} pods of "
+          f"{N_TENANTS} tenants, {SMALL_NODES} nodes, batches of "
+          f"{SMALL_BATCH}, Scheduler(speculative=True), "
+          "KTPU_COMMIT_THREAD=0): card equals CPU, binds and (cohorts, "
+          f"collided, repaired) {counters[0]}")
 
     # ---- small gang drain and gang-preemption loop: card against CPU,
     # commit stage inline

@@ -19,11 +19,10 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
-// kubernetes_tpu_torch/scheduler/kernels/preempt.py PREFIX_BLOCK,
-// SUM_CHUNK and MAX_V
+// kubernetes_tpu_torch/scheduler/kernels/preempt.py PREFIX_BLOCK and
+// SUM_CHUNK
 #define KTPU_PREFIX_BLOCK 16
 #define KTPU_SUM_CHUNK 32
-#define KTPU_PRICE_MAX_V 1024
 
 // The blocked inclusive prefix of LANES running sums over the unit axis,
 // LEVELS levels deep: it covers KTPU_PREFIX_BLOCK^LEVELS units. At unit v

@@ -12,8 +12,10 @@ PyTorch and CUDA.
   drain.py      the single-threaded chained drain, the smallest caller
                 of the chained launch
 
-Not ported yet (ROADMAP): the affinity-mask device route, speculative
-cohorts and the sharded scan; those routes raise NotImplementedError.
+KTPU_SPECULATIVE=1 (Scheduler(speculative=True)) routes class-table
+batches to the speculative cohort scan (kernels/speculative.py, K12).
+Not ported yet (ROADMAP): the affinity-mask device route and the sharded
+scan; those routes raise NotImplementedError.
 """
 
 from .cache import Cache, Snapshot

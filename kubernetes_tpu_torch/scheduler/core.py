@@ -40,9 +40,13 @@ here: soft_batch_limit and topo_scan_likely (drain sub-chunking) and
 explain / FitError (failure diagnosis).
 
 Routes outside the ported slices raise NotImplementedError at the point
-where they would reach an unported kernel: speculative cohorts and the
-sharded mesh (ROADMAP). KTPU_CLASS_SCAN=0 routes batches to the classic
-per-pod scan (K7), the reference's parity control of the class route.
+where they would reach an unported kernel: the sharded mesh (ROADMAP).
+KTPU_CLASS_SCAN=0 routes batches to the classic per-pod scan (K7), the
+reference's parity control of the class route. KTPU_SPECULATIVE=1 (or
+Scheduler(speculative=True)) routes class-table batches that pass the
+contention gate to the speculative cohort scan (K1 + K12,
+kernels/speculative.py), decisions equal to K2's; KTPU_SPEC_ORACLE=1
+replays each such batch through the serial scan and counts divergences.
 """
 
 from __future__ import annotations
@@ -151,6 +155,15 @@ class PendingBatch:
     #: when the batch went through the gang kernel; schedule_finish uses
     #: them to demote whole gangs when repair invalidates any member
     gang_units: Optional[list] = None
+    #: [P/K, 2] int32 device handle of per-cohort (accepted, first
+    #: collider) stats when the batch ran the speculative cohort scan
+    #: (kernels/speculative.py); schedule_finish folds it into the
+    #: scheduler_speculative_* counters
+    spec_stats: object = None
+    #: (node_cfg, usage, pod batch, nom), copied at launch, for the
+    #: divergence oracle (KTPU_SPEC_ORACLE=1): schedule_finish replays the
+    #: serial scan on these inputs and attributes any mismatch
+    spec_inputs: object = None
 
 
 class _RepairReassigner:
@@ -358,10 +371,25 @@ class BatchScheduler:
         self.topo_table_cache = _os.environ.get(
             "KTPU_TOPO_TABLE_CACHE", "1") != "0"
         #: KTPU_CLASS_SCAN=0 pins batches to the classic per-pod kernel
-        #: (K7); KTPU_SPECULATIVE=1 to the speculative cohort kernel, which
-        #: is not ported: schedule_launch raises when it is set
+        #: (K7)
         self.class_scan = _os.environ.get("KTPU_CLASS_SCAN", "1") != "0"
+        #: KTPU_SPECULATIVE=1 routes class-table batches to the speculative
+        #: cohort scan (kernels/speculative.py, K12): one-shot cohort
+        #: elections with exact collision checks and serial whole-cohort
+        #: repair, decisions equal to the serial scan's (default off;
+        #: Scheduler(speculative=True) sets it too)
         self.speculative = _os.environ.get("KTPU_SPECULATIVE", "0") != "0"
+        #: KTPU_SPEC_ORACLE=1 replays every speculative batch through the
+        #: serial scan and counts and attributes mismatches (the divergence
+        #: oracle: a measurement harness, not a production mode)
+        self.spec_oracle = _os.environ.get("KTPU_SPEC_ORACLE", "0") != "0"
+        from collections import deque as _deque
+        #: bounded attribution log of oracle divergences (newest last),
+        #: expected empty; each entry a kernels.speculative
+        #: divergence_report dict
+        self.spec_divergence_log = _deque(maxlen=64)
+        #: per-batch (cohort width, cohorts, collided, repaired pods)
+        self.spec_batch_log = _deque(maxlen=256)
         #: KTPU_PREEMPT_KERNEL=0 pins preemption to the serial per-node
         #: victim search (preemption.py) — the measured control for the
         #: batched victim-pricing kernel (kernels/preempt.py, K6)
@@ -1379,11 +1407,6 @@ class BatchScheduler:
             return None
         from ..utils.features import DEFAULT_FEATURE_GATE
         from .kernels.batch import schedule_batch_packed
-        if self.speculative:
-            raise NotImplementedError(
-                "BatchScheduler: KTPU_SPECULATIVE=1 selects the speculative "
-                "cohort kernel, which is not ported yet (ROADMAP: "
-                "speculative cohorts)")
         dirty = self.cache.update_snapshot(self.snapshot)
         # volume predicates can NEVER ride a chain (PV reservations need
         # committed state); affinity CAN — its stale mask (snapshot lacks
@@ -1502,6 +1525,8 @@ class BatchScheduler:
             self.chained_launches += 1
         else:
             node_cfg, usage = self.mirror.device_cfg_usage()
+        spec_stats = None
+        spec_inputs = None
         if gang_units is not None:
             from .kernels.gang import gang_schedule_packed
             # a gang's members do not see their gang-mates' reservations
@@ -1511,6 +1536,37 @@ class BatchScheduler:
                 node_cfg, usage, batch.device(self.device),
                 self._gang_device_table(gang_units, batch), nom_dev,
                 exempt_mates=True)
+        elif self.speculative and batch._class_tables is not None:
+            # speculative cohort assignment (kernels/speculative.py): K-pod
+            # cohorts elected against the frozen class table, exact
+            # collision checks, serial whole-cohort repair; decisions equal
+            # to the serial scan's, per-cohort stats folded into metrics by
+            # schedule_finish
+            from .kernels import speculative as spec
+            width = spec.cohort_width(batch.req.shape[0])
+            batch.set_speculative(width)
+            # contention gate over the ACTIVE prefix (pads are plain and
+            # would inflate the share): a batch of mostly non-plain pods
+            # trips the fence on nearly every cohort
+            frac = (float(batch.spec_plain[:len(pods)].mean())
+                    if pods else 0.0)
+            if frac < spec._SPEC_MIN_PLAIN:
+                batch.spec_plain = None
+                batch.cohort_id = None
+                packed, new_usage = schedule_batch_packed(
+                    node_cfg, usage, batch.device(self.device), nom_dev)
+            else:
+                dev = batch.device(self.device)
+                if self.spec_oracle:
+                    # the drain may scatter into the device tables before
+                    # this batch is finished: the oracle replays copies
+                    spec_inputs = tuple(
+                        None if d is None else
+                        {k: v.clone() for k, v in d.items()}
+                        for d in (node_cfg, usage, dev, nom_dev))
+                packed, new_usage, spec_stats = \
+                    spec.schedule_batch_speculative_packed(
+                        node_cfg, usage, dev, nom_dev, width=width)
         else:
             packed, new_usage = schedule_batch_packed(
                 node_cfg, usage, batch.device(self.device), nom_dev)
@@ -1522,6 +1578,7 @@ class BatchScheduler:
                             usage_epoch=self.mirror.usage_epoch,
                             spread_sig=spread_sig, soft_sig=soft_sig,
                             gang_units=gang_units,
+                            spec_stats=spec_stats, spec_inputs=spec_inputs,
                             inscan_cover=(affinity_chainable
                                           and topo_cover != "fallback"))
 
@@ -1560,6 +1617,34 @@ class BatchScheduler:
             batch.soft_base = chain.batch.soft_base
         return True
 
+    def _account_speculative(self, pending: "PendingBatch",
+                             assign) -> None:
+        """Fold a speculative batch's per-cohort stats into the
+        scheduler_speculative_* counters and, under the divergence oracle,
+        replay the serial scan on the captured inputs and attribute any
+        mismatch (expected: none; the counter is how a run proves it)."""
+        st = pending.spec_stats.cpu().numpy()       # [n, 2]
+        n = st.shape[0]
+        width = pending.batch.req.shape[0] // max(n, 1)
+        collided = st[:, 0] == 0
+        repaired = int((width - st[collided, 1]).sum())
+        m = self.sched_metrics
+        if m is not None:
+            m.speculative_cohorts.inc(n)
+            m.speculative_collisions.inc(int(collided.sum()))
+            m.speculative_repaired.inc(repaired)
+        self.spec_batch_log.append(
+            (int(width), int(n), int(collided.sum()), repaired))
+        if pending.spec_inputs is not None:
+            from .kernels.speculative import (divergence_report,
+                                              speculative_reference)
+            ref_assign, _ = speculative_reference(*pending.spec_inputs)
+            report = divergence_report(assign, ref_assign, width)
+            if report:
+                if m is not None:
+                    m.speculative_divergences.inc(len(report))
+                self.spec_divergence_log.extend(report)
+
     def schedule_finish(self, pending: "PendingBatch") -> List[ScheduleResult]:
         """Back half: fetch results, host repair, adopt chained usage."""
         import time as _time
@@ -1573,6 +1658,8 @@ class BatchScheduler:
         if tr is not None:
             tr.record("scheduler", "scan_wait", t_sw, tr.now(),
                       pods=len(pending.pods))
+        if pending.spec_stats is not None:
+            self._account_speculative(pending, assign)
         out: List[ScheduleResult] = []
         for i, pod in enumerate(pending.pods):
             row = int(assign[i])

@@ -5,7 +5,10 @@ from .batch import (LAUNCHES, apply_dirty, class_ms_init, filter_score,
                     reset_launches, schedule_batch, schedule_batch_packed)
 from .gang import (gang_feasible, gang_schedule_batch,
                    gang_schedule_packed)
+from .speculative import (schedule_batch_speculative,
+                          schedule_batch_speculative_packed)
 
 __all__ = ["LAUNCHES", "apply_dirty", "class_ms_init", "filter_score",
            "gang_feasible", "gang_schedule_batch", "gang_schedule_packed",
-           "reset_launches", "schedule_batch", "schedule_batch_packed"]
+           "reset_launches", "schedule_batch", "schedule_batch_packed",
+           "schedule_batch_speculative", "schedule_batch_speculative_packed"]

@@ -614,62 +614,81 @@ def _term_steps(pod_batch: dict, carry: dict, terms):
     return refuse, add, write
 
 
+def class_step_ctx(node_cfg, pod_batch, cls, rw, carry, terms, nom=None):
+    """What class_pod_step_plain reads besides the [C, N] table: the node
+    and class tables, the running `carry` (mutated by the steps) and the
+    carried terms' steps (_term_steps)."""
+    N = carry["used"].shape[0]
+    return {"node_cfg": node_cfg, "pod_batch": pod_batch, "cls": cls,
+            "rw": rw, "carry": carry, "nom": nom,
+            "rows": torch.arange(N, dtype=torch.int32,
+                                 device=carry["used"].device),
+            "class_idx": pod_batch["class_idx"].long(), "terms": terms,
+            "steps": _term_steps(pod_batch, carry, terms)}
+
+
+def class_pod_step_plain(ctx, ms, p):
+    """Pod p's step of the serial scan in plain PyTorch (batch.py
+    _class_pod_step), the one copy that the serial scan and the
+    speculative scan's repair run; mutates `ms` and ctx's carry. Returns
+    (assign: the winner row or -1, the chosen masked score), 0-d. With
+    the nominated overlay, the pod's own nominated row (nom_row) is
+    recomputed with its own reservation taken out, (used + nom) - req and
+    (count + nom count) - 1 in that association, and the winner's column
+    is refreshed with the reservations added."""
+    node_cfg, pb, cls, rw = (ctx["node_cfg"], ctx["pod_batch"], ctx["cls"],
+                             ctx["rw"])
+    carry, nom, rows = ctx["carry"], ctx["nom"], ctx["rows"]
+    unique_masks = pb["unique_masks"]
+    unique_scores = pb["unique_scores"]
+    used, nz, cnt = carry["used"], carry["nonzero_used"], carry["pod_count"]
+    N = used.shape[0]
+    refuse, add, write = ctx["steps"]
+    u = ctx["class_idx"][p]
+    base = ms[u]
+    if nom is not None:
+        r = pb["nom_row"][p]
+        rc = r.clamp(0, N - 1).long()
+        corr = class_col(
+            node_cfg, cls, unique_masks, unique_scores, rw,
+            used[rc] + nom["used"][rc] - cls["class_req"][u], nz[rc],
+            cnt[rc] + nom["count"][rc] - 1.0, rc)[u]
+        base = torch.where((r >= 0) & (rows == r), corr, base)
+    fits = refuse(p, base > NEG_THRESHOLD)
+    score = add(p, fits, base)
+    masked = torch.where(fits, score, NEG)
+    best = torch.argmax(tie_penalized(masked, rows, pb["seq"][p]))
+    chosen = masked[best]
+    ok = (chosen > NEG_THRESHOLD) & pb["active"][p]
+    ok_f = torch.where(ok, 1.0, 0.0)
+    used[best] = used[best] + ok_f * cls["class_req"][u]
+    nz[best] = nz[best] + ok_f * cls["class_nz"][u]
+    cnt[best] = cnt[best] + ok_f
+    if nom is not None:
+        ms[:, best] = class_col(
+            node_cfg, cls, unique_masks, unique_scores, rw,
+            used[best] + nom["used"][best], nz[best],
+            cnt[best] + nom["count"][best], best)
+    else:
+        ms[:, best] = class_col(node_cfg, cls, unique_masks,
+                                unique_scores, rw, used[best], nz[best],
+                                cnt[best], best)
+    write(p, best, ok, ok_f)
+    return torch.where(ok, best.to(torch.int32), -1), chosen
+
+
 def _class_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
                       nom=None):
     """The serial scan in plain PyTorch (batch.py _class_pod_step over
-    the pods in order); mutates `ms` and the `carry` copies. With `nom`,
-    each pod's own nominated row (pod_batch["nom_row"]) is recomputed
-    with its own reservation taken out, (used + nom) - req and
-    (count + nom count) - 1 in that association, and the winner's column
-    is refreshed with the reservations added."""
-    unique_masks = pod_batch["unique_masks"]
-    unique_scores = pod_batch["unique_scores"]
-    used, nz, cnt = carry["used"], carry["nonzero_used"], carry["pod_count"]
-    dev = used.device
-    N = used.shape[0]
-    rows = torch.arange(N, dtype=torch.int32, device=dev)
-    class_idx = pod_batch["class_idx"].long()
-    seq = pod_batch["seq"]
-    active = pod_batch["active"]
-    P = class_idx.shape[0]
-    refuse, add, write = _term_steps(pod_batch, carry, terms)
-    if nom is not None:
-        nom_row = pod_batch["nom_row"]
+    the pods in order: class_pod_step_plain); mutates `ms` and the
+    `carry` copies."""
+    ctx = class_step_ctx(node_cfg, pod_batch, cls, rw, carry, terms, nom)
+    dev = carry["used"].device
+    P = pod_batch["class_idx"].shape[0]
     assign = torch.empty((P,), dtype=torch.int32, device=dev)
     scores = torch.empty((P,), dtype=torch.float32, device=dev)
     for p in range(P):
-        u = class_idx[p]
-        base = ms[u]
-        if nom is not None:
-            r = nom_row[p]
-            rc = r.clamp(0, N - 1).long()
-            corr = class_col(
-                node_cfg, cls, unique_masks, unique_scores, rw,
-                used[rc] + nom["used"][rc] - cls["class_req"][u], nz[rc],
-                cnt[rc] + nom["count"][rc] - 1.0, rc)[u]
-            base = torch.where((r >= 0) & (rows == r), corr, base)
-        fits = refuse(p, base > NEG_THRESHOLD)
-        score = add(p, fits, base)
-        masked = torch.where(fits, score, NEG)
-        best = torch.argmax(tie_penalized(masked, rows, seq[p]))
-        chosen = masked[best]
-        ok = (chosen > NEG_THRESHOLD) & active[p]
-        ok_f = torch.where(ok, 1.0, 0.0)
-        used[best] = used[best] + ok_f * cls["class_req"][u]
-        nz[best] = nz[best] + ok_f * cls["class_nz"][u]
-        cnt[best] = cnt[best] + ok_f
-        if nom is not None:
-            ms[:, best] = class_col(
-                node_cfg, cls, unique_masks, unique_scores, rw,
-                used[best] + nom["used"][best], nz[best],
-                cnt[best] + nom["count"][best], best)
-        else:
-            ms[:, best] = class_col(node_cfg, cls, unique_masks,
-                                    unique_scores, rw, used[best], nz[best],
-                                    cnt[best], best)
-        write(p, best, ok, ok_f)
-        assign[p] = torch.where(ok, best.to(torch.int32), -1)
-        scores[p] = chosen
+        assign[p], scores[p] = class_pod_step_plain(ctx, ms, p)
     return pack_results(assign, scores)
 
 
@@ -854,22 +873,34 @@ def _term_params(pod_batch: dict, carry: dict, terms, nom, P: int, N: int,
     return dims, ptrs
 
 
-def _launch(lib: str, entry: str, params_cls, ints, dims: dict,
-            ptrs: dict, name: str) -> None:
-    """Fill a parameter block (null pointers and zero ints where `dims` /
+def _fill(params_cls, ints, dims: dict, ptrs: dict):
+    """A parameter block: null pointers and zero ints where `dims` /
     `ptrs` leave a field unset; every pointer checked CUDA, typed and
-    contiguous first) and call the library's entry with it on the
-    current stream of alloc's device; raises, naming the instance
-    `name`, when the launch failed."""
-    from .build import check
+    contiguous first."""
     prm = params_cls()
     for k, (t, dtype) in ptrs.items():
         setattr(prm, k, _ptr(t, dtype, k).value)
     for k in ints:
         setattr(prm, k, dims.get(k, 0))
-    rc = _fn(lib, entry, [ctypes.POINTER(params_cls), _P])(
-        ctypes.byref(prm), _stream(ptrs["alloc"][0]))
+    return prm
+
+
+def _call(lib: str, entry: str, prm, on: torch.Tensor, name: str) -> None:
+    """Call the library's entry with the parameter block `prm` on the
+    current stream of `on`'s device; raises, naming the instance `name`,
+    when the launch failed."""
+    from .build import check
+    rc = _fn(lib, entry, [ctypes.POINTER(type(prm)), _P])(
+        ctypes.byref(prm), _stream(on))
     check(rc, name)
+
+
+def _launch(lib: str, entry: str, params_cls, ints, dims: dict,
+            ptrs: dict, name: str) -> None:
+    """_fill's parameter block passed to the library's entry (_call) on
+    alloc's device."""
+    _call(lib, entry, _fill(params_cls, ints, dims, ptrs),
+          ptrs["alloc"][0], name)
 
 
 def _node_ptrs(node_cfg: dict, usage: dict, unique_masks, unique_scores,
@@ -890,13 +921,13 @@ def _node_ptrs(node_cfg: dict, usage: dict, unique_masks, unique_scores,
             "pod_count": (usage["pod_count"], f32)}
 
 
-def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
-                     nom=None):
-    """Kernel K2: the whole batch in one launch of the instance for its
-    carried terms (and the nominated overlay with `nom`); returns the
-    [2, P] packed results and mutates `ms` and the `carry` copies. Index
-    values (class ids, term ids, domains, nominated rows) come from
-    tensorize and core, which build them inside the tables' shapes."""
+def _class_scan_params(node_cfg, pod_batch, cls, rw, ms, carry, terms,
+                       nom=None):
+    """(K2's parameter block, the [2, P] packed output it names) for one
+    batch, the shapes K2 indexes by checked; K12 (kernels/speculative.py)
+    takes the same block. Index values (class ids, term ids, domains,
+    nominated rows) come from tensorize and core, which build them inside
+    the tables' shapes."""
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     alloc = node_cfg["alloc"]
     N, R = alloc.shape
@@ -921,10 +952,19 @@ def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
         "ms": (ms, f32), "class_idx": (pod_batch["class_idx"], i32),
         "seq": (pod_batch["seq"], i32), "active": (pod_batch["active"], b8),
         "packed": (packed, i32)})
+    return _fill(_ScanParams, _SCAN_INTS, dims, ptrs), packed
+
+
+def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
+                     nom=None):
+    """Kernel K2: the whole batch in one launch of the instance for its
+    carried terms (and the nominated overlay with `nom`); returns the
+    [2, P] packed results and mutates `ms` and the `carry` copies."""
+    prm, packed = _class_scan_params(node_cfg, pod_batch, cls, rw, ms,
+                                     carry, terms, nom)
     has_spread, has_topo, _, has_soft = terms
     name = scan_instance(has_spread, has_topo, has_soft, nom is not None)
-    _launch("class_scan", "ktpu_class_scan", _ScanParams, _SCAN_INTS, dims,
-            ptrs, name)
+    _call("class_scan", "ktpu_class_scan", prm, node_cfg["alloc"], name)
     LAUNCHES[name] += 1
     return packed
 

@@ -36,7 +36,8 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "filter_score": "filter_score.cu",
            "gang_scan": "gang_scan.cu",
            "gang_feasible": "gang_feasible.cu",
-           "price_domains": "price_domains.cu"}
+           "price_domains": "price_domains.cu",
+           "spec_scan": "spec_scan.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

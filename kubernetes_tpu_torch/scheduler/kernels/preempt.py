@@ -57,8 +57,10 @@ INT32_MIN = np.int32(-(2**31))
 LAUNCHES: Dict[str, int] = {"price_nodes": 0, "price_domains": 0}
 
 #: the widest resource row K6 prices (cpu, memory and the preemptor's
-#: extended scalars); csrc/price_nodes.cu KTPU_PRICE_MAX_R
-MAX_R = 16
+#: extended scalars): the batch kernels' cap (kernels/batch.py MAX_R,
+#: csrc/score.cuh KTPU_MAX_R), so no row the port schedules is refused;
+#: csrc/price_nodes.cu KTPU_PRICE_MAX_R
+MAX_R = 64
 #: the reference's f32 sums over the unit axis, as XLA on the CPU orders
 #: them at any unit count: jnp.cumsum adds sequentially inside blocks of
 #: PREFIX_BLOCK units and carries the blocks' inclusive prefix (taken the
@@ -67,13 +69,13 @@ MAX_R = 16
 #: and then sums the chunk totals the same way, one level up. Both are
 #: plain sequential sums up to 16 units. That order, which holds at the
 #: power-of-two widths the tables are bucketed to, is reproduced here,
-#: in K6 (up to MAX_V units per node) and in K11 (up to MAX_U units per
-#: domain: a gang with no topology key prices the whole cluster as one
-#: domain row)
+#: in K6 (up to MAX_U units per node: bench.py's 1,200-pod wide node
+#: buckets to 2,048) and in K11 (up to MAX_U units per domain: a gang
+#: with no topology key prices the whole cluster as one domain row)
 PREFIX_BLOCK = 16
 SUM_CHUNK = 32
-MAX_V = 1024
 MAX_U = 1 << 24
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -481,9 +483,9 @@ def _check_price_inputs(free0, cfree0, need, need_cnt, freed, fcnt, valid,
         raise ValueError(f"price_nodes: freed {tuple(freed.shape)}, need "
                          "[N, V, R]")
     N, V, R = freed.shape
-    if N < 1 or not 1 <= V <= MAX_V or R > MAX_R:
+    if N < 1 or not 1 <= V <= MAX_U or R > MAX_R:
         raise ValueError(f"price_nodes: N={N} V={V} R={R}; the port prices "
-                         f"N >= 1, 1 <= V <= {MAX_V} and R <= {MAX_R}")
+                         f"N >= 1, 1 <= V <= {MAX_U} and R <= {MAX_R}")
     want = {"free0": (N, R), "cfree0": (N,), "need": (R,), "need_cnt": (),
             "fcnt": (N, V), "valid": (N, V), "pdb": (N, V), "top": (N, V),
             "psum": (N, V), "gcnt": (N, V), "startr": (N, V),

@@ -32,7 +32,8 @@ of two), as in the JAX reference, so both packages see identical shapes.
 Port of kubernetes_tpu/scheduler/tensorize.py: the host side is unchanged;
 device tensors are torch tensors on the mirror's explicit device (no mesh).
 The in-scan required (anti-)affinity and soft-credit tables ship with the
-batch; the speculative cohort vectors are not ported (ROADMAP).
+batch, and under KTPU_SPECULATIVE=1 the speculative cohort vectors
+(set_speculative: spec_plain, cohort_id).
 """
 
 from __future__ import annotations
@@ -698,6 +699,11 @@ class PodBatchTensors:
         self.soft_write_w: Optional[np.ndarray] = None     # [P, Ks] f32
         self.soft_weight = 0.0
 
+        # speculative cohort vectors (set_speculative; None with the flag
+        # off, so nothing speculative ships)
+        self.spec_plain: Optional[np.ndarray] = None     # [P] bool
+        self.cohort_id: Optional[np.ndarray] = None      # [P] int32
+
     def set_topology_terms(self, dom: np.ndarray, n_domains: int,
                            anti_tids: np.ndarray, aff_tids: np.ndarray,
                            match_tids: np.ndarray,
@@ -808,6 +814,34 @@ class PodBatchTensors:
             "class_mask_idx": mask_idx, "class_score_idx": score_idx,
             "class_idx": class_idx.astype(np.int32)[:P]}
 
+    def set_speculative(self, width: int) -> None:
+        """Mark the pods the speculative cohort scan may elect in one shot
+        (kernels/speculative.py) and stamp the cohort ids. A pod is PLAIN
+        iff it READS no carried term: no required or waived (anti-)affinity
+        term list, no spread group, no soft credit read, no nominated row
+        of its own. Carry writers stay plain (the scan applies their
+        counter writes in pod order); pads are plain (inactive pods never
+        write). Runs after every term table and nom_row is installed: the
+        flags are derived from them.
+
+        `cohort_id[i]` is the cohort the pod speculates in (pod index //
+        width, the scan's chunking) or -1 where the pod is fenced serial:
+        the divergence oracle's attribution key."""
+        P = self.req.shape[0]
+        plain = self.nom_row < 0
+        if self.anti_dom is not None:
+            plain = plain & (self.anti_tids < 0).all(axis=1)
+            plain = plain & (self.aff_tids < 0).all(axis=1)
+            if self.cmatch_tids is not None:
+                plain = plain & (self.cmatch_tids < 0).all(axis=1)
+        if self.spread_base is not None:
+            plain = plain & (self.spread_gidx < 0)
+        if self.soft_dom is not None:
+            plain = plain & (self.soft_base_idx < 0)
+        self.spec_plain = plain
+        cid = np.arange(P, dtype=np.int32) // np.int32(max(width, 1))
+        self.cohort_id = np.where(plain, cid, np.int32(-1))
+
     def set_spread(self, base: np.ndarray, zone_of: np.ndarray,
                    n_zones: int, weight: float,
                    match: Optional[np.ndarray] = None) -> None:
@@ -895,4 +929,6 @@ class PodBatchTensors:
         if self._class_tables is not None:
             for k, v in self._class_tables.items():
                 out[k] = put(v)
+        if self.spec_plain is not None:
+            out["spec_plain"] = put(self.spec_plain)
         return out

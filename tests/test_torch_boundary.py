@@ -7,7 +7,7 @@
   there is none (never a quiet run on the CPU);
 - batches outside the ported slices raise NotImplementedError instead
   of scheduling differently; the routes a slice ported schedule as the
-  JAX package does.
+  JAX package does (the speculative cohort route since slice 7).
 """
 
 import ast
@@ -50,6 +50,7 @@ SLICE_MODULES = [
     "kubernetes_tpu_torch.scheduler.kernels.build",
     "kubernetes_tpu_torch.scheduler.kernels.gang",
     "kubernetes_tpu_torch.scheduler.kernels.preempt",
+    "kubernetes_tpu_torch.scheduler.kernels.speculative",
     "kubernetes_tpu_torch.scheduler.preemption",
     "kubernetes_tpu_torch.convert", "kubernetes_tpu_torch.workload",
     "kubernetes_tpu_torch.scheduler.scheduler",
@@ -226,32 +227,45 @@ def test_nominated_reservation_raises():
 
 
 def test_gang_batch_raises(monkeypatch):
-    """Gang batches are ported in slice 6 (tests/test_torch_gang.py); a
-    gang batch under a switch that is still unported, KTPU_SPECULATIVE=1,
-    raises before it reaches any kernel."""
+    """Gang batches are ported in slice 6 (tests/test_torch_gang.py).
+    Ported in slice 7: KTPU_SPECULATIVE=1 no longer raises, and a gang
+    batch keeps the gang route under it, as the reference routes only
+    class-table batches that are neither gang nor sharded to the
+    speculative scan (reference core.py:1650-1684)."""
     monkeypatch.setenv("KTPU_SPECULATIVE", "1")
     sched = _sched()
+    assert sched.speculative
 
     class Gangs:
         def batch_groups(self, pods):
             return [([0], "", True, None)]
     sched.gang = Gangs()
-    with pytest.raises(NotImplementedError, match="speculative"):
-        sched.schedule([workload.make_pod(tapi, 0)])
+    pending = sched.schedule_launch([workload.make_pod(tapi, 0)])
+    assert pending.gang_units and pending.spec_stats is None
+    assert pending.batch.spec_plain is None
+    assert sched.schedule_finish(pending)[0].node_name
 
 
 @pytest.mark.parametrize("env", [("KTPU_CLASS_SCAN", "0"),
                                  ("KTPU_SPECULATIVE", "1")])
 def test_unported_kernel_switches_raise(monkeypatch, env):
-    """KTPU_SPECULATIVE=1 selects the speculative cohort kernel, not
-    ported: it raises. KTPU_CLASS_SCAN=0 selects the classic per-pod
-    kernel, ported in slice 5: it schedules as the JAX package does."""
+    """KTPU_CLASS_SCAN=0 selects the classic per-pod kernel, ported in
+    slice 5, and KTPU_SPECULATIVE=1 the speculative cohort kernel, ported
+    in slice 7: each schedules as the JAX package does (node and score
+    bits of each pod)."""
     monkeypatch.setenv(*env)
     if env[0] == "KTPU_CLASS_SCAN":
         assert all(_classic_like_jax(lambda api: [workload.make_pod(api, 0)]))
         return
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _sched().schedule([workload.make_pod(tapi, 0)])
+    out = []
+    for sched, api in (_jax_sched(), (_sched(), tapi)):
+        assert sched.speculative
+        pending = sched.schedule_launch([workload.make_pod(api, i)
+                                         for i in range(4)])
+        assert pending.spec_stats is not None
+        out.append([(r.node_name, np.float32(r.score).view(np.int32))
+                    for r in sched.schedule_finish(pending)])
+    assert out[0] == out[1] and all(n for n, _ in out[1])
 
 
 def test_device_state_never_aliases_the_host_mirror():

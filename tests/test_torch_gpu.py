@@ -18,6 +18,7 @@ from kubernetes_tpu_torch.convert import (nom_from_numpy, tables_from_numpy,
                                            victim_tables_from_numpy)
 from kubernetes_tpu_torch.scheduler.kernels import batch as kb
 from kubernetes_tpu_torch.scheduler.kernels import preempt as pk
+from kubernetes_tpu_torch.scheduler.kernels import speculative as sk
 
 pytestmark = pytest.mark.gpu
 
@@ -239,6 +240,113 @@ def test_nominated_scan_kernels_match_plain(cuda, spread, topo, dir2, soft):
     assert not torch.equal(free[0], packed[0])
 
 
+def _speculative(pb):
+    """The batch as set_speculative marks it, with the carried-term reads
+    kept only on pods p % 64 < 4 (so some cohorts may land in one shot and
+    the rest repair) and every write kept (match and carry lists, credit
+    writes, spread_match): spec_plain true iff the pod reads no carried
+    term and holds no nomination of its own."""
+    P = pb["class_idx"].shape[0]
+    off = np.arange(P) % 64 >= 4
+    for k in ("anti_tids", "aff_tids", "cmatch_tids"):
+        if k in pb:
+            pb[k] = np.where(off[:, None], -1, pb[k]).astype(np.int32)
+    for k in ("spread_gidx", "soft_base_idx"):
+        if k in pb:
+            pb[k] = np.where(off, -1, pb[k]).astype(np.int32)
+    plain = np.ones(P, bool)
+    if "nom_row" in pb:
+        plain &= pb["nom_row"] < 0
+    for k in ("anti_tids", "aff_tids", "cmatch_tids"):
+        if k in pb:
+            plain &= (pb[k] < 0).all(axis=1)
+    for k in ("spread_gidx", "soft_base_idx"):
+        if k in pb:
+            plain &= pb[k] < 0
+    pb["spec_plain"] = plain
+    return pb
+
+
+def _spec_case(cuda, seed, spread, topo, dir2, soft, nom):
+    node_cfg, usage, pb = _state(seed)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, seed, topo, dir2, soft)
+    tnom = nom_from_numpy(_nom(node_cfg, usage, pb, seed), cuda) if nom \
+        else None
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _speculative(pb), cuda)
+    return tc, tu, tpb, tnom
+
+
+@pytest.mark.parametrize("nom", [False, True])
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+def test_spec_scan_kernel_matches_k2_and_plain(cuda, spread, topo, dir2,
+                                               soft, nom):
+    """K12, each instance with and without the nominated overlay, on a
+    mixed batch (cohorts of 8): assign, the active pods' score bits and
+    every post-batch usage table equal to K2's on the same batch, and
+    everything, stats included, equal to its plain version on the card.
+    (A padding pod is never checked for collisions: its score is the one
+    of its frozen pick, as in the JAX speculative kernel, where the serial
+    scan's may differ.)"""
+    tc, tu, tpb, tnom = _spec_case(cuda, 6, spread, topo, dir2, soft, nom)
+    name = kb.scan_instance(spread, topo, soft, nom, "spec_scan")
+    before = dict(sk.LAUNCHES)
+    packed, use, stats = sk.schedule_batch_speculative_packed(
+        tc, tu, tpb, tnom, width=8)
+    assert sk.LAUNCHES[name] == before[name] + 1
+    serial, serial_use = kb.schedule_batch_packed(tc, tu, tpb, tnom)
+    a, sc, p_use, p_stats = sk.schedule_batch_speculative_plain(
+        tc, tu, tpb, tnom, width=8)
+    torch.cuda.synchronize()
+    active = tpb["active"]
+    assert torch.equal(packed[0], serial[0])
+    assert torch.equal(packed[1][active], serial[1][active])
+    assert torch.equal(packed, kb.pack_results(a, sc))
+    assert torch.equal(stats, p_stats)
+    assert set(use) == set(serial_use) == set(p_use)
+    for k in use:
+        for other in (serial_use, p_use):
+            assert torch.equal(use[k].view(torch.int32),
+                               other[k].view(torch.int32)), k
+    assert (packed[0] >= 0).sum() > 1000
+    # some cohorts repaired (the first of every 64 pods reads terms, or
+    # holds a nomination)
+    assert not bool(stats[:, 0].all())
+
+
+@pytest.mark.parametrize("width", [8, 32])
+def test_spec_scan_kernel_accepts_clean_cohorts(cuda, width):
+    """The uniform shape the class route sees most: one class on empty
+    nodes, no carried term. Cohorts land in one shot (accepted), K12
+    equals K2 and its plain version."""
+    node_cfg, usage, pb = _state(7)
+    pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    for k in usage:
+        usage[k][:] = 0
+    node_cfg["node_ok"][:] = True
+    node_cfg["mem_pressure"][:] = False
+    pb["class_idx"][:] = 0
+    pb["class_mask_idx"][0] = 0
+    pb["unique_masks"][0] = True
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _speculative(pb), cuda)
+    packed, use, stats = sk.schedule_batch_speculative_packed(
+        tc, tu, tpb, width=width)
+    serial, serial_use = kb.schedule_batch_packed(tc, tu, tpb)
+    a, sc, _, p_stats = sk.schedule_batch_speculative_plain(
+        tc, tu, tpb, width=width)
+    torch.cuda.synchronize()
+    active = tpb["active"]
+    assert torch.equal(packed[0], serial[0])
+    assert torch.equal(packed[1][active], serial[1][active])
+    assert torch.equal(packed, kb.pack_results(a, sc))
+    assert torch.equal(stats, p_stats)
+    for k in use:
+        assert torch.equal(use[k].view(torch.int32),
+                           serial_use[k].view(torch.int32)), k
+    assert bool(stats[:, 0].any())
+
+
 @pytest.mark.parametrize("nom", [False, True])
 @pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
 def test_pod_scan_kernels_match_plain(cuda, spread, topo, dir2, soft, nom):
@@ -337,7 +445,13 @@ PRICE_CASES = {"storm-512": lambda: _storm_tables(512, 0),
                "storm-5000": lambda: _storm_tables(5000, 3),
                "wide-32": lambda: _wide_tables(32),
                "wide-128-scalars": lambda: _wide_tables(128, R=4, seed=1),
-               "nothing-fits": lambda: _wide_tables(16, fit_at_boundary=False)}
+               "nothing-fits": lambda: _wide_tables(16, fit_at_boundary=False),
+               # the narrow instance at its caps, then the wide one past
+               # them (V = 2,048: bench.py's 1,200-pod wide node; R to 64)
+               "narrow-1024-r16": lambda: _wide_tables(1024, R=16, seed=2),
+               "wide-2048": lambda: _wide_tables(2048, seed=3),
+               "wide-64-r24": lambda: _wide_tables(64, R=24, seed=4),
+               "wide-2048-r64": lambda: _wide_tables(2048, R=64, seed=5)}
 
 
 @pytest.mark.parametrize("case", sorted(PRICE_CASES))

@@ -8,7 +8,10 @@ types:
   prefix lengths and PDB violations equal, no tolerance, on the
   reference test's randomized clusters and on fixtures with priorities
   near 2·10^9, memory requests that are not powers of two and rows of
-  up to 32 and 128 units, where the f32 sums depend on their order;
+  up to 32 and 128 units, where the f32 sums depend on their order; and
+  past the caps K6 once had: rows of 2,048 units and of 24 resources, and
+  a preemption on a bench.py make_wide_node-sized node (V = 2,048)
+  through BatchScheduler.preempt;
 - build_victim_tables: the port's arrays equal the JAX package's, key by
   key (group units, PDB last-resort units, over-share ranks, a unit
   cache hit and a generation-invalidated miss);
@@ -243,6 +246,77 @@ def test_prefix_order_follows_the_reference_kernel(V):
     j, r, t = _price_all(a)
     _assert_decisions(j, t)
     assert not np.array_equal(j[2], r[2])   # the oracle's order differs
+
+
+def _inexact_rows(V, R, n, seed):
+    """n rows of V units over R resources, the fixture of the prefix-order
+    test above (freed values that make the f32 sums inexact, each row's
+    free space set so the preemptor fits at a boundary unit), with a few
+    invalid units."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    freed = rng.integers(10**8, 2 * 10**9, (n, V, R)).astype(f32)
+    seq = np.cumsum(freed, axis=1, dtype=f32)
+    t = rng.integers(0, V, n)
+    need = np.full((R,), f32(3e9))
+    top = rng.integers(2 * 10**9 - 100, 2 * 10**9, (n, V)).astype(np.int32)
+    return {"free0": (need[None, :] - seq[np.arange(n), t]).astype(f32),
+            "cfree0": np.zeros(n, f32), "need": need, "need_cnt": f32(1),
+            "freed": freed, "fcnt": np.ones((n, V), f32),
+            "valid": rng.random((n, V)) < 0.97,
+            "pdb": rng.random((n, V)) < 0.1, "top": top,
+            "psum": top.astype(f32), "gcnt": np.ones((n, V), np.int32),
+            "startr": rng.integers(0, 50, (n, V)).astype(np.int32),
+            "row_valid": np.ones(n, bool)}
+
+
+@pytest.mark.parametrize("V,R,n", [(2048, 2, 6), (64, 24, 16),
+                                   (2048, 24, 4)])
+def test_price_nodes_plain_matches_jax_past_the_old_caps(V, R, n):
+    """K6's plain version prices what it refused before: rows of 2,048
+    units (bench.py's 1,200-pod wide node buckets there) and 24-resource
+    rows, deciding as the JAX kernel does at inexact sums (the prefix and
+    priority sums recurse in XLA's order past 1,024 units)."""
+    j, _r, t = _price_all(_inexact_rows(V, R, n, V + R))
+    _assert_decisions(j, t)
+    assert j[0] >= 0 and (j[2] > 1).sum() > n // 2
+
+
+def _wide_node_side(side):
+    """bench.py's make_wide_node (64 CPU, 256Gi, 1,200 pods) holding 1,150
+    bound victims of 50m / 200Mi at priorities 0-49, in either package's
+    types, and a preemptor of 10 CPU at priority 1000."""
+    api = side["api"]
+    rng = np.random.default_rng(11)
+    cache = side["Cache"]()
+    cache.add_node(make_node(api, "wide", cpu="64", mem="256Gi", pods=1200))
+    for k in range(1150):
+        cache.add_pod(make_pod(
+            api, f"v{k}", cpu="50m", node="wide",
+            priority=int(rng.integers(0, 50)),
+            start=f"2026-08-0{int(rng.integers(1, 5))}T00:00:"
+                  f"{int(rng.integers(0, 60)):02d}Z"))
+    sched = side["Batch"](cache, pdb_lister=lambda: [], **side["kw"])
+    return sched, make_pod(api, "high", cpu="10", mem="1Gi", priority=1000)
+
+
+def test_wide_node_preemption_yields_a_plan():
+    """A preemptor on a make_wide_node-sized node: 1,150 victim units
+    bucket to V = 2,048, which K6 refused. BatchScheduler.preempt now
+    plans it, and the plan equals the JAX package's."""
+    plans = []
+    for side in (JAX, PORT):
+        sched, pod = _wide_node_side(side)
+        plans.append(_plan_key(sched.preempt(pod)))
+    assert plans[0] == plans[1]
+    assert plans[1] is not None and plans[1][0] == "wide"
+    # 7.5 CPU free: at least 50 victims of 50m go
+    assert len(plans[1][1]) >= 50
+    sched, pod = _wide_node_side(PORT)
+    sched.refresh()
+    infos = sched.snapshot.node_infos
+    tabs = tpk.build_victim_tables(pod, sorted(infos.items()), infos, [])
+    assert tabs.arrays["valid"].shape[1] == 2048
 
 
 # ------------------------------------------------------------ tables
