@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
-one process per source, all started together: K1-K12), then:
+one process per source, all started together: K1-K14), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -31,6 +31,22 @@ one process per source, all started together: K1-K12), then:
        weight) pods: 10,000 pods onto 1,000 nodes, BASELINE.json's
        configs 3 and 4. Their batches carry K2's topology counters and
        soft credits (the class_scan_topo and class_scan_soft instances).
+     - `service-anti-affinity`: the same scheduler loop, single tenant,
+       at the north-star size: 50,000 pods of bench.py's three request
+       shapes in 1,000 services of 50 replicas (workload.service_pod:
+       label app = svc-{i % 1000}, required anti-affinity to its own
+       service on kubernetes.io/hostname) onto 5,000 nodes. Every batch
+       carries about 1,000 constraint templates over 1,000-2,000 terms,
+       so TopologyIndex.required_masks evaluates them on the card
+       (U·T·capacity >= DEVICE_EVAL_THRESHOLD: kernel K13
+       affinity_masks); each call's rows are held bit for bit against the
+       host route (the same call with the threshold raised). The batch's
+       in-scan terms exceed the BatchScheduler's TOPO_TERM_CAP (512), so
+       K2 runs its plain class_scan instance and the repair overlay keeps
+       two replicas of a service off one node, as in the reference;
+     - `affinity-scores`: kernels.affinity.affinity_scores (K14) on
+       integer inputs of the largest K13 call's shapes; no scheduler
+       route calls it, in the reference neither;
      - `nominated`: the same scheduler loop over bench.py's `nominated`
        variant at its own size, 5,000 uniform pods onto 5,000 nodes with a
        ghost preemptor nominated to every fourth node: K1 folds the
@@ -107,24 +123,36 @@ one process per source, all started together: K1-K12), then:
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
-     `anti-affinity` paths no two pods of a color may share a node, on
+     `anti-affinity` paths no two pods of a color (of a service) may
+     share a node, on
      the speculative paths the oracle must count no divergence, on
      `preemption` and `gang-preemption` every evicted victim must rank
      below its preemptor and preemption_attempts must equal the plans
      made, every PodGroup binds whole and every tpu/slice gang inside one
      slice, and a victim PodGroup is evicted whole or not at all;
-  2. kernel phase: each kernel on the inputs the main paths gave it, held
+  2. the `uniform`, `spread`, `anti-affinity`, `preferred` and
+     `nominated` drains with the plain versions on the card (the kernels
+     patched out in this script only): the binds must be equal. `uniform`
+     and `spread` are cut to their first batch here (PLAIN_PODS), which
+     binds as in the whole drain, and the `gang` drain to its largest
+     (first) batch, held bit for bit in the kernel phase, to keep the
+     script inside its time; the first scan of each drain is kept for
+     the kernel phase;
+  3. kernel phase: each kernel on the inputs the main paths gave it, held
      bit for bit against its plain PyTorch version on the card, and
      timed with CUDA events beside the plain version and, where one
      PyTorch call computes the same function, that call. Each K2
-     instance is held on a whole batch of its path; every launch of the
+     instance is held on a whole batch of its path (the first batch of
+     its plain drain in phase 2, whose inputs must equal the recorded
+     batch's bit for bit; else the plain versions run again); every
+     launch of the
      nominated instance on the `nominated` and `preemption` paths, and
      every one of the storm's 150 K6 decisions (winner, chosen units,
      prefix lengths, PDB violations), is held against its plain version.
      Each K7 instance replays the batch of its K2 instance's path with the
      class tables dropped: its assign must equal K2's row for row, and
-     its packed results and post-batch usage its plain version's bit for
-     bit. K8 runs on the uniform and spread batches against its plain
+     on the batch's first 2,048 pods (POD_SCAN_PLAIN_PODS) its packed
+     results and post-batch usage its plain version's bit for bit. K8 runs on the uniform and spread batches against its plain
      version (fits equal, score bits equal). Each K9 instance is held on
      the largest batch of its path (assign, the score bits of every pod,
      rejected gangs' members included, and the committed usage bits), and
@@ -144,14 +172,10 @@ one process per source, all started together: K1-K12), then:
      of the others) everything, the cohort stats included, its plain
      version's; it is timed beside K2 on the same batch, with its
      accepted-cohort and repaired-pod shares, and on the uniform batch at
-     cohort widths 8, 16 and 32;
-  3. the `uniform`, `spread`, `anti-affinity`, `preferred` and
-     `nominated` drains with the plain versions on the card (the kernels
-     patched out in this script only): the binds must be equal. `uniform`
-     and `spread` are cut to their first batch here (PLAIN_PODS), which
-     binds as in the whole drain, and the `gang` drain to its largest
-     (first) batch, held bit for bit in the kernel phase, to keep the
-     script inside its time;
+     cohort widths 8, 16 and 32. K13 runs the largest required_masks
+     call of the service-anti-affinity path and K14 integer inputs of
+     its shapes (weights in [-100, 100], counts in [0, 50]), each held
+     bit for bit against its plain version on the card;
   4. small drains (128 nodes, 1,024 pods) on the card against the same
      drains on the CPU: for `uniform` and `spread` the binds and score
      bits must be equal; for the nine-tenant scheduler loop (with
@@ -176,6 +200,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -266,8 +291,20 @@ SPEC_ROWS = (("spec_scan", "uniform"), ("spec_scan_spread", "spread"),
 #: (every cohort repaired), SPEC_PLAIN_OTHER of the others
 SPEC_PLAIN_PODS = {"uniform": 2048, "anti-affinity": 2048}
 SPEC_PLAIN_OTHER = 256
+#: pods of the prefix on which each K7 instance is held against its plain
+#: version (about 1.3-2.3 ms a pod on the card); its assign is held
+#: against K2's on the whole batch
+POD_SCAN_PLAIN_PODS = 2048
 #: cohort widths swept on the uniform batch (bench.py _spec_kernel_micro)
 SPEC_WIDTHS = (8, 16, 32)
+#: the service-anti-affinity path: 1,000 services of 50 replicas, each
+#: replica with required anti-affinity to its own service on the hostname
+#: (workload.service_pod), through the scheduler loop at the north-star
+#: size: every constrained batch evaluates its templates on the card (K13)
+SVC_PATHS = {"service-anti-affinity": ("service-anti-affinity", N_NODES,
+                                       N_PODS)}
+#: the seed of K14's integer inputs in the kernel phase
+SCORES_SEED = 0
 #: the per-pod rows of a device batch (PodBatchTensors.device): a prefix
 #: of the batch cuts these
 POD_AXIS = ("req", "nonzero_req", "mem_pressure_blocked", "active", "seq",
@@ -304,7 +341,10 @@ PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                                               "spec_scan_topo"),
                 "speculative-preferred": ("class_ms_init", "spec_scan_soft"),
                 "speculative-nominated": ("class_ms_init", "spec_scan_nom"),
-                "speculative-spread": ("class_ms_init", "spec_scan_spread")}
+                "speculative-spread": ("class_ms_init", "spec_scan_spread"),
+                "service-anti-affinity": ("affinity_masks", "class_ms_init",
+                                          "class_scan"),
+                "affinity-scores": ("affinity_scores",)}
 #: the K9 instances, each held and timed on the largest batch of the
 #: path named
 GANG_ROWS = (("gang_scan_cap", "gang"),
@@ -384,6 +424,8 @@ class Port:
         from kubernetes_tpu_torch.scheduler import drain as drain_mod
         from kubernetes_tpu_torch.scheduler.cache import Cache
         from kubernetes_tpu_torch.scheduler.core import BatchScheduler
+        from kubernetes_tpu_torch.scheduler import topology
+        from kubernetes_tpu_torch.scheduler.kernels import affinity as ak
         from kubernetes_tpu_torch.scheduler.kernels import batch as kb
         from kubernetes_tpu_torch.scheduler.kernels import filter_score
         from kubernetes_tpu_torch.scheduler.kernels import gang as gk
@@ -401,7 +443,7 @@ class Port:
         from kubernetes_tpu_torch.utils.clock import FakeClock
         self.Scheduler, self.Client, self.tk = Scheduler, Client, tk
         self.pk, self.gk, self.FakeClock = pk, gk, FakeClock
-        self.sk = sk
+        self.sk, self.ak, self.topology = sk, ak, topology
         self.precompute = precompute_pod_features
         self.TENANT_LABEL = TENANT_LABEL
         self.torch, self.api, self.wl = torch, api, workload
@@ -429,7 +471,7 @@ class Port:
 
     def launches(self):
         return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES,
-                **self.gk.LAUNCHES, **self.sk.LAUNCHES}
+                **self.gk.LAUNCHES, **self.sk.LAUNCHES, **self.ak.LAUNCHES}
 
     def reset_launches(self):
         self.kb.reset_launches()
@@ -437,6 +479,7 @@ class Port:
         self.pk.reset_launches()
         self.gk.reset_launches()
         self.sk.reset_launches()
+        self.ak.reset_launches()
 
 
 class Recorder:
@@ -448,10 +491,17 @@ class Recorder:
 
     def __init__(self, port):
         self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
-        self.gk, self.sk = port.gk, port.sk
+        self.gk, self.sk, self.ak = port.gk, port.sk, port.ak
+        #: (variant, start event, end event) of every K13 launch
+        self.mask_events = []
         #: path -> K2's (packed, post-batch usage) on its recorded batch
         #: (scan_row), which K12's replay must equal
         self.k2_out = {}
+        #: path -> (inputs, packed, post-batch usage, host ms) of the first
+        #: scan of its drain with the plain versions on the card (FirstScan),
+        #: which scan_row holds K2 against when the inputs equal the
+        #: recorded batch's
+        self.plain_first = {}
         #: (variant, K9 instance) -> the (node_cfg, usage, pod batch, gang
         #: table, nom, exempt_mates) of its launch with the most entries
         #: (the first of them)
@@ -605,6 +655,15 @@ class Recorder:
         def spec(node_cfg, usage, pod_batch, nom=None, width=16):
             return timed(orig_spec, node_cfg, usage, pod_batch, nom, width)
         sk.schedule_batch_speculative_packed = spec
+        ak = self.ak
+        self._orig_ak = ak._affinity_masks_cuda
+        orig_masks = self._orig_ak
+
+        def masks(*args):
+            out = timed(orig_masks, *args)
+            self.mask_events.append(self.events[-1])
+            return out
+        ak._affinity_masks_cuda = masks
         return self
 
     def __exit__(self, *exc):
@@ -616,6 +675,7 @@ class Recorder:
         (self.gk.gang_schedule_packed, self.pk.price_domains,
          self.pk.build_domain_tables) = self._orig_gang
         self.sk.schedule_batch_speculative_packed = self._orig_spec
+        self.ak._affinity_masks_cuda = self._orig_ak
 
 
 class PlainOnCard:
@@ -625,12 +685,15 @@ class PlainOnCard:
 
     def __init__(self, port):
         self.kb, self.tk, self.pk = port.kb, port.tk, port.pk
-        self.gk, self.sk = port.gk, port.sk
+        self.gk, self.sk, self.ak = port.gk, port.sk, port.ak
         self._orig = []
 
     def __enter__(self):
         kb, tk, pk, gk, sk = self.kb, self.tk, self.pk, self.gk, self.sk
+        ak = self.ak
         for mod, name, plain in (
+                (ak, "_affinity_masks_cuda", ak.affinity_masks_plain),
+                (ak, "_affinity_scores_cuda", ak.affinity_scores_plain),
                 (kb, "class_ms_init", kb.class_ms_init_plain),
                 (kb, "_class_scan_cuda", kb._class_scan_plain),
                 (kb, "_pod_scan_cuda", kb._pod_scan_plain),
@@ -650,6 +713,109 @@ class PlainOnCard:
         for mod, name, fn in self._orig:
             setattr(mod, name, fn)
         self._orig = []
+
+
+class MaskRoute:
+    """While the service-anti-affinity path runs: wraps
+    TopologyIndex.required_masks so that each call's rows (the K13 route
+    at the default DEVICE_EVAL_THRESHOLD) are held bit for bit against the
+    host route (the same call with the threshold raised past it: np.stack
+    of _profile_mask_row), and kernels.affinity.affinity_masks to time the
+    route's host work and keep the largest call's inputs for the kernel
+    phase. The wrapped calls themselves are unchanged."""
+
+    def __init__(self, port):
+        self.topo, self.ak = port.topology, port.ak
+        #: one dict per required_masks call: U, T, cap, launches, route_s
+        #: (the whole call), call_s (inside affinity_masks: padding,
+        #: upload, K13, download), check_s (the host route), equal
+        self.calls = []
+        #: the (has_dom, present, sel_dom, sel_present, sel_absent) of the
+        #: affinity_masks call with the largest U·T
+        self.largest = None
+        self._cur = None
+
+    def __enter__(self):
+        topo, ak = self.topo, self.ak
+        self._orig = (topo.TopologyIndex.required_masks, ak.affinity_masks)
+        orig_rm, orig_am = self._orig
+
+        def affinity_masks(*args, **kw):
+            cur = self._cur
+            n0 = ak.LAUNCHES["affinity_masks"]
+            t0 = time.perf_counter()
+            out = orig_am(*args, **kw)
+            cur["call_s"] += time.perf_counter() - t0
+            cur["launches"] += ak.LAUNCHES["affinity_masks"] - n0
+            cur["T"] = args[0].shape[0]
+            size = args[0].shape[0] * args[2].shape[0]
+            if self.largest is None or \
+                    size > self.largest[0].shape[0] * self.largest[2].shape[0]:
+                self.largest = args[:5]
+            return out
+
+        def required_masks(index, profiles):
+            cur = {"U": len(profiles), "T": 0,
+                   "cap": index.mirror.t.capacity, "launches": 0,
+                   "call_s": 0.0}
+            self._cur = cur
+            t0 = time.perf_counter()
+            rows = orig_rm(index, profiles)
+            cur["route_s"] = time.perf_counter() - t0
+            saved = topo.DEVICE_EVAL_THRESHOLD
+            topo.DEVICE_EVAL_THRESHOLD = float("inf")
+            try:
+                t0 = time.perf_counter()
+                host = orig_rm(index, profiles)
+                cur["check_s"] = time.perf_counter() - t0
+            finally:
+                topo.DEVICE_EVAL_THRESHOLD = saved
+            cur["equal"] = rows.shape == host.shape and \
+                bool((rows == host).all())
+            self.calls.append(cur)
+            return rows
+        topo.TopologyIndex.required_masks = required_masks
+        ak.affinity_masks = affinity_masks
+        return self
+
+    def __exit__(self, *exc):
+        self.topo.TopologyIndex.required_masks, self.ak.affinity_masks = \
+            self._orig
+
+
+class FirstScan:
+    """While a drain runs with the plain versions on the card: keeps its
+    first kb.schedule_batch_packed call in rec.plain_first[path] (a copy
+    of the inputs, the outputs, the host ms of the call), so that the
+    kernel phase holds K2 against it instead of running the plain
+    versions on the same batch again."""
+
+    def __init__(self, port, rec, path):
+        self.torch, self.kb, self.rec, self.path = port.torch, port.kb, \
+            rec, path
+
+    def __enter__(self):
+        torch, kb, rec, path = self.torch, self.kb, self.rec, self.path
+        self._orig = orig = kb.schedule_batch_packed
+
+        def clone(d):
+            return None if d is None else {k: v.clone() for k, v in d.items()}
+
+        def scan(node_cfg, usage, pod_batch, nom=None):
+            if path in rec.plain_first:
+                return orig(node_cfg, usage, pod_batch, nom)
+            inputs = (clone(node_cfg), clone(usage), clone(pod_batch),
+                      clone(nom))
+            ms, (packed, new_usage) = time_host(
+                torch, lambda: orig(node_cfg, usage, pod_batch, nom))
+            rec.plain_first[path] = (inputs, packed.clone(),
+                                     clone(new_usage), ms)
+            return packed, new_usage
+        kb.schedule_batch_packed = scan
+        return self
+
+    def __exit__(self, *exc):
+        self.kb.schedule_batch_packed = self._orig
 
 
 def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
@@ -978,7 +1144,7 @@ def check_affinity_drain(port, path, r):
     (and on the nominated variant the ghost reservations) counted, and on
     the pod-anti-affinity variant no two pods of a color (seeds included)
     on one node; the same gates for a path's classic run."""
-    variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED,
+    variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED, **SVC_PATHS,
                                 **{k: v[:3] for k, v in
                                    SPEC_SCHED.items()}}[path]
     if r["bound"] != n_pods:
@@ -992,13 +1158,15 @@ def check_affinity_drain(port, path, r):
         fail(f"{path}: {len(ghosts)} ghost reservations, not "
              f"{n_nodes // 4}")
     check_capacity(port, path, n_nodes, pods, binds, reserved=ghosts)
-    if variant == "pod-anti-affinity":
+    group = {"pod-anti-affinity": "color",
+             "service-anti-affinity": "app"}.get(variant)
+    if group is not None:
         seen = {}
         for pod in pods:
-            key = (pod.metadata.labels["color"], binds[pod.metadata.key()])
+            key = (pod.metadata.labels[group], binds[pod.metadata.key()])
             if key in seen:
                 fail(f"{path}: {seen[key]} and {pod.metadata.key()} "
-                     f"of color {key[0]} share node {key[1]}")
+                     f"of {group} {key[0]} share node {key[1]}")
             seen[key] = pod.metadata.key()
 
 
@@ -1056,19 +1224,37 @@ def bits_equal(torch, a, b):
     return torch.equal(a, b)
 
 
+def same_inputs(torch, a, b):
+    """Two recorded scan inputs (node_cfg, usage, pod batch, nom) equal
+    key for key, bit for bit."""
+    for x, y in zip(a, b):
+        if (x is None) != (y is None):
+            return False
+        if x is not None and (set(x) != set(y) or not all(
+                x[k].shape == y[k].shape and x[k].dtype == y[k].dtype
+                and bits_equal(torch, x[k], y[k]) for k in x)):
+            return False
+    return True
+
+
 def check_scan(port, node_cfg, usage, pb, label, nom=None, packed_k=None,
-               use_k=None, kernel="K2 class_scan"):
+               use_k=None, kernel="K2 class_scan", plain=None):
     """K1 + K2 (or, for a batch without class tables, K7) against their
     plain versions on one whole batch's inputs (the kernels' outputs are
-    computed here unless given); returns (packed, post-batch usage, max
-    abs error, ms of the plain versions on the card, host clock)."""
+    computed here unless given, the plain versions' unless `plain` gives
+    (packed, post-batch usage, ms) of a run on the same inputs); returns
+    (packed, post-batch usage, max abs error, ms of the plain versions on
+    the card, host clock)."""
     torch, kb = port.torch, port.kb
     if packed_k is None:
         packed_k, use_k = kb.schedule_batch_packed(node_cfg, usage, pb, nom)
-    with PlainOnCard(port):
-        plain_ms, (packed_p, use_p) = time_host(
-            torch, lambda: kb.schedule_batch_packed(node_cfg, usage, pb,
-                                                    nom))
+    if plain is not None:
+        packed_p, use_p, plain_ms = plain
+    else:
+        with PlainOnCard(port):
+            plain_ms, (packed_p, use_p) = time_host(
+                torch, lambda: kb.schedule_batch_packed(node_cfg, usage, pb,
+                                                        nom))
     torch.cuda.synchronize()
     if not torch.equal(packed_k, packed_p):
         fail(f"{kernel} disagrees with its plain version on the "
@@ -1087,7 +1273,7 @@ def check_scan(port, node_cfg, usage, pb, label, nom=None, packed_k=None,
     return packed_k, use_k, err, plain_ms
 
 
-def kernel_phase(port, rec, launches):
+def kernel_phase(port, rec, route, launches):
     torch, kb = port.torch, port.kb
     node_cfg, usage, pb, _ = rec.scan_inputs["uniform"]
     cls = {k: pb[k] for k in kb._CLASS_KEYS}
@@ -1196,6 +1382,7 @@ def kernel_phase(port, rec, launches):
     rows[-1]["mates_replay"] = gang_mates_replay(port, rec)
     rows.append(feasible_row(port, rec, launches))
     rows.append(domains_row(port, rec, launches))
+    rows.extend(affinity_rows(port, route, launches))
     return rows
 
 
@@ -1208,8 +1395,15 @@ def scan_row(port, rec, launches, name, path, line):
     runs_name = kb.scan_instance(spread, topo, soft, nom is not None)
     if runs_name != name:
         fail(f"the {path} batch runs {runs_name}, not {name}")
-    packed_k, use_k, err, plain_ms = check_scan(port, node_cfg, usage, pb,
-                                                path, nom)
+    plain = rec.plain_first.get(path)
+    if plain is not None and \
+            not same_inputs(torch, plain[0], rec.scan_inputs[path]):
+        print(f"{name}: the plain drain's first {path} batch differs from "
+              "the recorded one; the plain versions run again")
+        plain = None
+    packed_k, use_k, err, plain_ms = check_scan(
+        port, node_cfg, usage, pb, path, nom,
+        plain=None if plain is None else plain[1:])
     rec.k2_out[path] = (packed_k, use_k)
     cls = {k: pb[k] for k in kb._CLASS_KEYS}
     rw = pb["resource_weights"]
@@ -1233,6 +1427,8 @@ def scan_row(port, rec, launches, name, path, line):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None, "match": True,
+            "plain_from": "run again" if plain is None
+                          else "the first batch of its plain drain",
             "bytes": c["bytes"], "ops": ops,
             "shape": c["shape"] + f" ({path} batch)"}
 
@@ -1537,9 +1733,11 @@ def pod_scan_row(port, rec, launches, name, path, line):
     pad_diff = [len(pads)] + ([int(pads[0]), int(packed_k[1, pads[0]]),
                                int(packed_c[1, pads[0]])] if len(pads)
                               else [])
-    _, _, err, plain_ms = check_scan(port, node_cfg, usage, cpb,
-                                     f"{path} classic", nom, packed_k, use_k,
-                                     kernel=f"K7 {name}")
+    n_plain = min(POD_SCAN_PLAIN_PODS, cpb["seq"].shape[0])
+    _, _, err, plain_ms = check_scan(port, node_cfg, usage,
+                                     prefix_batch(cpb, n_plain),
+                                     f"{path} classic, first {n_plain} pods",
+                                     nom, kernel=f"K7 {name}")
 
     def scan_only():
         # a fresh carry for each run; only the scan is timed
@@ -1581,6 +1779,7 @@ def pod_scan_row(port, rec, launches, name, path, line):
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None, "match": True,
             "assign_equals_k2": True, "active_score_bits_equal_k2": True,
+            "plain_pods": n_plain,
             # [pads whose score bits differ from K2's, first pad row, its
             # K7 bits, its K2 bits]
             "pad_score_bits_differ": pad_diff,
@@ -1588,7 +1787,8 @@ def pod_scan_row(port, rec, launches, name, path, line):
             "shape": f"P={P} N={N} R={R} G={G} K={K} Ks={Ks}"
                      f"{' dir2' if dir2 else ''}"
                      f"{f' nominees={selfs}' if nom is not None else ''}"
-                     f" ({path} batch, class tables dropped)"}
+                     f" ({path} batch, class tables dropped; plain on its"
+                     f" first {n_plain} pods)"}
 
 
 def filter_rows(port, rec, launches):
@@ -2131,6 +2331,78 @@ def feasible_row(port, rec, launches):
             "shape": f"P={P} N={N} G={G} M={M} (gang batch)"}
 
 
+def affinity_rows(port, route, launches):
+    """K13 on the largest required_masks call of the service-anti-affinity
+    path (bucket-padded as the wrapper pads it) and K14 on integer inputs
+    of the same shapes made from SCORES_SEED, each held bit for bit
+    against its plain version on the card and timed beside it and the
+    PyTorch expression with torch.matmul (TF32 off)."""
+    import numpy as np
+    torch, ak = port.torch, port.ak
+    dev = torch.device("cuda")
+    has_dom, present, sel_dom, sel_present, sel_absent = route.largest
+    T, N = has_dom.shape
+    U = sel_dom.shape[0]
+    Tb, Ub = ak._bucket(T), ak._bucket(U)
+    args = (ak._padded(has_dom, (Tb, N), torch.bool, dev),
+            ak._padded(present, (Tb, N), torch.bool, dev),
+            *(ak._padded(a, (Ub, Tb), torch.float32, dev)
+              for a in (sel_dom, sel_present, sel_absent)))
+    got = ak.affinity_masks_tensors(*args)
+    plain_ms, want = time_host(torch, lambda: ak.affinity_masks_plain(*args))
+    if not torch.equal(got, want):
+        fail(f"K13 affinity_masks disagrees with its plain version "
+             f"({int((got != want).sum())} of {got.numel()} entries)")
+    ms = time_cuda(torch, lambda: ak.affinity_masks_tensors(*args), reps=20,
+                   warm=2)
+    lib_ms = time_cuda(torch, lambda: ak.affinity_masks_plain(*args),
+                       reps=20, warm=2)
+    bytes_ = nbytes(*args, got)
+    ops = 6 * Ub * Tb * N
+    b = bound(bytes_, ops)
+    rows = [{"name": "affinity_masks", "route": "cuda",
+             "source": "kubernetes_tpu_torch/csrc/affinity_masks.cu",
+             "replaces": "kubernetes_tpu/scheduler/kernels/affinity.py:39",
+             "launches": launches["affinity_masks"], "max_abs_err": 0.0,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+             "bound_by": b[1], "library_ms": lib_ms, "match": True,
+             "library_call": "(sd @ (1 - hd) + sp @ (1 - pr)) + sa @ pr "
+                             "== 0 with torch.matmul, TF32 off",
+             "bytes": bytes_, "ops": ops,
+             "mask_true_share": float(got[:U].float().mean()),
+             "shape": f"U={U} (Ub={Ub}) T={T} (Tb={Tb}) N={N} (the "
+                      "largest call of service-anti-affinity)"}]
+    rng = np.random.default_rng(SCORES_SEED)
+    w = ak._padded(rng.integers(-100, 101, (Ub, Tb)), (Ub, Tb),
+                   torch.float32, dev)
+    c = ak._padded(rng.integers(0, 51, (Tb, N)), (Tb, N), torch.float32,
+                   dev)
+    got = ak.affinity_scores_tensors(w, c)
+    plain_ms, want = time_host(torch, lambda: ak.affinity_scores_plain(w, c))
+    if not bits_equal(torch, got, want):
+        fail(f"K14 affinity_scores disagrees with its plain version (max "
+             f"abs {max_abs(torch, got, want)})")
+    ms = time_cuda(torch, lambda: ak.affinity_scores_tensors(w, c), reps=20,
+                   warm=2)
+    lib_ms = time_cuda(torch, lambda: w @ c, reps=20, warm=2)
+    bytes_ = nbytes(w, c, got)
+    ops = 2 * Ub * Tb * N
+    b = bound(bytes_, ops)
+    rows.append({"name": "affinity_scores", "route": "cuda",
+                 "source": "kubernetes_tpu_torch/csrc/affinity_scores.cu",
+                 "replaces": "kubernetes_tpu/scheduler/kernels/affinity.py:47",
+                 "launches": launches["affinity_scores"],
+                 "max_abs_err": max_abs(torch, got, want), "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                 "library_ms": lib_ms, "match": True,
+                 "library_call": "weights @ counts (torch.matmul, TF32 off)",
+                 "bytes": bytes_, "ops": ops,
+                 "shape": f"U={Ub} T={Tb} N={N} (K13's padded shapes; "
+                          f"integer weights in [-100, 100], counts in "
+                          f"[0, 50], seed {SCORES_SEED})"})
+    return rows
+
+
 def verify_domains(port, log, label):
     """Every K11 decision kept in `log` against price_domains_plain on the
     same inputs; returns the number held."""
@@ -2300,6 +2572,11 @@ def main() -> None:
     t_lap = [time.perf_counter()]
 
     def lap(label):
+        # what a phase leaves alive (each path keeps its 5k-50k-pod
+        # cluster for the checks) moves out of the collector's reach, so
+        # a later path's full collections do not walk every earlier
+        # path's objects
+        gc.freeze()
         now = time.perf_counter()
         laps.append((label, round(now - t_lap[0], 1)))
         t_lap[0] = now
@@ -2329,6 +2606,17 @@ def main() -> None:
             port.reset_launches()
             aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
                                             BATCH, variant)
+            per_path[path] = port.launches()
+            lap(path)
+        # the required-affinity mask route (K13): every required_masks
+        # call held against the host route
+        route = MaskRoute(port)
+        for path, (variant, n_nodes, n_pods) in SVC_PATHS.items():
+            rec.variant = path
+            port.reset_launches()
+            with route:
+                aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
+                                                BATCH, variant)
             per_path[path] = port.launches()
             lap(path)
         # the classic per-pod route (K7) over the same clusters
@@ -2433,6 +2721,22 @@ def main() -> None:
     if not bool(feasible.all()):
         fail(f"gang-feasible: {int((~feasible).sum())} gangs of the "
              "batch fit nowhere")
+    # affinity_scores (K14), which no scheduler route calls, on integer
+    # inputs of the shapes of the largest K13 call
+    if route.largest is None:
+        fail("service-anti-affinity: no required_masks call reached K13")
+    import numpy as np
+    rng = np.random.default_rng(SCORES_SEED)
+    T_l, N_l = route.largest[0].shape
+    U_l = route.largest[2].shape[0]
+    port.reset_launches()
+    scores = port.ak.affinity_scores(
+        rng.integers(-100, 101, (U_l, T_l)).astype(np.float32),
+        rng.integers(0, 51, (T_l, N_l)).astype(np.float32), device=dev)
+    per_path["affinity-scores"] = port.launches()
+    lap("affinity-scores")
+    if scores.shape != (U_l, N_l) or not np.isfinite(scores).all():
+        fail(f"affinity_scores: {scores.shape} scores, not finite")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             if per_path[path][k] == 0:
@@ -2508,9 +2812,10 @@ def main() -> None:
         busy = sum(a.elapsed_time(b) for v, a, b in rec.events
                    if v == path)
         wall = r["wall"]
-        variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED}[path]
+        variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED,
+                                    **SVC_PATHS}[path]
         print(f"main path: {path} drain_pipelined of {n_pods} pods "
-              f"(bench.py {variant}, {len(r['seeds'])} seeded pods, "
+              f"(variant {variant}, {len(r['seeds'])} seeded pods, "
               f"{len(r['sched'].queue.nominated.by_node())} ghost-nominated "
               f"nodes) onto {n_nodes} nodes, batches of {BATCH}, commit "
               f"thread {'on' if r['commit_thread'] else 'off'}: all bound "
@@ -2524,6 +2829,40 @@ def main() -> None:
               f"{r['setup_s']} s; device busy in the kernel calls {busy} "
               f"ms of {wall * 1e3} ms wall, idle share "
               f"{1 - busy / (wall * 1e3)} {tag}")
+
+    # ---- the required-affinity mask route: K13 on every constrained
+    # batch, its rows equal to the host route's
+    thr = port.topology.DEVICE_EVAL_THRESHOLD
+    calls = route.calls
+    bad = [c for c in calls if not c["equal"]]
+    short = [c for c in calls
+             if c["launches"] != 1 or c["U"] * c["T"] * c["cap"] < thr]
+    if not calls or bad or short:
+        fail(f"service-anti-affinity: {len(calls)} required_masks calls, "
+             f"{len(bad)} unlike the host route, {len(short)} that did not "
+             f"launch K13 once at U*T*cap >= {thr}: "
+             f"{[(c['U'], c['T'], c['cap']) for c in bad + short][:5]}")
+    big = max(calls, key=lambda c: c["U"] * c["T"])
+    k13 = [a.elapsed_time(b) for v, a, b in rec.mask_events
+           if v in SVC_PATHS]
+
+    def mean(key):
+        return sum(key(c) for c in calls) / len(calls)
+    print(f"service-anti-affinity: {len(calls)} required_masks calls, "
+          f"every one through K13 at U*T*capacity >= {thr} (smallest "
+          f"{min(c['U'] * c['T'] * c['cap'] for c in calls)}), rows equal "
+          f"to the host route's bit for bit; largest U={big['U']} "
+          f"T={big['T']} capacity={big['cap']}; (U, T, K13 ms) per call "
+          f"{[(c['U'], c['T'], ms) for c, ms in zip(calls, k13)]}; "
+          f"seconds a call (inside launch): the whole route "
+          f"{mean(lambda c: c['route_s'])}, of which the host's stack and "
+          f"selectors {mean(lambda c: c['route_s'] - c['call_s'])} (per "
+          f"call {[c['route_s'] - c['call_s'] for c in calls]}) and "
+          f"affinity_masks (padding, upload, K13, download) "
+          f"{mean(lambda c: c['call_s'])}; K13 busy "
+          f"{sum(k13) / max(len(k13), 1)} ms a call over {len(k13)} "
+          f"launches; the host route's check {mean(lambda c: c['check_s'])}"
+          f" s a call (inside launch, in the wall) {tag}")
 
     # ---- the speculative route: every pod bound, no divergence
     for path, (variant, n_nodes, n_pods, forced) in SPEC_SCHED.items():
@@ -2734,22 +3073,11 @@ def main() -> None:
           f"{1 - busy / (wall * 1e3)} {tag}")
 
     lap("checks of the main paths")
-    # ---- kernel phase (on the main path's own inputs)
-    rows = kernel_phase(port, rec, launches)
-    for r in rows:
-        r["launches_per_path"] = {v: per_path[v][r["name"]]
-                                  for v in per_path}
-        print(f"  {r['name']} at {r['shape']}: bit-identical to plain; "
-              f"{r['ms']} ms per launch (plain {r['plain_ms']} ms, library "
-              f"{r['library_ms']} ms, bound {r['bound_ms']} ms by "
-              f"{r['bound_by']}); {r['launches']} launches on the main "
-              f"path {tag}")
-
-    lap("kernel phase")
-    # ---- the same drains with the plain versions on the card
+    # ---- the same drains with the plain versions on the card; the first
+    # scan of each is kept, and the kernel phase holds K2 against it
     for variant, chain in (("uniform", True), ("spread", False)):
         port.reset_launches()
-        with PlainOnCard(port):
+        with PlainOnCard(port), FirstScan(port, rec, variant):
             _, _, pres, pwall = run_drain(port, variant, dev, N_NODES,
                                           PLAIN_PODS, BATCH, chain)
         if any(port.launches().values()):
@@ -2764,7 +3092,7 @@ def main() -> None:
               f"({pwall} s) {tag}")
     for path, (variant, n_nodes, n_pods) in SCHED_PATHS.items():
         port.reset_launches()
-        with PlainOnCard(port):
+        with PlainOnCard(port), FirstScan(port, rec, path):
             pr = run_scheduler_drain(port, dev, n_nodes, n_pods, BATCH,
                                      variant)
         if any(port.launches().values()):
@@ -2778,9 +3106,21 @@ def main() -> None:
               f"kernels' ({pr['wall']} s) {tag}")
 
     # the gang drain with the plain versions: its largest (first) batch,
-    # held in gang_row above, to keep the script inside its time
+    # held in gang_row, to keep the script inside its time
 
     lap("plain drains")
+    # ---- kernel phase (on the main path's own inputs)
+    rows = kernel_phase(port, rec, route, launches)
+    for r in rows:
+        r["launches_per_path"] = {v: per_path[v][r["name"]]
+                                  for v in per_path}
+        print(f"  {r['name']} at {r['shape']}: bit-identical to plain; "
+              f"{r['ms']} ms per launch (plain {r['plain_ms']} ms, library "
+              f"{r['library_ms']} ms, bound {r['bound_ms']} ms by "
+              f"{r['bound_by']}); {r['launches']} launches on the main "
+              f"path {tag}")
+
+    lap("kernel phase")
     # ---- small drain: card against CPU
     for variant in ("uniform", "spread"):
         _, _, gres, _ = run_drain(port, variant, dev, SMALL_NODES,

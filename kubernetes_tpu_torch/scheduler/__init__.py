@@ -14,8 +14,9 @@ PyTorch and CUDA.
 
 KTPU_SPECULATIVE=1 (Scheduler(speculative=True)) routes class-table
 batches to the speculative cohort scan (kernels/speculative.py, K12).
-Not ported yet (ROADMAP): the affinity-mask device route and the sharded
-scan; those routes raise NotImplementedError.
+topology.py evaluates a large batch's required (anti-)affinity templates
+on the device (kernels/affinity.py, K13). Not ported yet (ROADMAP): the
+sharded scan; its routes raise NotImplementedError.
 """
 
 from .cache import Cache, Snapshot

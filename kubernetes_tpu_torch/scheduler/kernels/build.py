@@ -37,7 +37,9 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "gang_scan": "gang_scan.cu",
            "gang_feasible": "gang_feasible.cu",
            "price_domains": "price_domains.cu",
-           "spec_scan": "spec_scan.cu"}
+           "spec_scan": "spec_scan.cu",
+           "affinity_masks": "affinity_masks.cu",
+           "affinity_scores": "affinity_scores.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

@@ -10,7 +10,11 @@ pods in PodGroups of 8 on one tpu/slice, PodGroups of 4 without a
 topology key, and singletons), and bench.py preempt_main's preemption
 storm: a full cluster of bound low-priority victims under a
 PodDisruptionBudget, the high-priority pods that must preempt them, and
-its gangs that must preempt a whole slice. Every function here
+its gangs that must preempt a whole slice. And `service-anti-affinity`:
+services that keep one replica per host (pod i in service svc-{i % 1000},
+each with required anti-affinity to its own service on the hostname, the
+"Assigning Pods to Nodes" web-store pattern at scheduler_perf's
+BenchmarkSchedulingPodAntiAffinity topology). Every function here
 takes the API module to build with, so one seeded fixture can be built in
 this package's types and in the reference package's.
 """
@@ -27,6 +31,9 @@ VARIANTS = ("uniform", "node-affinity", "taints", "spread", "nominated")
 #: scan's topology counters or soft credit tables
 AFFINITY_VARIANTS = ("pod-affinity", "pod-anti-affinity",
                      "preferred-affinity")
+#: the services of the `service-anti-affinity` variant: 50 replicas each
+#: at 50,000 pods
+SERVICE_GROUPS = 1000
 
 
 def make_node(api, i: int, variant: str = "uniform", zones: int = 16):
@@ -100,6 +107,8 @@ def make_pod(api, i: int, variant: str = "uniform", shape: int = None):
                             label_selector=api.LabelSelector(
                                 match_labels={"grp": f"g{i % 16}"}),
                             topology_key=api.wellknown.LABEL_HOSTNAME))]))
+    elif variant == "service-anti-affinity":
+        return service_pod(api, i, SERVICE_GROUPS, shape)
     elif variant == "taints":
         # two thirds tolerate the dedicated taint; one third is confined
         # to the untainted half
@@ -107,6 +116,24 @@ def make_pod(api, i: int, variant: str = "uniform", shape: int = None):
             pod.spec.tolerations = [api.Toleration(
                 key="dedicated", operator="Equal", value="gpu",
                 effect="NoSchedule")]
+    return pod
+
+
+def service_pod(api, i: int, groups: int, shape: int = None):
+    """Pod i of the `service-anti-affinity` variant: a replica of service
+    svc-{i % groups} (label app) in bench.py's request shape i % 3, with
+    required anti-affinity to its own service on kubernetes.io/hostname,
+    so no two replicas of a service share a node."""
+    pod = make_pod(api, i, shape=shape)
+    app = f"svc-{i % groups}"
+    pod.metadata.labels["app"] = app
+    pod.spec.affinity = api.Affinity(
+        pod_anti_affinity=api.PodAntiAffinity(
+            required_during_scheduling_ignored_during_execution=[
+                api.PodAffinityTerm(
+                    label_selector=api.LabelSelector(
+                        match_labels={"app": app}),
+                    topology_key=api.wellknown.LABEL_HOSTNAME)]))
     return pod
 
 

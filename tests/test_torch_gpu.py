@@ -770,3 +770,77 @@ def test_price_domains_kernel_matches_plain(cuda, U):
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
     assert int(got[0]) >= 0
+
+
+# ------------------------------------------------------------ K13, K14
+
+
+def _affinity_inputs(seed, U, T, N):
+    """has_dom, present [T, N] bool and the three 0/1 selectors [U, T]
+    f32 as TopologyIndex.required_masks builds them: each template takes
+    one or two terms, as required affinity, waived affinity or
+    anti-affinity."""
+    rng = np.random.default_rng(seed)
+    has_dom = rng.random((T, N)) < 0.9
+    present = rng.random((T, N)) < 0.5
+    sels = [np.zeros((U, T), np.float32) for _ in range(3)]
+    u = np.repeat(np.arange(U), 2)
+    t = rng.integers(0, T, 2 * U)
+    kind = rng.integers(0, 3, 2 * U)
+    kind[1::2] = np.where(rng.random(U) < 0.5, kind[1::2], -1)
+    for k, sel in ((0, (0, 1)), (1, (0,)), (2, (2,))):
+        for j in sel:
+            sels[j][u[kind == k], t[kind == k]] = 1.0
+    return (has_dom, present, *sels)
+
+
+#: bucket-crossing shapes, shapes no tile divides, and the
+#: service-anti-affinity path's (U = 1,000 templates over T = 2,000 terms,
+#: bucketed to 1,024 x 2,048, on 8,192 rows)
+AFFINITY_SHAPES = [(1, 1, 24), (7, 9, 24), (9, 33, 128), (33, 7, 200),
+                   (100, 300, 1000), (1024, 2048, 8192)]
+
+
+@pytest.mark.parametrize("U,T,N", AFFINITY_SHAPES)
+def test_affinity_masks_kernel_matches_plain(cuda, U, T, N):
+    from kubernetes_tpu_torch.scheduler.kernels import affinity as ak
+    args = _affinity_inputs(U + T + N, U, T, N)
+    ts = [torch.from_numpy(a).to(cuda) for a in args]
+    before = ak.LAUNCHES["affinity_masks"]
+    got = ak.affinity_masks_tensors(*ts)
+    want = ak.affinity_masks_plain(*ts)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["affinity_masks"] == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert want.any() and not want.all()
+    # the bucket-padded numpy wrapper on the card against the CPU
+    np.testing.assert_array_equal(ak.affinity_masks(*args, device=cuda),
+                                  ak.affinity_masks(*args, device="cpu"))
+
+
+@pytest.mark.parametrize("U,T,N", AFFINITY_SHAPES)
+def test_affinity_scores_kernel_matches_plain(cuda, U, T, N):
+    """Bit for bit on integer inputs (weights in [-100, 100], counts in
+    [0, 50]); on random f32 within T · 2^-23 · sum|w·c| (each term order
+    within T · 2^-24 · sum|w·c| of the exact sum)."""
+    from kubernetes_tpu_torch.scheduler.kernels import affinity as ak
+    rng = np.random.default_rng(U * T + N)
+    w = torch.from_numpy(rng.integers(-100, 101, (U, T)).astype(
+        np.float32)).to(cuda)
+    c = torch.from_numpy(rng.integers(0, 51, (T, N)).astype(
+        np.float32)).to(cuda)
+    got = ak.affinity_scores_tensors(w, c)
+    want = ak.affinity_scores_plain(w, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    np.testing.assert_array_equal(
+        ak.affinity_scores(w.cpu().numpy(), c.cpu().numpy(), device=cuda),
+        ak.affinity_scores(w.cpu().numpy(), c.cpu().numpy(), device="cpu"))
+    w = torch.randn((U, T), generator=torch.Generator().manual_seed(T)).to(
+        cuda)
+    c = torch.randn((T, N), generator=torch.Generator().manual_seed(N)).to(
+        cuda)
+    got = ak.affinity_scores_tensors(w, c).double()
+    want = ak.affinity_scores_plain(w, c).double()
+    tol = T * 2.0 ** -23 * (w.abs().double() @ c.abs().double())
+    assert bool(((got - want).abs() <= tol).all())

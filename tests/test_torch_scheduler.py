@@ -17,9 +17,9 @@ schedule_pending and through drain_pipelined:
 
 Then the boundary: an unschedulable pod with preemption off, and with
 preemption on but nothing to evict, gives the same attribution,
-FailedScheduling event and pending state in both packages; an unported
-route (the affinity-mask device route) raises NotImplementedError out of
-the run loop instead of being printed; a mesh, KTPU_MESH and extenders
+FailedScheduling event and pending state in both packages; a
+NotImplementedError in a launch (what an unported route raises) stops
+the run loop and is raised, not printed; a mesh, KTPU_MESH and extenders
 raise.
 """
 
@@ -271,31 +271,26 @@ def test_preemption_raises_instead_of_printing(how, thread, monkeypatch):
 def test_run_loop_keeps_the_error_and_stop_raises_it(monkeypatch):
     """A route that is still unported stops the run loop; wait_for_idle
     and stop raise the error. (Gang batches drove this test until slice 6
-    ported them, KTPU_SPECULATIVE=1 until slice 7.) The route here is the
-    affinity-mask device route (topology.required_masks, ROADMAP Queue A
-    item 2), reached by lowering its size threshold so that a pod with
-    required anti-affinity takes it."""
-    from kubernetes_tpu_torch.scheduler import topology
-    monkeypatch.setattr(topology, "DEVICE_EVAL_THRESHOLD", 0)
+    ported them, KTPU_SPECULATIVE=1 until slice 7, the affinity-mask
+    device route until slice 8.) The loop reaches no unported route any
+    more (mesh, extenders and the WAL raise when they are built), so the
+    launch raises here, as an unported route inside it would."""
+    from kubernetes_tpu_torch.scheduler.core import BatchScheduler
+
+    def unported(self, pods, *a, **kw):
+        raise NotImplementedError("schedule_launch: an unported route")
+    monkeypatch.setattr(BatchScheduler, "schedule_launch", unported)
     client = TClient(validate=False)
     sched = TScheduler(client, batch_size=8, device="cpu")
     client.nodes().create(make_node(tapi, 0))
     sched.start()
     try:
-        pod = make_pod(tapi, 0)
-        pod.spec.affinity = tapi.Affinity(
-            pod_anti_affinity=tapi.PodAntiAffinity(
-                required_during_scheduling_ignored_during_execution=[
-                    tapi.PodAffinityTerm(
-                        label_selector=tapi.LabelSelector(
-                            match_labels={"app": "x"}),
-                        topology_key=tapi.wellknown.LABEL_HOSTNAME)]))
-        client.pods().create(pod)
+        client.pods().create(make_pod(tapi, 0))
         # the pod reaches the loop through the informer thread
         deadline = time.time() + 60
         while sched._loop_error is None and time.time() < deadline:
             time.sleep(0.01)
-        with pytest.raises(NotImplementedError, match="affinity"):
+        with pytest.raises(NotImplementedError, match="unported route"):
             sched.wait_for_idle(timeout=30)
     finally:
         with pytest.raises(NotImplementedError):
