@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
-one process per source, all started together: K1-K14), then:
+one process per source, all started together: K1-K15), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -120,6 +120,21 @@ one process per source, all started together: K1-K14), then:
        and `speculative-spread`, the stand-in spread drain with the
        route and the oracle on the BatchScheduler (gate forced open,
        spec_scan_spread), which must bind as `spread` did.
+     - the sharded class scan (K15 shard_scan: a mesh of node shards on
+       the card, one thread-block cluster, a CTA a shard):
+       `sharded-uniform` and `sharded-spread`, the uniform and spread
+       stand-in drains on a mesh of 8 shards (capacity 8,192, 1,024 rows
+       a CTA), whose every batch must run K15 and whose binds must equal
+       the unsharded drains' pod for pod; `sharded-scheduler`, the
+       nine-tenant scheduler loop through Scheduler(mesh=8) with the
+       commit thread on (scheduler_sharded_batches_total equal to the
+       batches and to K15's launches, shard_sync_seconds recorded);
+       `sharded-anti-affinity`, `-preferred` and `-nominated`, those
+       scheduler loops through Scheduler(mesh=8) (K15's topology, soft
+       and nominated instances), whose binds must equal the unsharded
+       loops'; `sharded-pad`, 10,000 uniform pods on 3 shards (capacity 8,192
+       padded to 8,193: one shard-pad row), whose binds must equal its
+       KTPU_SHARD_MAP=0 control's (K2 over the padded mirror).
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
@@ -172,7 +187,12 @@ one process per source, all started together: K1-K14), then:
      of the others) everything, the cohort stats included, its plain
      version's; it is timed beside K2 on the same batch, with its
      accepted-cohort and repaired-pod shares, and on the uniform batch at
-     cohort widths 8, 16 and 32. K13 runs the largest required_masks
+     cohort widths 8, 16 and 32. Each K15 instance replays the batch of
+     its K2 instance's path on 8 shards: assign, active pods' score bits
+     and usage finals equal to K2's, and on a prefix (2,048 pods; 256 of
+     the spread and preferred batches) everything equal to the plain
+     sharded scan on the card; timed beside K2, and on the uniform batch
+     at 2, 4 and 8 shards. K13 runs the largest required_masks
      call of the service-anti-affinity path and K14 integer inputs of
      its shapes (weights in [-100, 100], counts in [0, 50]), each held
      bit for bit against its plain version on the card;
@@ -305,6 +325,37 @@ SVC_PATHS = {"service-anti-affinity": ("service-anti-affinity", N_NODES,
                                        N_PODS)}
 #: the seed of K14's integer inputs in the kernel phase
 SCORES_SEED = 0
+#: the sharded class scan (K15): node shards of the main paths' mesh (one
+#: thread-block cluster of 8 CTAs; capacity 8,192 gives 1,024 rows a CTA)
+MESH_SHARDS = 8
+#: the stand-in drains on that mesh: path -> (the unsharded path whose
+#: binds it must equal pod for pod, chained)
+SHARD_DRAINS = {"sharded-uniform": ("uniform", True),
+                "sharded-spread": ("spread", False)}
+#: the scheduler loops of the anti-affinity, preferred and nominated paths
+#: on that mesh (K15's topology, soft and nominated instances), whose
+#: binds must equal the unsharded loops' (path -> the path it binds as)
+SHARD_SCHED = {"sharded-anti-affinity": "anti-affinity",
+               "sharded-preferred": "preferred",
+               "sharded-nominated": "nominated"}
+#: the pad path: D = 3 over the 5,000-node cluster (capacity 8,192 padded
+#: to 8,193, one shard-pad row) with this many pods, held against the
+#: KTPU_SHARD_MAP=0 control on the same mesh (K2 over the padded mirror)
+SHARD_PAD_D, SHARD_PAD_PODS = 3, 10_000
+#: the K15 instances, each replayed on the batch of its K2 instance's path
+#: (SCAN_ROWS), with the part of the reference's sharded scan it replaces
+SHARD_ROWS = (("shard_scan", "uniform", "batch.py:1109"),
+              ("shard_scan_spread", "spread", "batch.py:863"),
+              ("shard_scan_topo", "anti-affinity", "batch.py:1081"),
+              ("shard_scan_soft", "preferred", "batch.py:891"),
+              ("shard_scan_nom", "nominated", "batch.py:932"))
+#: pods of the prefix on which K15 is held against its plain version on
+#: the card: 2,048, or SHARD_PLAIN_OTHER on the spread and soft batches
+SHARD_PLAIN_PODS = {"uniform": 2048, "anti-affinity": 2048,
+                    "nominated": 2048}
+SHARD_PLAIN_OTHER = 256
+#: shard counts swept on the uniform batch
+SHARD_WIDTHS = (2, 4, 8)
 #: the per-pod rows of a device batch (PodBatchTensors.device): a prefix
 #: of the batch cuts these
 POD_AXIS = ("req", "nonzero_req", "mem_pressure_blocked", "active", "seq",
@@ -344,7 +395,15 @@ PATH_KERNELS = {"uniform": ("class_ms_init", "class_scan"),
                 "speculative-spread": ("class_ms_init", "spec_scan_spread"),
                 "service-anti-affinity": ("affinity_masks", "class_ms_init",
                                           "class_scan"),
-                "affinity-scores": ("affinity_scores",)}
+                "affinity-scores": ("affinity_scores",),
+                "sharded-uniform": ("class_ms_init", "shard_scan"),
+                "sharded-spread": ("class_ms_init", "shard_scan_spread"),
+                "sharded-scheduler": ("class_ms_init", "shard_scan",
+                                      "drf_dominant", "drf_order"),
+                "sharded-pad": ("class_ms_init", "shard_scan"),
+                "sharded-anti-affinity": ("class_ms_init", "shard_scan_topo"),
+                "sharded-preferred": ("class_ms_init", "shard_scan_soft"),
+                "sharded-nominated": ("class_ms_init", "shard_scan_nom")}
 #: the K9 instances, each held and timed on the largest batch of the
 #: path named
 GANG_ROWS = (("gang_scan_cap", "gang"),
@@ -422,6 +481,7 @@ class Port:
         import torch
         from kubernetes_tpu_torch import api, workload
         from kubernetes_tpu_torch.scheduler import drain as drain_mod
+        from kubernetes_tpu_torch.scheduler import sharding
         from kubernetes_tpu_torch.scheduler.cache import Cache
         from kubernetes_tpu_torch.scheduler.core import BatchScheduler
         from kubernetes_tpu_torch.scheduler import topology
@@ -452,11 +512,15 @@ class Port:
         self.Cache, self.BatchScheduler = Cache, BatchScheduler
         self.NodeInfo, self.pod_resource = NodeInfo, pod_resource
         self.SpreadListers = SpreadListers
+        self.sharding = sharding
 
-    def scheduler(self, n_nodes, variant, device):
+    def scheduler(self, n_nodes, variant, device, mesh=None):
+        """A BatchScheduler over the variant's cluster; `mesh` a shard
+        count (the sharded scan) or None."""
         return self.wl.build(self.api, self.Cache, self.BatchScheduler,
                              self.SpreadListers, n_nodes, variant,
-                             device=device)
+                             device=device,
+                             mesh=self.sharding.resolve_mesh(mesh, device))
 
     def pods(self, n, variant):
         return [self.wl.make_pod(self.api, i, variant) for i in range(n)]
@@ -540,9 +604,12 @@ class Recorder:
     def __enter__(self):
         kb = self.kb
         self._orig = {"schedule_batch_packed": kb.schedule_batch_packed,
+                      "schedule_batch_sharded_packed":
+                          kb.schedule_batch_sharded_packed,
                       "apply_dirty": kb.apply_dirty}
         orig_scan, orig_dirty = (self._orig["schedule_batch_packed"],
                                  self._orig["apply_dirty"])
+        orig_shard = self._orig["schedule_batch_sharded_packed"]
 
         def clone(d):
             return None if d is None else {k: v.clone() for k, v in d.items()}
@@ -580,7 +647,15 @@ class Recorder:
                                      clone(usage_rows))
             return timed(orig_dirty, node_cfg, usage, idx, cfg_rows,
                          usage_rows)
+
+        def shard(D, node_cfg, usage, pod_batch, nom=None):
+            if self.variant not in self.scan_inputs:
+                self.scan_inputs[self.variant] = (
+                    clone(node_cfg), clone(usage), clone(pod_batch),
+                    clone(nom))
+            return timed(orig_shard, D, node_cfg, usage, pod_batch, nom)
         kb.schedule_batch_packed = scan
+        kb.schedule_batch_sharded_packed = shard
         kb.apply_dirty = dirty
         tk = self.tk
         self._orig_tk = {"drf_dominant": tk.drf_dominant,
@@ -696,6 +771,7 @@ class PlainOnCard:
                 (ak, "_affinity_scores_cuda", ak.affinity_scores_plain),
                 (kb, "class_ms_init", kb.class_ms_init_plain),
                 (kb, "_class_scan_cuda", kb._class_scan_plain),
+                (kb, "_shard_scan_cuda", kb._shard_scan_plain),
                 (kb, "_pod_scan_cuda", kb._pod_scan_plain),
                 (kb, "apply_dirty", kb.apply_dirty_plain),
                 (tk, "drf_dominant", tk.drf_dominant_plain),
@@ -819,7 +895,7 @@ class FirstScan:
 
 
 def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
-                        variant="tenants", speculative=None):
+                        variant="tenants", speculative=None, mesh=None):
     """The scheduler loop on `device`, built as bench.py's run_config
     builds it: nodes and pods created through the port's Client, nodes
     and the variant's seeded bound pods fed to the cache, pods (features
@@ -828,13 +904,14 @@ def run_scheduler_drain(port, device, n_nodes, n_pods, batch,
     shape). `variant` "tenants" is the nine-tenant mix, any other a
     bench.py pod variant (`nominated` installs its ghost nominations, as
     bench.py's _install_variant_extras does); `speculative` is the
-    Scheduler's argument (True: the speculative cohort route). Returns the drain's
+    Scheduler's argument (True: the speculative cohort route), `mesh` too
+    (a shard count: the sharded scan). Returns the drain's
     numbers; host phases and
     the launch-to-committed latency of each batch are taken by wrapping
     the drain's own methods here (the package has no such hooks)."""
     client = port.Client(validate=False)
     sched = port.Scheduler(client, batch_size=batch, device=device,
-                           speculative=speculative)
+                           speculative=speculative, mesh=mesh)
     t0 = time.perf_counter()
     for i in range(n_nodes):
         node = port.wl.make_node(port.api, i)
@@ -1097,11 +1174,11 @@ def check_gang_preemption(port, label, r, n_nodes, n_gangs):
 
 
 def run_drain(port, variant, device, n_nodes, n_pods, batch, chain,
-              speculative=False):
+              speculative=False, mesh=None):
     """The stand-in drain (scheduler/drain.py) over bench.py's variant;
     `speculative` turns the BatchScheduler's speculative route and its
-    divergence oracle on."""
-    sched, cache = port.scheduler(n_nodes, variant, device)
+    divergence oracle on; `mesh` (a shard count) shards its node axis."""
+    sched, cache = port.scheduler(n_nodes, variant, device, mesh)
     sched.speculative = sched.spec_oracle = speculative
     pods = port.pods(n_pods, variant)
     t0 = time.perf_counter()
@@ -1146,7 +1223,9 @@ def check_affinity_drain(port, path, r):
     on one node; the same gates for a path's classic run."""
     variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED, **SVC_PATHS,
                                 **{k: v[:3] for k, v in
-                                   SPEC_SCHED.items()}}[path]
+                                   SPEC_SCHED.items()},
+                                **{k: SCHED_PATHS[v] for k, v in
+                                   SHARD_SCHED.items()}}[path]
     if r["bound"] != n_pods:
         fail(f"{path}: drain_pipelined bound {r['bound']} of {n_pods}")
     binds = dict(r["binds"])
@@ -1322,6 +1401,10 @@ def kernel_phase(port, rec, route, launches):
     # ---- K12, one row per instance, replayed on the same batches
     for name, path in SPEC_ROWS:
         rows.append(spec_row(port, rec, launches, name, path, k2_ms[path]))
+    # ---- K15, one row per instance, replayed on the same batches
+    for name, path, line in SHARD_ROWS:
+        rows.append(shard_row(port, rec, launches, name, path, line,
+                              k2_ms[path]))
     # ---- K8 on the uniform and spread batches
     rows.extend(filter_rows(port, rec, launches))
     # ---- K3 apply_dirty
@@ -1499,30 +1582,27 @@ def spec_stats(st, W, P):
     return float(st[:, 0].float().mean()), repaired / P
 
 
-def hold_spec_on_k2(port, label, packed, use, packed_2, use_2, active):
-    """K12 against K2 on one batch: assign, the active pods' score bits
-    and every post-batch usage final. (A padding pod is never checked for
-    collisions: its score is its frozen pick's, as in the JAX speculative
-    kernel.) Returns the count of pads whose score bits differ."""
+def hold_on_k2(port, label, packed, use, packed_2, use_2, active):
+    """A replay (K12's, K15's) against K2's results on the same batch:
+    assign, the active pods' score bits and every post-batch usage final.
+    (A padding pod's score may differ by route: under speculation it is
+    its frozen pick's, as in the JAX speculative kernel.) Returns the
+    count of pads whose score bits differ."""
     torch = port.torch
     differ = (packed[0] != packed_2[0]).nonzero().flatten()
     if len(differ):
         q = int(differ[0])
-        fail(f"K12 and K2 decide differently on {label}: {len(differ)} "
-             f"pods, first pod {q}: K12 row {int(packed[0, q])}, K2 row "
-             f"{int(packed_2[0, q])}")
+        fail(f"{label} decides unlike K2: {len(differ)} pods, first pod "
+             f"{q}: row {int(packed[0, q])}, K2 row {int(packed_2[0, q])}")
     sd = packed[1] != packed_2[1]
     q = (sd & active).nonzero().flatten()
     if len(q):
         q = int(q[0])
-        fail(f"K12 and K2 choose different scores on {label}: first active"
-             f" pod {q}: K12 bits {int(packed[1, q])}, K2 "
-             f"{int(packed_2[1, q])}")
-    if set(use) != set(use_2):
-        fail(f"K12 and K2 post-batch usage keys differ on {label}")
-    for k in use:
-        if not bits_equal(torch, use[k], use_2[k]):
-            fail(f"K12 and K2 post-batch usage {k} differs on {label}")
+        fail(f"{label} chooses scores unlike K2: first active pod {q}: "
+             f"bits {int(packed[1, q])}, K2 {int(packed_2[1, q])}")
+    if set(use) != set(use_2) or not all(
+            bits_equal(torch, use[k], use_2[k]) for k in use):
+        fail(f"{label}: post-batch usage unlike K2's")
     return int((sd & ~active).sum())
 
 
@@ -1530,7 +1610,7 @@ def spec_row(port, rec, launches, name, path, k2_ms):
     """K12's instance on the recorded batch of its K2 instance's path, at
     full size and the default cohort width, the contention gate forced
     open (spec_plain as set_speculative marks the batch): held against
-    K2's results on that batch (hold_spec_on_k2); on a prefix of the batch
+    K2's results on that batch (hold_on_k2); on a prefix of the batch
     (SPEC_PLAIN_PODS) held bit for bit, stats included, against its plain
     version on the card; K12 alone timed on a fresh table and carry, beside
     K2's time on the same batch; on the uniform batch the widths of
@@ -1550,8 +1630,8 @@ def spec_row(port, rec, launches, name, path, k2_ms):
     packed, use, st = sk.schedule_batch_speculative_packed(
         node_cfg, usage, pb, nom, width=W)
     torch.cuda.synchronize()
-    pads = hold_spec_on_k2(port, label, packed, use, packed_2, use_2,
-                           pb["active"])
+    pads = hold_on_k2(port, f"K12 {name} on {label}", packed, use, packed_2,
+                      use_2, pb["active"])
     acc, rep = spec_stats(st, W, P)
     # against the plain version on a prefix
     n = SPEC_PLAIN_PODS.get(path, SPEC_PLAIN_OTHER)
@@ -1597,8 +1677,8 @@ def spec_row(port, rec, launches, name, path, k2_ms):
             pw, uw, sw = sk.schedule_batch_speculative_packed(
                 node_cfg, usage, pb, nom, width=w)
             torch.cuda.synchronize()
-            hold_spec_on_k2(port, f"the {path} batch (width {w})", pw, uw,
-                            packed_2, use_2, pb["active"])
+            hold_on_k2(port, f"K12 on the {path} batch (width {w})", pw,
+                       uw, packed_2, use_2, pb["active"])
             wa, wr = spec_stats(sw, w, P)
             widths[str(w)] = {"ms": timed(pb, w), "accepted_cohorts":
                               int(sw[:, 0].sum()), "cohorts": P // w,
@@ -1638,6 +1718,98 @@ def spec_row(port, rec, launches, name, path, k2_ms):
             **({"widths": widths} if widths else {}),
             "bytes": bytes_, "ops": ops,
             "shape": c["shape"] + f" W={W} ({path} batch; plain on its "
+                                  f"first {n} pods)"}
+
+
+def shard_row(port, rec, launches, name, path, line, k2_ms):
+    """K15's instance on the recorded batch of its K2 instance's path, on
+    a mesh of MESH_SHARDS shards (one cluster of 8 CTAs): held against
+    K2's results on that batch (hold_on_k2), and on a prefix of the batch
+    (SHARD_PLAIN_PODS) bit for bit against the plain sharded scan on the
+    card; K15 alone timed on a fresh table and carry beside K2's time on
+    the same batch; on the uniform batch at the shard counts of
+    SHARD_WIDTHS too."""
+    torch, kb = port.torch, port.kb
+    node_cfg, usage, pb, nom = rec.scan_inputs[path]
+    spread, topo, dir2, soft = kb._scan_terms(pb)
+    runs_name = kb.scan_instance(spread, topo, soft, nom is not None,
+                                 "shard_scan")
+    if runs_name != name:
+        fail(f"the {path} batch runs {runs_name}, not {name}")
+    D = MESH_SHARDS
+    P = pb["class_idx"].shape[0]
+    packed_2, use_2 = rec.k2_out[path]
+    packed, use = kb.schedule_batch_sharded_packed(D, node_cfg, usage, pb,
+                                                   nom)
+    torch.cuda.synchronize()
+    pads = hold_on_k2(port, f"K15 {name} on the {path} batch", packed, use,
+                      packed_2, use_2, pb["active"])
+    n = SHARD_PLAIN_PODS.get(path, SHARD_PLAIN_OTHER)
+    pp = prefix_batch(pb, n)
+    packed_pk, use_pk = kb.schedule_batch_sharded_packed(D, node_cfg, usage,
+                                                         pp, nom)
+    plain_ms, (a, sc, use_p) = time_host(
+        torch, lambda: kb.schedule_batch_sharded_plain(D, node_cfg, usage,
+                                                       pp, nom))
+    packed_p = kb.pack_results(a, sc)
+    torch.cuda.synchronize()
+    if not torch.equal(packed_pk, packed_p):
+        fail(f"K15 {name} disagrees with its plain version on the first {n}"
+             f" pods of the {path} batch ({int((packed_pk != packed_p).sum())}"
+             " packed entries)")
+    if set(use_pk) != set(use_p) or not all(
+            bits_equal(torch, use_pk[k], use_p[k]) for k in use_p):
+        fail(f"K15 {name} post-batch usage disagrees with its plain version"
+             f" on the first {n} pods of the {path} batch")
+    err = max(max_abs(torch, packed_pk[0], packed_p[0]),
+              max_abs(torch, packed_pk[1].view(torch.float32),
+                      packed_p[1].view(torch.float32)),
+              *(max_abs(torch, use_pk[k], use_p[k]) for k in use_p))
+    cls = {k: pb[k] for k in kb._CLASS_KEYS}
+    rw = pb["resource_weights"]
+
+    def timed(shards):
+        def shard_only():
+            # a fresh table and carry for each run; only K15 is timed
+            _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb,
+                                                     nom)
+            return lambda: kb._shard_scan_cuda(shards, node_cfg, pb, cls, rw,
+                                               ms0, carry, terms, nom)
+        runs = [time_cuda(torch, shard_only(), reps=1, warm=0)
+                for _ in range(3)]
+        return sum(runs[1:]) / 2   # the first run pays the library load
+    ms = timed(D)
+    widths = {}
+    if path == "uniform":
+        for d in SHARD_WIDTHS:
+            pw, uw = kb.schedule_batch_sharded_packed(d, node_cfg, usage, pb,
+                                                      nom)
+            torch.cuda.synchronize()
+            hold_on_k2(port, f"K15 at {d} shards on the {path} batch", pw,
+                       uw, packed_2, use_2, pb["active"])
+            widths[str(d)] = {"ms": ms if d == D else timed(d),
+                              "equals_k2": True}
+    c = scan_costs(kb, node_cfg, usage, pb, nom, packed, use)
+    # K2's work, and per pod the election's D candidates
+    ops = c["P"] * (c["N"] * c["per_node"] + c["per_pod"] + D) \
+        + c["term_ops"]
+    b = bound(c["bytes"], ops)
+    return {"name": name, "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/shard_scan.cu"
+                      " + class_step.cuh"
+                      + (" + affinity.cuh" if topo or soft else ""),
+            "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None, "match": True, "shards": D,
+            "k2_ms": k2_ms, "k2_over_k15": k2_ms / ms,
+            "equals_k2": "assign, active score bits, usage finals",
+            "pad_score_bits_differ_from_k2": pads,
+            "plain_prefix_pods": n,
+            **({"widths": widths} if widths else {}),
+            "bytes": c["bytes"], "ops": ops,
+            "shape": c["shape"] + f" D={D} ({path} batch; plain on its "
                                   f"first {n} pods)"}
 
 
@@ -2689,6 +2861,46 @@ def main() -> None:
                                          BATCH, False, speculative=True)
             per_path[path] = port.launches()
             lap(path)
+        # the sharded class scan (K15) on a mesh of node shards
+        for path, (variant, chain) in SHARD_DRAINS.items():
+            rec.variant = path
+            port.reset_launches()
+            drains[path] = run_drain(port, variant, dev, N_NODES, N_PODS,
+                                     BATCH, chain, mesh=MESH_SHARDS)
+            per_path[path] = port.launches()
+            lap(path)
+        rec.variant = "sharded-scheduler"
+        port.reset_launches()
+        shs = run_scheduler_drain(port, dev, N_NODES, N_PODS, BATCH,
+                                  mesh=MESH_SHARDS)
+        per_path["sharded-scheduler"] = port.launches()
+        lap("sharded-scheduler")
+        for path, base in SHARD_SCHED.items():
+            variant, n_nodes, n_pods = SCHED_PATHS[base]
+            rec.variant = path
+            port.reset_launches()
+            aff[path] = run_scheduler_drain(port, dev, n_nodes, n_pods,
+                                            BATCH, variant, mesh=MESH_SHARDS)
+            per_path[path] = port.launches()
+            lap(path)
+        rec.variant = "sharded-pad"
+        port.reset_launches()
+        shard_pad = run_drain(port, "uniform", dev, N_NODES, SHARD_PAD_PODS,
+                              BATCH, True, mesh=SHARD_PAD_D)
+        per_path["sharded-pad"] = port.launches()
+        lap("sharded-pad")
+    # the pad path's control on the same mesh: KTPU_SHARD_MAP=0 keeps the
+    # batches on K2 over the padded mirror, and no K15 launches
+    port.reset_launches()
+    with env_set("KTPU_SHARD_MAP", "0"):
+        pad_ctrl = run_drain(port, "uniform", dev, N_NODES, SHARD_PAD_PODS,
+                             BATCH, True, mesh=SHARD_PAD_D)
+    ctrl_launches = port.launches()
+    if not ctrl_launches["class_scan"] or any(
+            v for k, v in ctrl_launches.items() if k.startswith("shard_")):
+        fail(f"sharded-pad control (KTPU_SHARD_MAP=0): launches "
+             f"{ctrl_launches}, not K2 alone")
+    lap("sharded-pad control")
     # the serial control: no kernel prices it
     port.reset_launches()
     serial = run_storm(port, dev, STORM_NODES, STORM_PODS, False)
@@ -2812,8 +3024,9 @@ def main() -> None:
         busy = sum(a.elapsed_time(b) for v, a, b in rec.events
                    if v == path)
         wall = r["wall"]
-        variant, n_nodes, n_pods = {**SCHED_PATHS, **CLASSIC_SCHED,
-                                    **SVC_PATHS}[path]
+        variant, n_nodes, n_pods = {
+            **SCHED_PATHS, **CLASSIC_SCHED, **SVC_PATHS,
+            **{k: SCHED_PATHS[v] for k, v in SHARD_SCHED.items()}}[path]
         print(f"main path: {path} drain_pipelined of {n_pods} pods "
               f"(variant {variant}, {len(r['seeds'])} seeded pods, "
               f"{len(r['sched'].queue.nominated.by_node())} ghost-nominated "
@@ -2927,6 +3140,99 @@ def main() -> None:
               f"per batch (width, cohorts, collided, repaired) "
               f"{list(sched.spec_batch_log)}) binds every pod as the "
               f"{variant} path's serial scan did")
+    # ---- the sharded class scan (K15): every batch through it, binds
+    # equal to the unsharded paths' (the pad path's: its control's)
+    def count(path, *prefixes):
+        return sum(v for k, v in per_path[path].items()
+                   if k.startswith(prefixes))
+    unsharded = ("class_scan", "pod_scan", "spec_scan", "gang_scan")
+    for path, (variant, _) in SHARD_DRAINS.items():
+        sched, _, res, _ = drains[path]
+        got, want = res.binds, drains[variant][2].binds
+        n = sum(got.get(k) != v for k, v in want.items())
+        if n or len(got) != len(want):
+            fail(f"{path}: {n} of {len(want)} binds differ from the "
+                 f"{variant} path's (K2's)")
+        if res.sharded != res.batches or \
+                count(path, "shard_scan") != res.batches or \
+                count(path, *unsharded):
+            fail(f"{path}: {res.sharded} sharded batches of {res.batches}, "
+                 f"launches {per_path[path]}")
+        cap = sched.mirror.t.capacity
+        print(f"{path}: {MESH_SHARDS} shards, capacity {cap} "
+              f"({cap // MESH_SHARDS} rows a CTA, "
+              f"{sched.mirror.shard_pad_rows} shard-pad rows): "
+              f"{res.batches} batches, every one through K15; binds every "
+              f"pod as the {variant} path's K2 did")
+    r = shs
+    if r["bound"] != N_PODS:
+        fail(f"sharded-scheduler: drain_pipelined bound {r['bound']} of "
+             f"{N_PODS}")
+    check_capacity(port, "sharded-scheduler", N_NODES, r["pods"],
+                   r["binds"])
+    if not r["commit_thread"]:
+        fail("sharded-scheduler: the commit thread was off on the card")
+    m = r["sched"].metrics
+    lat = [t * 1e3 for t in r["latency"]]
+    sb = m.sharded_batches.value()
+    if sb != len(lat) or count("sharded-scheduler", "shard_scan") != sb \
+            or count("sharded-scheduler", *unsharded):
+        fail(f"sharded-scheduler: scheduler_sharded_batches_total {sb}, "
+             f"{len(lat)} batches, launches {per_path['sharded-scheduler']}")
+    sync = m.shard_sync_seconds
+    busy = sum(a.elapsed_time(b) for v, a, b in rec.events
+               if v == "sharded-scheduler")
+    wall = r["wall"]
+    print(f"main path: sharded-scheduler drain_pipelined of {N_PODS} pods of "
+          f"{N_TENANTS} tenants onto {N_NODES} nodes, Scheduler(mesh="
+          f"{MESH_SHARDS}), batches of {BATCH}, commit thread on: all bound "
+          f"in the store, capacity held, scheduler_sharded_batches_total {sb}"
+          f" = batches = K15 launches; {wall} s = {N_PODS / wall} pods/s; "
+          f"batch latency (launch to committed) p50 {pct(lat, 0.5)} ms p99 "
+          f"{pct(lat, 0.99)} ms over {len(lat)} batches; "
+          f"scheduler_shard_sync_seconds count {sync.count()} sum "
+          f"{sync.sum()} s; launches {per_path['sharded-scheduler']}; host "
+          f"phases (s): drf order {r['phases']['drf_order']} launch "
+          f"{r['phases']['launch']} finish {r['phases']['finish']} commit "
+          f"(commit thread) {r['phases']['commit']}, inside them "
+          f"{r['phase_stats']}; cluster set-up {r['setup_s']} s; device busy "
+          f"in the kernel calls {busy} ms of {wall * 1e3} ms wall, idle share "
+          f"{1 - busy / (wall * 1e3)} {tag}")
+    for path, base in SHARD_SCHED.items():
+        r = aff[path]
+        got, want = r["binds"], aff[base]["binds"]
+        if got != want:
+            n = sum(got.get(k) != v for k, v in want.items())
+            fail(f"{path}: {n} binds differ from the {base} path's (K2's)")
+        sb = r["sched"].metrics.sharded_batches.value()
+        if sb != len(r["latency"]) or count(path, "shard_scan") != sb or \
+                count(path, *unsharded):
+            fail(f"{path}: scheduler_sharded_batches_total {sb}, "
+                 f"{len(r['latency'])} batches, launches {per_path[path]}")
+        print(f"{path}: {MESH_SHARDS} shards, every batch through K15 "
+              f"({int(sb)}); binds every pod as the {base} path's K2 did")
+    sched, pods, res, wall = shard_pad
+    cap = sched.mirror.t.capacity
+    bucket = max(128, 1 << (N_NODES - 1).bit_length())
+    want_cap = port.sharding.shard_divisible(bucket, SHARD_PAD_D)
+    if cap != want_cap or sched.mirror.shard_pad_rows != want_cap - bucket:
+        fail(f"sharded-pad: capacity {cap}, {sched.mirror.shard_pad_rows} "
+             f"shard-pad rows; want {want_cap}, {want_cap - bucket}")
+    check_capacity(port, "sharded-pad", N_NODES, pods, res.binds)
+    if res.sharded != res.batches or \
+            count("sharded-pad", "shard_scan") != res.batches:
+        fail(f"sharded-pad: {res.sharded} sharded batches of {res.batches}, "
+             f"launches {per_path['sharded-pad']}")
+    n = sum(res.binds.get(k) != v for k, v in pad_ctrl[2].binds.items())
+    if n or len(res.binds) != len(pad_ctrl[2].binds):
+        fail(f"sharded-pad: {n} binds differ from its KTPU_SHARD_MAP=0 "
+             "control")
+    print(f"sharded-pad: {SHARD_PAD_PODS} pods onto {N_NODES} nodes on "
+          f"{SHARD_PAD_D} shards, capacity {cap} ({cap // SHARD_PAD_D} rows "
+          f"a CTA, {sched.mirror.shard_pad_rows} shard-pad row): "
+          f"{res.batches} batches through K15 ({wall} s), all bound, "
+          f"capacity held, binds equal to the KTPU_SHARD_MAP=0 control's "
+          f"(K2 over the padded mirror, {pad_ctrl[3]} s) {tag}")
     # ---- the storm: every K6 decision against the plain version
     bad = 0
     for args, got in rec.storm_price:

@@ -6,7 +6,7 @@ reference) to PyTorch, with hand-written CUDA kernels for Hopper
 and numpy, never jax and never kubernetes_tpu: the device-free modules it
 needs are copies under the same relative paths.
 
-Ported so far (slices 1 and 2):
+Ported so far (slices 1-9; every device kernel of the reference):
   api/, runtime/, utils/, observability/
                  copies of the object model, scheme, clock, feature
                  gates, metrics, backoff, traces and span tracer
@@ -16,8 +16,13 @@ Ported so far (slices 1 and 2):
                  SchedulingQueue, cache, predicates, priorities, score and
                  term compilers, gang gate (copies); tensorize and core
                  (ported); drain.py, the single-threaded chained drain
-  scheduler/kernels/batch.py  K1 class_ms_init, K2 class_scan,
-                              K3 apply_dirty, each with its plain version
+  scheduler/kernels/  K1 class_ms_init, K2 class_scan, K3 apply_dirty,
+                 K7 pod_scan, K8 filter_score, K15 shard_scan (batch.py),
+                 K6 / K11 pricing (preempt.py), K9 / K10 gangs (gang.py),
+                 K12 speculative cohorts, K13 / K14 affinity masks and
+                 scores, each with its plain version
+  scheduler/sharding.py  the mesh: D node shards on the card (K15's
+                 thread-block cluster)
   tenancy/       DRF account with K4 drf_dominant and K5 drf_order
                  (kernels.py), bands and gang quota (copies)
   convert.py     numpy state -> the port's tensors (the tests feed both

@@ -15,8 +15,10 @@ PyTorch and CUDA.
 KTPU_SPECULATIVE=1 (Scheduler(speculative=True)) routes class-table
 batches to the speculative cohort scan (kernels/speculative.py, K12).
 topology.py evaluates a large batch's required (anti-)affinity templates
-on the device (kernels/affinity.py, K13). Not ported yet (ROADMAP): the
-sharded scan; its routes raise NotImplementedError.
+on the device (kernels/affinity.py, K13). A mesh (Scheduler(mesh=D),
+KTPU_MESH, sharding.py) splits the node axis into D shards of the
+sharded class scan on the card (kernels/batch.py schedule_batch_sharded,
+K15: one thread-block cluster, a CTA a shard).
 """
 
 from .cache import Cache, Snapshot

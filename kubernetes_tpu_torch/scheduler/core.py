@@ -39,8 +39,11 @@ The scheduler loop (scheduler.py) also reads the host-side helpers kept
 here: soft_batch_limit and topo_scan_likely (drain sub-chunking) and
 explain / FitError (failure diagnosis).
 
-Routes outside the ported slices raise NotImplementedError at the point
-where they would reach an unported kernel: the sharded mesh (ROADMAP).
+With a mesh (BatchScheduler(mesh=...), a sharding.ShardMesh of D node
+shards on the card) class-table batches take the sharded class scan
+(K1 + K15, kernels/batch.py schedule_batch_sharded), decisions equal to
+the reference's shard-mapped scan; KTPU_SHARD_MAP=0, or a capacity D
+does not divide, keeps them on K2 over the padded mirror.
 KTPU_CLASS_SCAN=0 routes batches to the classic per-pod scan (K7), the
 reference's parity control of the class route. KTPU_SPECULATIVE=1 (or
 Scheduler(speculative=True)) routes class-table batches that pass the
@@ -63,6 +66,7 @@ from ..api.serde import deepcopy_obj
 from .cache import Cache, Snapshot
 from .nodeinfo import NodeInfo, pod_has_affinity_constraints
 from . import predicates as preds
+from . import sharding
 from .tensorize import PodBatchTensors, TensorMirror, TermCompiler
 from .topology import AffinityProfile, BatchOverlay, TopologyIndex
 
@@ -164,6 +168,10 @@ class PendingBatch:
     #: divergence oracle (KTPU_SPEC_ORACLE=1): schedule_finish replays the
     #: serial scan on these inputs and attributes any mismatch
     spec_inputs: object = None
+    #: True when this batch ran the sharded class scan (K15: per-shard
+    #: filter and score, cross-shard election) — schedule_finish
+    #: attributes its fetch wait to scheduler_shard_sync_seconds
+    sharded: bool = False
 
 
 class _RepairReassigner:
@@ -314,13 +322,17 @@ class BatchScheduler:
                  hard_pod_affinity_weight: Optional[int] = None,
                  volume_binder=None,
                  pvc_lister=None, pv_lister=None,
-                 nominated=None, pdb_lister=None, device=None):
+                 nominated=None, pdb_lister=None, device=None,
+                 mesh=None):
         from . import priorities as prios_mod
         from .queue import NominatedPodMap
         from .scorer import ScoreCompiler
         from .volumebinder import FakeVolumeBinder
         #: the torch device the kernels run on (CUDA unless asked)
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"BatchScheduler: mesh {mesh} is not on the "
+                             f"device {self.device}")
         #: shared with the SchedulingQueue; feeds the kernel's reservation
         #: tensors and preemption's nominated-to-clear list
         self.nominated = nominated if nominated is not None else NominatedPodMap()
@@ -340,7 +352,9 @@ class BatchScheduler:
             pvc_lister, pv_lister)
         self.cache = cache
         self.snapshot = Snapshot()
-        self.mirror = TensorMirror(device=self.device)
+        #: with a mesh the mirror pads its capacity shard-divisibly and
+        #: class-table batches take the sharded scan (K15)
+        self.mirror = TensorMirror(device=self.device, mesh=mesh)
         self.terms = TermCompiler(self.mirror)
         #: the M3 incremental topologyPairsMaps analog (topology.py)
         self.topology = TopologyIndex(self.mirror)
@@ -1525,6 +1539,7 @@ class BatchScheduler:
             self.chained_launches += 1
         else:
             node_cfg, usage = self.mirror.device_cfg_usage()
+        sharded = False
         spec_stats = None
         spec_inputs = None
         if gang_units is not None:
@@ -1536,6 +1551,20 @@ class BatchScheduler:
                 node_cfg, usage, batch.device(self.device),
                 self._gang_device_table(gang_units, batch), nom_dev,
                 exempt_mates=True)
+        elif batch._class_tables is not None \
+                and sharding.use_shard_map(self.mirror.mesh,
+                                           self.mirror.t.capacity):
+            # the sharded drain's hot path: per-shard filter and score with
+            # a cross-shard election (K1 + K15, one thread-block cluster of
+            # D CTAs) — decisions equal to the unsharded class scan's where
+            # the capacities coincide; speculation never applies here
+            from .kernels.batch import schedule_batch_sharded_packed
+            sharded = True
+            if self.sched_metrics is not None:
+                self.sched_metrics.sharded_batches.inc()
+            packed, new_usage = schedule_batch_sharded_packed(
+                sharding.n_shards(self.mirror.mesh), node_cfg, usage,
+                batch.device(self.device), nom_dev)
         elif self.speculative and batch._class_tables is not None:
             # speculative cohort assignment (kernels/speculative.py): K-pod
             # cohorts elected against the frozen class table, exact
@@ -1570,8 +1599,14 @@ class BatchScheduler:
         else:
             packed, new_usage = schedule_batch_packed(
                 node_cfg, usage, batch.device(self.device), nom_dev)
+        if self.sched_metrics is not None and self.mirror.mesh is not None:
+            # padding added for shard divisibility is visible: the gauge
+            # tracks the mirror's current shard-pad rows
+            self.sched_metrics.mirror_shard_pad_rows.set(
+                self.mirror.shard_pad_rows)
         return PendingBatch(pods=pods, profiles=profiles, batch=batch,
                             packed=packed, new_usage=new_usage,
+                            sharded=sharded,
                             residual_free=residual_free,
                             affinity_chainable=affinity_chainable,
                             chained=chaining,
@@ -1654,7 +1689,12 @@ class BatchScheduler:
         t_sw = tr.now() if tr is not None else 0.0
         t0 = _time.perf_counter()
         assign, scores = unpack_results(pending.packed)
-        self.phase_stats["scan_wait_s"] += _time.perf_counter() - t0
+        fetch_wait = _time.perf_counter() - t0
+        self.phase_stats["scan_wait_s"] += fetch_wait
+        if pending.sharded and self.sched_metrics is not None:
+            # the fetch drains the cluster's cross-shard election: the wall
+            # time spent synchronizing the mesh for this batch
+            self.sched_metrics.shard_sync_seconds.observe(fetch_wait)
         if tr is not None:
             tr.record("scheduler", "scan_wait", t_sw, tr.now(),
                       pods=len(pending.pods))

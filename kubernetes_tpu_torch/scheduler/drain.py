@@ -7,7 +7,9 @@ the smallest caller of the chained launch. Batch k+1 launches chained on
 batch k before k's results are fetched, so the card runs k+1's scan
 while the host repairs and commits k. Winners are committed with cache.assume_pod; the only
 cache mutations between two launches are the drain's own assumes, which
-is what the chain_seq check asks.
+is what the chain_seq check asks. A BatchScheduler built with a mesh
+(workload.build(..., mesh=)) drains sharded: its class-table batches take
+the sharded scan, counted in DrainResult.sharded.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ class DrainResult:
     batch_seconds: List[float] = field(default_factory=list)
     batches: int = 0
     chained: int = 0
+    #: batches that ran the sharded class scan (PendingBatch.sharded)
+    sharded: int = 0
     #: host seconds in schedule_launch, schedule_finish and the commit
     launch_s: float = 0.0
     finish_s: float = 0.0
@@ -68,6 +72,7 @@ def drain(sched, pods: list, batch_size: int, chain: bool = True
                 pos += len(chunk)
                 out.batches += 1
                 out.chained += int(nxt.chained)
+                out.sharded += int(nxt.sharded)
         if pending is not None:
             if pending.chained:
                 # the predecessor's winners postdate this batch's

@@ -26,6 +26,15 @@ hand-written CUDA kernel (csrc/):
                           pod's fits and score over all N rows
                           (csrc/pod.cuh, _pod_feasible / _pod_score), with
                           the same carried terms and overlay as K2
+    schedule_batch_sharded
+                   -> K15 csrc/shard_scan.cu      the class route on a
+                          mesh of D node shards (sharding.py), one launch
+                          per batch: one thread-block cluster of D CTAs,
+                          CTA r owning rows [r*N/D, (r+1)*N/D); per pod
+                          the shards' reductions and the (score, row)
+                          election cross the cluster through distributed
+                          shared memory; decisions equal to K2's where the
+                          capacities coincide
     filter_score   -> K8  csrc/filter_score.cu    [P, N] fits and masked
                           scores against the frozen snapshot
     apply_dirty    -> K3  csrc/apply_dirty.cu     dirty-row scatter
@@ -34,8 +43,8 @@ Dispatch is by tensor device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (a build or launch failure raises; it
 never gives way to the plain version). LAUNCHES counts kernel launches,
 one per launch, so a run can show that its main path went through them.
-K2 and K7 are each one template instantiated per set of carried terms
-(spread groups, topology counters, soft credits) and the nominated
+K2, K7 and K15 are each one template instantiated per set of carried
+terms (spread groups, topology counters, soft credits) and the nominated
 overlay; each instance counts under its own name (scan_instance).
 
 State layout (host mirror: tensorize.TensorMirror):
@@ -72,12 +81,17 @@ COL_MEM = 1
 #: the widest usage row the nominated overlay folds on the card
 #: (csrc/score.cuh KTPU_MAX_R)
 MAX_R = 64
+#: the most node shards the sharded scan takes: K15's thread-block
+#: cluster of up to 8 CTAs, the portable cluster size on Hopper
+#: (csrc/shard_scan.cu KTPU_MAX_SHARDS)
+MAX_SHARDS = 8
 
 
 def scan_instance(has_spread: bool, has_topo: bool, has_soft: bool,
                   has_nom: bool = False, kernel: str = "class_scan") -> str:
-    """The name of the instance of `kernel` (K2 "class_scan" or K7
-    "pod_scan") that scans a batch with these carried terms and, with
+    """The name of the instance of `kernel` (K2 "class_scan", K7
+    "pod_scan", K15 "shard_scan") that scans a batch with these carried
+    terms and, with
     `has_nom`, the nominated overlay (the bare kernel name when it
     carries none)."""
     return kernel + "_spread" * has_spread + "_topo" * has_topo \
@@ -89,7 +103,8 @@ LAUNCHES: Dict[str, int] = {
     "class_ms_init": 0, "apply_dirty": 0, "filter_score": 0,
     "filter_score_spread": 0,
     **{scan_instance(sp, tp, sf, nm, kernel): 0
-       for kernel in ("class_scan", "pod_scan") for nm in (False, True)
+       for kernel in ("class_scan", "pod_scan", "shard_scan")
+       for nm in (False, True)
        for sp in (False, True) for tp in (False, True)
        for sf in (False, True)}}
 
@@ -322,11 +337,21 @@ def spread_score(cnt_g, fits, zone_of, zinit):
     maxz = torch.where(z_idx > 0, zs, 0.0).amax(-1, keepdim=True)
     have_zones = torch.where(fits & (zone_of > 0), 1.0, 0.0).amax(
         -1, keepdim=True) > 0
+    return spread_blend(cnt_g, zone_of, zs, maxc, maxz, have_zones)
+
+
+def spread_blend(cnt_g, zone_of, zs, maxc, maxz, have_zones):
+    """The SelectorSpread score of each row from the feasible set's
+    reductions (batch.py _spread_score after its reduce; the sharded
+    scan's _spread_score_sharded after its pmax / psum): the max count
+    `maxc`, the zone sums `zs` [..., Z], their named-zone max `maxz` and
+    `have_zones`, broadcast against cnt_g's leading axes."""
+    Z = zs.shape[-1]
     node_s = torch.where(maxc > 0,
                          MAX_PRIORITY * (maxc - cnt_g)
                          / torch.clamp_min(maxc, 1.0), MAX_PRIORITY)
     zone_at = torch.gather(zs, -1, zone_of.clamp(0, Z - 1).long().expand(
-        cf.shape))
+        cnt_g.shape))
     zone_s = torch.where((zone_of > 0) & (maxz > 0),
                          MAX_PRIORITY * (maxz - zone_at)
                          / torch.clamp_min(maxz, 1.0), MAX_PRIORITY)
@@ -372,11 +397,14 @@ def topo_bad(anti_dom, carry, anti_tids, aff_tids, cmatch_tids):
         anti_dom, carry["topo_cnt"], aff_tids)).any(dim=0)
 
 
-def _scatter_counts(anti_dom, table, tids, best, ok, tot=None):
+def _scatter_counts(anti_dom, table, tids, best, ok, tot=None, d=None):
     """Add 1.0 at (tids[k], domain of `best`) for every real entry, 0.0
-    at the clamped index otherwise, as .at[].add does."""
+    at the clamped index otherwise, as .at[].add does. `d` gives the
+    domains of `best` when the caller has them (the sharded scan's
+    broadcast from the winner's shard)."""
     t = tids.clamp_min(0).long()
-    d = anti_dom[t, best]
+    if d is None:
+        d = anti_dom[t, best]
     val = ((tids >= 0) & (d >= 0) & ok).to(torch.float32)
     table.index_put_((t, d.clamp_min(0).long()), val, accumulate=True)
     if tot is not None:
@@ -413,17 +441,24 @@ def soft_score(raw, fits, weight):
     or a flat row."""
     mn = torch.where(fits, raw, float("inf")).min()
     mx = torch.where(fits, raw, float("-inf")).max()
+    return soft_norm(raw, mn, mx, weight)
+
+
+def soft_norm(raw, mn, mx, weight):
+    """_soft_score from the feasible set's min `mn` and max `mx` of raw
+    (the sharded scan reduces them across shards first)."""
     span_ok = (mx > mn) & torch.isfinite(mn)
     norm = torch.floor(MAX_PRIORITY * (raw - mn)
                        / torch.clamp_min(mx - mn, 1e-30) + 4e-6)
     return torch.where(span_ok, weight * norm, 0.0)
 
 
-def soft_write(soft_dom, soft_cnt, write_tids, write_w, best, ok):
+def soft_write(soft_dom, soft_cnt, write_tids, write_w, best, ok, d=None):
     """The winner's credit writes at the chosen node's domains, in place
-    (batch.py _soft_write)."""
+    (batch.py _soft_write); `d` as in _scatter_counts."""
     t = write_tids.clamp_min(0).long()
-    d = soft_dom[t, best]
+    if d is None:
+        d = soft_dom[t, best]
     val = torch.where((write_tids >= 0) & (d >= 0) & ok, write_w, 0.0)
     soft_cnt.index_put_((t, d.clamp_min(0).long()), val, accumulate=True)
 
@@ -1055,6 +1090,260 @@ def schedule_batch(node_cfg: dict, usage: dict, pod_batch: dict,
     packed, new_usage = schedule_batch_packed(node_cfg, usage, pod_batch,
                                               nom)
     return packed[0], packed[1].view(torch.float32), new_usage
+
+
+# ------------------------------------------------------------ K15
+
+
+#: the reference's pmin identity for the elected row (batch.py
+#: _INT32_MAX)
+_INT32_MAX = 2147483647
+
+
+def shard_elect(lmax, lbest, Nl: int):
+    """The cross-shard winner (batch.py _sharded_class_scan :970-985):
+    lmax [D] each shard's tie-penalized maximum, lbest [D] its first
+    local row at that maximum. pmax of the maxima, then pmin of the
+    global rows (r * Nl + lbest[r]) among the shards at that max. The
+    comparison is float ==, so a -0.0 and a +0.0 maximum tie and the
+    lower row wins, as the pmax + pmin pair gives it. 0-d int64."""
+    D = lmax.shape[0]
+    rows = torch.arange(D, device=lmax.device) * Nl + lbest
+    return torch.where(lmax == lmax.amax(), rows, _INT32_MAX).amin()
+
+
+def _from_owner(vals, owner, fill):
+    """The reference's owner broadcast: pmax over the shards (axis 0 of
+    `vals`, [D, ...]) of `vals` on the owning shard and `fill` on every
+    other (fill loses to every real value: -1 for a domain id, NEG for a
+    masked score)."""
+    ranks = torch.arange(vals.shape[0], device=vals.device)
+    mine = (ranks == owner).reshape((-1,) + (1,) * (vals.dim() - 1))
+    return torch.where(mine, vals, fill).amax(0)
+
+
+def _owner_doms(dom, tids, owner, lb, D: int, Nl: int):
+    """The winner's domain ids for the term rows `tids` [K], broadcast
+    from its shard (batch.py _topo_scatter_sharded, the soft `wd`): each
+    shard offers dom[t] at local row lb, the owner's is kept."""
+    t = tids.clamp_min(0).long()
+    local = dom[t].reshape(t.shape[0], D, Nl)[:, :, lb]      # [K, D]
+    return _from_owner(local.transpose(0, 1), owner, -1)
+
+
+def _shard_pod_step_plain(ctx, ms, p, D: int):
+    """Pod p's step of the sharded class scan in plain PyTorch (batch.py
+    _sharded_class_scan's one_pod), the shards modelled explicitly: the
+    [N] rows are D local slices of Nl = N / D ([D, Nl] views). Per shard
+    the row-local work (class row, the nominee's own row on its owner,
+    topology refusal, soft raw, spread counts) and its partial
+    reductions; across shards, folded in rank order, the soft min/max,
+    the spread max count, zone sums and zone presence, then the election
+    (shard_elect). The owner's masked score and domain ids are broadcast
+    (_from_owner), and the owner's rows take the usage, column and spread
+    writes; the replicated counters take the identical writes. Mutates
+    `ms` and ctx's carry; returns (assign, chosen), 0-d."""
+    node_cfg, pb, cls, rw = (ctx["node_cfg"], ctx["pod_batch"], ctx["cls"],
+                             ctx["rw"])
+    carry, nom, rows = ctx["carry"], ctx["nom"], ctx["rows"]
+    unique_masks = pb["unique_masks"]
+    unique_scores = pb["unique_scores"]
+    used, nz, cnt = carry["used"], carry["nonzero_used"], carry["pod_count"]
+    N = used.shape[0]
+    Nl = N // D
+    has_spread, has_topo, has_dir2, has_soft = ctx["terms"]
+    refuse = ctx["steps"][0]
+    u = ctx["class_idx"][p]
+    base = ms[u]
+    if nom is not None:
+        # the self-exemption column at the GLOBAL nom_row, on its owner
+        r = pb["nom_row"][p]
+        rc = r.clamp(0, N - 1).long()
+        corr = class_col(
+            node_cfg, cls, unique_masks, unique_scores, rw,
+            used[rc] + nom["used"][rc] - cls["class_req"][u], nz[rc],
+            cnt[rc] + nom["count"][rc] - 1.0, rc)[u]
+        base = torch.where((r >= 0) & (rows == r), corr, base)
+    fits = refuse(p, base > NEG_THRESHOLD)
+    score = base
+    if has_soft:
+        base_idx = pb["soft_base_idx"][p]
+        raw = soft_raw(pb["soft_dom"], carry["soft_cnt"], pb["soft_base"],
+                       pb["soft_read_tids"][p], pb["soft_read_w"][p],
+                       base_idx)
+        lmn = torch.where(fits, raw, float("inf")).reshape(D, Nl).amin(1)
+        lmx = torch.where(fits, raw, float("-inf")).reshape(D, Nl).amax(1)
+        mn, mx = lmn[0], lmx[0]
+        for q in range(1, D):
+            mn, mx = torch.minimum(mn, lmn[q]), torch.maximum(mx, lmx[q])
+        score = score + torch.where(
+            base_idx >= 0, soft_norm(raw, mn, mx, pb["soft_weight"]), 0.0)
+    if has_spread:
+        g = pb["spread_gidx"][p].long()
+        use_spread = torch.where(g >= 0, 1.0, 0.0)
+        cnt_g = carry["spread"][g.clamp_min(0)]
+        zone_of, zinit = pb["spread_zone"], pb["spread_zinit"]
+        Z = zinit.shape[0]
+        cf = torch.where(fits, cnt_g, 0.0).reshape(D, Nl)
+        in_range = ((zone_of >= 0) & (zone_of < Z)).reshape(D, Nl)
+        part = torch.zeros((D, Z), dtype=cf.dtype, device=cf.device)
+        part.scatter_add_(1, torch.where(
+            in_range, zone_of.reshape(D, Nl), 0).long(),
+            torch.where(in_range, cf, 0.0))
+        lmaxc = cf.amax(1)
+        lhz = torch.where(fits & (zone_of > 0), 1.0, 0.0).reshape(
+            D, Nl).amax(1)
+        maxc, hz, tot = lmaxc[0], lhz[0], part[0]
+        for q in range(1, D):
+            maxc = torch.maximum(maxc, lmaxc[q])
+            hz = torch.maximum(hz, lhz[q])
+            tot = tot + part[q]
+        zs = zinit + tot
+        z_idx = torch.arange(Z, device=zs.device)
+        maxz = torch.where(z_idx > 0, zs, 0.0).amax()
+        score = score + pb["spread_weight"] * use_spread * spread_blend(
+            cnt_g, zone_of, zs, maxc, maxz, hz > 0)
+    masked = torch.where(fits, score, NEG)
+    pen = tie_penalized(masked, rows, pb["seq"][p]).reshape(D, Nl)
+    lbest = pen.argmax(1)                                  # first max
+    lmax = pen.gather(1, lbest[:, None])[:, 0]
+    best = shard_elect(lmax, lbest, Nl)
+    owner = best // Nl
+    lb = best - owner * Nl
+    chosen = _from_owner(masked.reshape(D, Nl)[:, lb], owner, NEG)
+    ok = (chosen > NEG_THRESHOLD) & pb["active"][p]
+    ok_f = torch.where(ok, 1.0, 0.0)
+    used[best] = used[best] + ok_f * cls["class_req"][u]
+    nz[best] = nz[best] + ok_f * cls["class_nz"][u]
+    cnt[best] = cnt[best] + ok_f
+    if nom is not None:
+        ms[:, best] = class_col(
+            node_cfg, cls, unique_masks, unique_scores, rw,
+            used[best] + nom["used"][best], nz[best],
+            cnt[best] + nom["count"][best], best)
+    else:
+        ms[:, best] = class_col(node_cfg, cls, unique_masks,
+                                unique_scores, rw, used[best], nz[best],
+                                cnt[best], best)
+    if has_spread:
+        spread = carry["spread"]
+        spread[:, best] = spread[:, best] + pb["spread_match"][p] * ok_f
+    if has_topo:
+        dom = pb["anti_dom"]
+        mt = pb["match_tids"][p]
+        _scatter_counts(dom, carry["topo_cnt"], mt, best, ok,
+                        tot=carry["topo_tot"],
+                        d=_owner_doms(dom, mt, owner, lb, D, Nl))
+        if has_dir2:
+            at = pb["canti_tids"][p]
+            _scatter_counts(dom, carry["topo_carry"], at, best, ok,
+                            d=_owner_doms(dom, at, owner, lb, D, Nl))
+    if has_soft:
+        wt = pb["soft_write_tids"][p]
+        soft_write(pb["soft_dom"], carry["soft_cnt"], wt,
+                   pb["soft_write_w"][p], best, ok,
+                   d=_owner_doms(pb["soft_dom"], wt, owner, lb, D, Nl))
+    return torch.where(ok, best.to(torch.int32), -1), chosen
+
+
+def _shard_scan_plain(D: int, node_cfg, pod_batch, cls, rw, ms, carry,
+                      terms, nom=None):
+    """The sharded scan in plain PyTorch (_shard_pod_step_plain over the
+    pods in order); mutates `ms` and the `carry` copies."""
+    ctx = class_step_ctx(node_cfg, pod_batch, cls, rw, carry, terms, nom)
+    dev = carry["used"].device
+    P = pod_batch["class_idx"].shape[0]
+    assign = torch.empty((P,), dtype=torch.int32, device=dev)
+    scores = torch.empty((P,), dtype=torch.float32, device=dev)
+    for p in range(P):
+        assign[p], scores[p] = _shard_pod_step_plain(ctx, ms, p, D)
+    return pack_results(assign, scores)
+
+
+class _ShardParams(ctypes.Structure):
+    """K15's parameter block (KtpuShardParams in csrc/shard_scan.cu): K2's,
+    then the shard count."""
+    _fields_ = [("scan", _ScanParams), ("D", ctypes.c_int)]
+
+
+def _shard_scan_cuda(D: int, node_cfg, pod_batch, cls, rw, ms, carry,
+                     terms, nom=None):
+    """Kernel K15: the whole batch in one launch of the instance for its
+    carried terms (and the nominated overlay with `nom`), one cluster of
+    D CTAs; returns the [2, P] packed results and mutates `ms` and the
+    `carry` copies. A build or launch failure raises."""
+    scan, packed = _class_scan_params(node_cfg, pod_batch, cls, rw, ms,
+                                      carry, terms, nom)
+    has_spread, has_topo, _, has_soft = terms
+    if has_spread and scan.Z * 8 > 48 * 1024:
+        raise ValueError(f"shard_scan: {scan.Z} zones exceed the kernel's "
+                         "48 KB of partial and reduced zone sums in shared "
+                         "memory")
+    prm = _ShardParams(scan=scan, D=D)
+    name = scan_instance(has_spread, has_topo, has_soft, nom is not None,
+                         "shard_scan")
+    _call("shard_scan", "ktpu_shard_scan", prm, node_cfg["alloc"], name)
+    LAUNCHES[name] += 1
+    return packed
+
+
+def _shard_setup(D: int, node_cfg: dict, pod_batch: dict, nom) -> dict:
+    """The pod batch, with nom_row filled in as schedule_batch_packed
+    does, after checking the shard count D against the capacity and
+    MAX_SHARDS and the batch for class tables."""
+    N = node_cfg["alloc"].shape[0]
+    if not 2 <= D <= MAX_SHARDS or N % D:
+        raise ValueError(f"schedule_batch_sharded: {D} shards over {N} "
+                         f"rows; the mesh takes 2 to {MAX_SHARDS} shards "
+                         "that divide the capacity")
+    if "class_req" not in pod_batch:
+        raise ValueError("schedule_batch_sharded: a batch without class "
+                         "tables (the sharded scan is the class route)")
+    if nom is not None and "nom_row" not in pod_batch:
+        pod_batch = dict(pod_batch,
+                         nom_row=torch.full_like(pod_batch["seq"], -1))
+    return pod_batch
+
+
+def schedule_batch_sharded_packed(D: int, node_cfg: dict, usage: dict,
+                                  pod_batch: dict, nom: dict = None
+                                  ) -> Tuple[torch.Tensor, dict]:
+    """batch.py schedule_batch_sharded: the class route on a mesh of D
+    node shards (D dividing the capacity), with the nominated overlay when `nom` is given. K1 + K15
+    on CUDA, plain on the CPU. Returns ([2, P] int32 packed assign +
+    score bits, post-batch usage), as schedule_batch_packed."""
+    pod_batch = _shard_setup(D, node_cfg, pod_batch, nom)
+    cls, rw, ms, carry, terms = _scan_setup(node_cfg, usage, pod_batch, nom)
+    scan = _shard_scan_cuda if _on_cuda(node_cfg["alloc"]) \
+        else _shard_scan_plain
+    packed = scan(D, node_cfg, pod_batch, cls, rw, ms, carry, terms, nom)
+    return packed, _usage_out(carry)
+
+
+def schedule_batch_sharded(D: int, node_cfg: dict, usage: dict,
+                           pod_batch: dict, nom: dict = None):
+    """(assign [P] int32, chosen score [P] f32, post-batch usage) — the
+    reference's return shape; assign and score are views of the packed
+    buffer."""
+    packed, new_usage = schedule_batch_sharded_packed(D, node_cfg, usage,
+                                                      pod_batch, nom)
+    return packed[0], packed[1].view(torch.float32), new_usage
+
+
+def schedule_batch_sharded_plain(D: int, node_cfg: dict, usage: dict,
+                                 pod_batch: dict, nom: dict = None):
+    """schedule_batch_sharded in plain PyTorch on any device (the table by
+    class_ms_init_plain, the scan by _shard_scan_plain): the reference's
+    sharded f32 order throughout. Same returns."""
+    pod_batch = _shard_setup(D, node_cfg, pod_batch, nom)
+    cls = {k: pod_batch[k] for k in _CLASS_KEYS}
+    rw = pod_batch["resource_weights"]
+    ms = class_ms_init_plain(node_cfg, usage, cls, pod_batch["unique_masks"],
+                             pod_batch["unique_scores"], rw, nom)
+    carry, terms = _carry_setup(usage, pod_batch)
+    packed = _shard_scan_plain(D, node_cfg, pod_batch, cls, rw, ms, carry,
+                               terms, nom)
+    return packed[0], packed[1].view(torch.float32), _usage_out(carry)
 
 
 # ------------------------------------------------------------ K8

@@ -39,7 +39,8 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "price_domains": "price_domains.cu",
            "spec_scan": "spec_scan.cu",
            "affinity_masks": "affinity_masks.cu",
-           "affinity_scores": "affinity_scores.cu"}
+           "affinity_scores": "affinity_scores.cu",
+           "shard_scan": "shard_scan.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

@@ -6,7 +6,10 @@ reference's, line for line, with these differences:
   - `device=None` means CUDA: the BatchScheduler (kernels K1-K3, K7 on
     the classic route, K9 for gang batches, K6 and K11 for preemption)
     and the DRF account (K4, K5) run there; tests pass device="cpu".
-  - one card, no mesh: `mesh=` or KTPU_MESH raise NotImplementedError.
+  - one card: a mesh (`mesh=` or KTPU_MESH, sharding.resolve_mesh) is D
+    node shards of the sharded class scan on that card (K15, one
+    thread-block cluster), at most 8; the BatchScheduler and the DRF
+    account take it.
   - the commit thread overlaps the drain when the algorithm's device is
     CUDA (the reference asks jax for its backend); KTPU_COMMIT_THREAD
     still overrides.
@@ -75,21 +78,6 @@ EXPRESS_EWMA_DECAY = 0.8
 EXPRESS_EWMA_HOT = 0.05
 
 
-def resolve_mesh(mesh=None):
-    """The reference's drain runs on a device mesh when given one (the
-    argument, or KTPU_MESH naming one). The port runs on one card:
-    anything but no mesh raises."""
-    import os
-    env = os.environ.get("KTPU_MESH", "")
-    if mesh is None and env in ("", "0", "none"):
-        return None
-    source = "the mesh argument" if mesh is not None else f"KTPU_MESH={env}"
-    raise NotImplementedError(
-        f"Scheduler: a device mesh ({source}) needs the sharded class "
-        "scan, which is not ported yet (ROADMAP: Queue A item 7, sharded "
-        "scan)")
-
-
 class Scheduler:
     def __init__(self, client: Client,
                  informer_factory: Optional[SharedInformerFactory] = None,
@@ -119,8 +107,11 @@ class Scheduler:
         self.scheduler_name = scheduler_name
         self.batch_size = batch_size
         self.clock = clock
-        # one card: a mesh (argument or KTPU_MESH) raises
-        self.mesh = resolve_mesh(mesh)
+        # the mesh is the drain's execution substrate: a ShardMesh passes
+        # through, "auto"/n give n node shards on the card, and None reads
+        # KTPU_MESH — the shards of the sharded class scan (K15)
+        from .sharding import resolve_mesh
+        self.mesh = resolve_mesh(mesh, device)
         self.disable_preemption = disable_preemption
         #: Reserve/Prebind plugin runner (ref: framework/v1alpha1)
         self.framework = framework or Framework()
@@ -217,7 +208,8 @@ class Scheduler:
             volume_binder=self.volume_binder,
             pvc_lister=pvc_lister, pv_lister=pv_by_name,
             nominated=self.queue.nominated,
-            pdb_lister=lambda: pdb_informer.indexer.list(), device=device)
+            pdb_lister=lambda: pdb_informer.indexer.list(), device=device,
+            mesh=self.mesh)
         #: in-scan fallback counters (scheduler_topo_inscan_fallbacks_total)
         self.algorithm.sched_metrics = self.metrics
         # speculative cohort assignment (kernels/speculative.py): the
@@ -296,7 +288,7 @@ class Scheduler:
         self.gang_quota = GangQuotaGate(
             lambda: rq_informer.indexer.list(),
             metrics=self.tenancy_metrics)
-        self.drf = DRFAccount(device=self.algorithm.device)
+        self.drf = DRFAccount(mesh=self.mesh, device=self.algorithm.device)
         self._drf_on = drf_enabled()
         self.algorithm.drf = self.drf
         self.gang = GangManager(

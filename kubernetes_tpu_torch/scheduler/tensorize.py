@@ -30,7 +30,10 @@ Padding: node, pod, and unique-row axes are padded to bucketed sizes (powers
 of two), as in the JAX reference, so both packages see identical shapes.
 
 Port of kubernetes_tpu/scheduler/tensorize.py: the host side is unchanged;
-device tensors are torch tensors on the mirror's explicit device (no mesh).
+device tensors are torch tensors on the mirror's explicit device. With a
+mesh (sharding.ShardMesh: D node shards on one card) the capacity is
+padded to a multiple of D, the pad counted in shard_pad_rows, and every
+tensor lives on the mesh's card.
 The in-scan required (anti-)affinity and soft-credit tables ship with the
 batch, and under KTPU_SPECULATIVE=1 the speculative cohort vectors
 (set_speculative: spec_plain, cohort_id).
@@ -141,9 +144,22 @@ class TensorMirror:
     """Name <-> row mapping plus incremental row updates from cache dirties."""
 
     def __init__(self, vocab: Optional[ResourceVocab] = None,
-                 min_capacity: int = 128, device="cpu"):
+                 min_capacity: int = 128, device="cpu", mesh=None):
+        from . import sharding
+        #: sharding.ShardMesh with a "nodes" axis, or None (unsharded):
+        #: the kernels split the node axis into its shards (K15), all on
+        #: the mesh's card
+        self.mesh = mesh
         #: the torch device every device tensor lives on
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.device
+        #: shards on the node axis; the row capacity is always a multiple
+        #: so per-shard slices are equal (the sharded scan requires it)
+        self._shards = sharding.n_shards(mesh)
+        #: rows the current capacity carries ONLY for shard divisibility
+        #: (beyond the power-of-two bucket); surfaced as the
+        #: scheduler_mirror_shard_pad_rows gauge — padding is visible,
+        #: never a silent cap
+        self.shard_pad_rows = 0
         self.vocab = vocab or ResourceVocab()
         self.t = NodeTensors(self._capacity_for(1, min_capacity),
                              self.vocab.n_cols)
@@ -167,9 +183,15 @@ class TensorMirror:
         self._usage_lock = threading.Lock()
 
     def _capacity_for(self, need: int, minimum: int = 128) -> int:
-        """Row capacity for `need` nodes: the power-of-two bucket. Pad
-        rows are valid=False, excluded from every kernel decision."""
-        return _bucket(need, minimum)
+        """Row capacity for `need` nodes: the power-of-two bucket, padded
+        up to a multiple of the mesh's shard count. Pad rows (valid=False,
+        excluded from every kernel decision) are counted in
+        shard_pad_rows, not silently absorbed."""
+        from .sharding import shard_divisible
+        bucket = _bucket(need, minimum)
+        cap = shard_divisible(bucket, self._shards)
+        self.shard_pad_rows = cap - bucket
+        return cap
 
     # ------------------------------------------------------------ updates
 
@@ -892,7 +914,8 @@ class PodBatchTensors:
 
     def device(self, device) -> dict:
         """The batch's tensors on `device`, under the reference's keys
-        (PodBatchTensors.device) and dtypes."""
+        (PodBatchTensors.device) and dtypes. Over a mesh every tensor,
+        the pod axis included, lives whole on the mesh's card."""
         def put(a):
             return torch.tensor(np.ascontiguousarray(a), device=device)
         out = {"req": put(self.req),

@@ -33,9 +33,10 @@ oracle; tests/test_topology.py fuzzes this module against them.
 
 Port copy of kubernetes_tpu/scheduler/topology.py: the host side is
 unchanged, and the template evaluation's device route runs kernel K13
-(kernels/affinity.py) on the index's mirror device. Only the sharded
-term table (term_table_device) still raises NotImplementedError, until
-the sharded scan is ported.
+(kernels/affinity.py) on the index's mirror device. The reference's
+term_table_device (an epoch-cached [T, N] table placed across a mesh's
+devices) has no counterpart: every shard of the port's mesh lives on one
+card, so each batch uploads its table as the unsharded drain does.
 """
 
 from __future__ import annotations
@@ -145,14 +146,6 @@ class TopologyIndex:
         self._table_cache: Dict[Tuple, Tuple[int, int, np.ndarray, int]] = {}
         self.table_builds = 0
         self.table_hits = 0
-        #: (term-id tuple, padded T) -> (dom_epoch, capacity, device
-        #: table sharded by the name rules, n_doms) — the sharded drain's
-        #: upload cache: repeat batches over a stable node topology reuse
-        #: ONE device-resident [T, N] table instead of re-uploading per
-        #: batch (term_table_device)
-        self._table_dev_cache: Dict[Tuple, Tuple[int, int, object, int]] = {}
-        self.table_dev_builds = 0
-        self.table_dev_hits = 0
         self._vec_cache: Dict[Tuple, np.ndarray] = {}
         self._vec_cache_version = -1
         #: (kind, tid) -> [capacity] bool "some pod of `kind` sits in this
@@ -642,26 +635,6 @@ class TopologyIndex:
                 self._table_cache.clear()
             self._table_cache[terms] = (self.dom_epoch, cap, dom, n_domains)
         return dom, n_domains
-
-    def term_table_device(self, terms: Tuple[int, ...], mesh,
-                          use_cache: bool = True, dom=None,
-                          n_domains: Optional[int] = None):
-        """(padded [T, capacity] dom table ON DEVICE sharded by the
-        name-keyed rules, n_domains) — the device half of term_table for
-        the sharded drain. T is bucketed exactly like
-        PodBatchTensors.set_topology_terms (power of two, min 8) so the
-        cached upload can be handed to it as dom_dev. Epoch-cached with
-        the same (dom_epoch, capacity) key as the host table: steady
-        pod churn re-uses one device-resident table across every batch
-        of a drain; only a node-topology change re-uploads. A caller
-        that already built the host table passes (dom, n_domains) so a
-        cache-disabled run (KTPU_TOPO_TABLE_CACHE=0) does not build it
-        twice.
-
-        Not ported: the port has no sharded mesh (ROADMAP, last slice)."""
-        raise NotImplementedError(
-            "term_table_device: the sharded mesh route is not ported yet "
-            "(ROADMAP: sharded class scan)")
 
     def node_domain_vector(self, tk: str) -> np.ndarray:
         """[capacity] int32 node-row -> topology-domain id for `tk` (-1

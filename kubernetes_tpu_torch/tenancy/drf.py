@@ -118,11 +118,15 @@ class DRFAccount:
     come from the commit path, releases from informer event handlers.
     """
 
-    def __init__(self, device=None):
+    def __init__(self, mesh=None, device=None):
         from ..scheduler.core import resolve_device
         self._lock = threading.Lock()
+        # with the drain's sharding.ShardMesh, the tenant tensors are
+        # replicated (no partition rule names them): K4 and K5 run
+        # unchanged on the mesh's card
         #: where K4/K5 run (CUDA unless the caller asks for the CPU)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.device
         self._idx: Dict[str, int] = {}
         self._names: List[str] = []
         self._usage = np.zeros((4, len(RESOURCES)), np.float32)

@@ -172,7 +172,9 @@ def build(api, cache_cls, scheduler_cls, listers_cls, n_nodes: int,
           variant: str, zones: int = 16, **sched_kw):
     """(scheduler, cache): a cache holding n_nodes nodes and a batch
     scheduler over it, with the spread Service wired for `spread` and
-    the ghost nominations installed for `nominated`."""
+    the ghost nominations installed for `nominated`. `sched_kw` go to the
+    scheduler: `device`, and `mesh` (a sharding.ShardMesh on that
+    device) to shard its node axis for the sharded scan."""
     cache = cache_cls()
     for i in range(n_nodes):
         cache.add_node(make_node(api, i, variant, zones))

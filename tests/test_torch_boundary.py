@@ -7,7 +7,8 @@
   there is none (never a quiet run on the CPU);
 - batches outside the ported slices raise NotImplementedError instead
   of scheduling differently; the routes a slice ported schedule as the
-  JAX package does (the speculative cohort route since slice 7).
+  JAX package does (the speculative cohort route since slice 7, the
+  sharded class scan since slice 9: tests/test_torch_sharded.py).
 """
 
 import ast
@@ -45,6 +46,7 @@ SLICE_MODULES = [
     "kubernetes_tpu_torch.scheduler.volumebinder",
     "kubernetes_tpu_torch.scheduler.queue",
     "kubernetes_tpu_torch.scheduler.drain",
+    "kubernetes_tpu_torch.scheduler.sharding",
     "kubernetes_tpu_torch.scheduler.kernels",
     "kubernetes_tpu_torch.scheduler.kernels.batch",
     "kubernetes_tpu_torch.scheduler.kernels.build",
@@ -310,6 +312,21 @@ def test_kernel_launchers_check_shapes():
     with pytest.raises(ValueError, match="unique_masks"):
         kb._check_shapes(cfg, usage, cls, pb["unique_masks"][:, :5],
                          pb["unique_scores"], rw)
+
+
+def test_shard_launcher_refuses_cpu_tensors_and_bad_shapes():
+    """K15's launcher: CPU tensors raise before any pointer is taken, as
+    do shapes it would index out of bounds; the entry refuses a shard
+    count that does not divide the capacity."""
+    cfg, usage, pb = _cpu_batch()
+    cls, rw, ms, carry, terms = kb._scan_setup(cfg, usage, pb)
+    with pytest.raises(ValueError, match="CUDA"):
+        kb._shard_scan_cuda(2, cfg, pb, cls, rw, ms, carry, terms)
+    with pytest.raises(ValueError, match="seq"):
+        kb._shard_scan_cuda(2, cfg, dict(pb, seq=pb["seq"][:3]), cls, rw,
+                            ms, carry, terms)
+    with pytest.raises(ValueError, match="shards"):
+        kb.schedule_batch_sharded_packed(3, cfg, usage, pb)
 
 
 def test_classic_launchers_refuse_cpu_tensors_and_bad_shapes():

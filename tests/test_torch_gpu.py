@@ -347,6 +347,78 @@ def test_spec_scan_kernel_accepts_clean_cohorts(cuda, width):
     assert bool(stats[:, 0].any())
 
 
+#: (D, N) of K15's cases: N a multiple of D; at D = 3 each CTA owns 341
+#: rows, not a multiple of its 352 threads
+SHARD_CASES = [(2, 1024), (3, 1023), (8, 1024)]
+
+
+def _shard_case(cuda, seed, N, spread, topo, dir2, soft, nom, pad_from=None):
+    """A K15 batch of 256 pods (the plain sharded scan is slow on the
+    card) over N rows; rows from `pad_from` on are shard pads
+    (valid False, as TensorMirror pads a capacity)."""
+    node_cfg, usage, pb = _state(seed, N=N, P=256)
+    if pad_from is not None:
+        for k in ("valid", "node_ok"):
+            node_cfg[k][pad_from:] = False
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, seed, topo, dir2, soft)
+    tnom = nom_from_numpy(_nom(node_cfg, usage, pb, seed), cuda) if nom \
+        else None
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    return tc, tu, tpb, tnom
+
+
+def _hold_shard(D, name, tc, tu, tpb, tnom):
+    """K15 on one batch: one launch of its instance, everything equal to
+    the plain sharded scan on the card, and assign, the active pods'
+    score bits and every usage final equal to K2's on the same batch."""
+    before = dict(kb.LAUNCHES)
+    packed, use = kb.schedule_batch_sharded_packed(D, tc, tu, tpb, tnom)
+    assert kb.LAUNCHES[name] == before[name] + 1
+    a, sc, p_use = kb.schedule_batch_sharded_plain(D, tc, tu, tpb, tnom)
+    serial, serial_use = kb.schedule_batch_packed(tc, tu, tpb, tnom)
+    torch.cuda.synchronize()
+    active = tpb["active"]
+    assert torch.equal(packed, kb.pack_results(a, sc))
+    assert torch.equal(packed[0], serial[0])
+    assert torch.equal(packed[1][active], serial[1][active])
+    assert set(use) == set(p_use) == set(serial_use)
+    for k in use:
+        for other in (p_use, serial_use):
+            assert torch.equal(use[k].view(torch.int32),
+                               other[k].view(torch.int32)), k
+    return packed
+
+
+@pytest.mark.parametrize("nom", [False, True])
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+@pytest.mark.parametrize("D,N", SHARD_CASES)
+def test_shard_scan_kernel_matches_plain_and_k2(cuda, D, N, spread, topo,
+                                                dir2, soft, nom):
+    """K15, each instance with and without the nominated overlay, at D =
+    2, 3 and 8: one cluster of D CTAs against the plain sharded scan and
+    against K2 on the same batch."""
+    args = _shard_case(cuda, 8, N, spread, topo, dir2, soft, nom)
+    packed = _hold_shard(D, kb.scan_instance(spread, topo, soft, nom,
+                                             "shard_scan"), *args)
+    assert (packed[0] >= 0).sum() > 128
+
+
+@pytest.mark.parametrize("terms", [False, True])
+@pytest.mark.parametrize("D,N", [(3, 1023), (8, 1024)])
+def test_shard_scan_kernel_with_a_shard_of_pads(cuda, D, N, terms):
+    """The last shard holds only pad rows (valid False): no pod lands
+    there, and K15 still equals the plain sharded scan and K2."""
+    pad_from = N - N // D
+    args = _shard_case(cuda, 9, N, terms, terms, terms, terms, terms,
+                       pad_from=pad_from)
+    packed = _hold_shard(D, kb.scan_instance(terms, terms, terms, terms,
+                                             "shard_scan"), *args)
+    assert (packed[0] >= 0).sum() > 128
+    assert int(packed[0].max()) < pad_from
+
+
 @pytest.mark.parametrize("nom", [False, True])
 @pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
 def test_pod_scan_kernels_match_plain(cuda, spread, topo, dir2, soft, nom):

@@ -19,8 +19,8 @@ Then the boundary: an unschedulable pod with preemption off, and with
 preemption on but nothing to evict, gives the same attribution,
 FailedScheduling event and pending state in both packages; a
 NotImplementedError in a launch (what an unported route raises) stops
-the run loop and is raised, not printed; a mesh, KTPU_MESH and extenders
-raise.
+the run loop and is raised, not printed; extenders raise, and a mesh
+(argument or KTPU_MESH) builds a sharded scheduler of at most 8 shards.
 """
 
 import time
@@ -273,7 +273,7 @@ def test_run_loop_keeps_the_error_and_stop_raises_it(monkeypatch):
     and stop raise the error. (Gang batches drove this test until slice 6
     ported them, KTPU_SPECULATIVE=1 until slice 7, the affinity-mask
     device route until slice 8.) The loop reaches no unported route any
-    more (mesh, extenders and the WAL raise when they are built), so the
+    more (extenders and the WAL raise when they are built), so the
     launch raises here, as an unported route inside it would."""
     from kubernetes_tpu_torch.scheduler.core import BatchScheduler
 
@@ -298,14 +298,21 @@ def test_run_loop_keeps_the_error_and_stop_raises_it(monkeypatch):
 
 
 def test_mesh_and_extenders_raise(monkeypatch):
+    """Since slice 9 a mesh is the sharded class scan's shards on the
+    card: mesh=2 builds a 2-shard scheduler (its mirror and DRF account
+    on the mesh), KTPU_MESH=auto an 8-shard one, and more shards than a
+    thread-block cluster takes raise. Extenders still raise."""
     client = TClient(validate=False)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TScheduler(client, device="cpu", mesh=2)
+    sched = TScheduler(client, device="cpu", mesh=2)
+    assert sched.mesh.shape["nodes"] == 2
+    assert sched.algorithm.mirror.mesh is sched.mesh
+    assert sched.drf.device == sched.mesh.device
+    with pytest.raises(ValueError, match="shards"):
+        TScheduler(client, device="cpu", mesh=10_000)
     with pytest.raises(NotImplementedError, match="extender"):
         TScheduler(client, device="cpu", extenders=[object()])
     monkeypatch.setenv("KTPU_MESH", "auto")
-    with pytest.raises(NotImplementedError, match="KTPU_MESH"):
-        TScheduler(client, device="cpu")
+    assert TScheduler(client, device="cpu").mesh.shape["nodes"] == 8
 
 
 def test_scheduler_runs_on_cuda_by_default(monkeypatch):
