@@ -224,6 +224,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -427,6 +428,10 @@ POD_SCAN_ROWS = (("pod_scan", "uniform", "batch.py:652"),
 #: bytes over the first and its f32 operations over the second
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: libraries whose build fails the script if ptxas reports a spill
+SPILL_GATED = ("drf_order", "affinity_scores")
+#: library name -> ptxas_info of its build (filled by main)
+PTXAS = {}
 
 
 def fail(msg: str) -> None:
@@ -1280,6 +1285,27 @@ def time_host(torch, fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def device_ms(torch, fn, reps, warm=2):
+    """Mean device ms of the work of one fn() call: the summed device time
+    of every kernel, copy and fill torch.profiler records (CUPTI) over
+    reps calls, with no host time between them. None when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if e.device_type == cuda)
+    return us / 1e3 / reps if us > 0 else None
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -2068,40 +2094,120 @@ def drf_rows(port, rec, launches):
         n = int((perm_k != perm_p).sum())
         fail(f"K5 drf_order disagrees with its plain version ({n} of {P}"
              " entries)")
-    k5_ms = time_cuda(torch, lambda: tk.drf_order(prio, shares, tidx, pos),
-                      reps=20, warm=2)
     k5_plain_ms, _ = time_host(torch, lambda: tk.drf_order_plain(
         prio, shares, tidx, pos))
     if not torch.equal(pos, torch.arange(P, dtype=torch.int32,
                                          device=pos.device)):
         fail("the drain's pop positions are not 0..P-1")
+    # the largest call and prefixes of it: one run (perm written by the
+    # sort), the run's edge, and the drain's batch
+    sweep = {}
+    for n in sorted({s for s in ORDER_SWEEP if s < P} | {P}):
+        sweep[n] = order_timings(torch, tk, prio[:n], shares, tidx[:n],
+                                 pos[:n])
+    top = sweep[P]
+    k5_bytes = 4 * P * 4 + shares.numel() * 4
+    # a comparison sort of P keys needs P log2 P comparisons of three-part
+    # keys; the kernel's own count is order_comparisons(P)
+    k5_ops = int(3 * P * math.log2(max(P, 2)))
+    k5_bound = bound(k5_bytes, k5_ops)
+    run = tk.order_run()
+    rows.append({"name": "drf_order", "route": "cuda",
+                 "source": "kubernetes_tpu_torch/csrc/drf_order.cu",
+                 "replaces": "kubernetes_tpu/tenancy/drf.py:115",
+                 "launches": launches["drf_order"], "max_abs_err": 0.0,
+                 "ms": top["ms"], "plain_ms": k5_plain_ms,
+                 "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+                 "library_ms": top["library_ms"], "match": True,
+                 "library_call": "two-pass stable torch.sort (share, then "
+                                 "-prio), positions 0..P-1",
+                 "device_ms": top["device_ms"],
+                 "library_device_ms": top["library_device_ms"],
+                 "sweep": {str(n): t for n, t in sweep.items()},
+                 "bytes": k5_bytes, "ops": k5_ops,
+                 "kernel_comparisons": order_comparisons(P, run),
+                 "launches_are": "C calls: each enqueues the run sort and, "
+                                 f"past {run} pods, the merge",
+                 "ptxas": PTXAS.get("drf_order"),
+                 "shape": f"P={P} T={shares.numel()}"})
+    return rows
+
+
+#: batch sizes of K5's sweep (prefixes of the drain's largest call)
+ORDER_SWEEP = (64, 2048, 16384)
+
+
+def order_comparisons(P, run):
+    """Key comparisons K5 makes on P pods: the bitonic run sort's
+    compare-exchanges (n/2 a layer, log2 n (log2 n + 1) / 2 layers for a
+    run of n slots) and, past one run, the merge's two lower-bound
+    searches for each pod in every run (log2 (run / split) + 1 among the
+    splitters, log2 split + 1 within the segment: log2 run + 2 in all,
+    whatever the splitters' spacing)."""
+    if P <= run:
+        n = 2
+        while n < P:
+            n *= 2
+        lg = int(math.log2(n))
+        return n // 2 * lg * (lg + 1) // 2
+    n_runs = -(-P // run)
+    lg = int(math.log2(run))
+    return n_runs * (run // 2) * lg * (lg + 1) // 2 + P * n_runs * (lg + 2)
+
+
+def order_timings(torch, tk, prio, shares, tidx, pos):
+    """K5 and the two-pass stable torch.sort on one batch: both held
+    against the plain version, each timed by CUDA events over a loop of
+    calls (host enqueue included) and by the profiler's device time."""
+    P = prio.shape[0]
+    want = tk.drf_order_plain(prio, shares, tidx, pos)
     neg = tk.neg_wrap(prio)
 
     def two_pass():
         # pos is 0..P-1: lexsort is two stable sorts, minor key first
         perm = torch.sort(shares[tidx.long()], stable=True).indices
         return perm[torch.sort(neg[perm], stable=True).indices]
-    if not torch.equal(two_pass().to(torch.int32), perm_k):
-        fail("the two-pass torch.sort yardstick disagrees with K5")
-    k5_lib_ms = time_cuda(torch, two_pass, reps=20, warm=2)
-    k5_bytes = 4 * P * 4 + shares.numel() * 4
-    # a comparison sort of P keys needs P log2 P comparisons of three-part
-    # keys; the rank-counting kernel itself does P * P of them
-    k5_ops = int(3 * P * math.log2(max(P, 2)))
-    k5_bound = bound(k5_bytes, k5_ops)
-    rows.append({"name": "drf_order", "route": "cuda",
-                 "source": "kubernetes_tpu_torch/csrc/drf_order.cu",
-                 "replaces": "kubernetes_tpu/tenancy/drf.py:115",
-                 "launches": launches["drf_order"], "max_abs_err": 0.0,
-                 "ms": k5_ms, "plain_ms": k5_plain_ms,
-                 "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
-                 "library_ms": k5_lib_ms, "match": True,
-                 "library_call": "two-pass stable torch.sort (share, then "
-                                 "-prio), positions 0..P-1",
-                 "bytes": k5_bytes, "ops": k5_ops,
-                 "kernel_comparisons": P * P,
-                 "shape": f"P={P} T={shares.numel()}"})
-    return rows
+
+    def kernel():
+        return tk.drf_order(prio, shares, tidx, pos)
+    if not torch.equal(kernel(), want):
+        fail(f"K5 drf_order disagrees with its plain version at P={P}")
+    if not torch.equal(two_pass().to(torch.int32), want):
+        fail(f"the two-pass torch.sort yardstick disagrees with K5 at P={P}")
+    out = {"ms": time_cuda(torch, kernel, reps=50, warm=3),
+           "library_ms": time_cuda(torch, two_pass, reps=50, warm=3),
+           "device_ms": device_ms(torch, kernel, reps=20),
+           "library_device_ms": device_ms(torch, two_pass, reps=20)}
+    return {k: ("not measured" if v is None else v) for k, v in out.items()}
+
+
+def ptxas_info(log):
+    """{kernel function: {registers, smem_bytes, spill_stores,
+    spill_loads}} from nvcc -Xptxas -v output, entry functions only."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            fn = m.group(1) if m.group(1) in out else None
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[fn]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def price_vectorized(torch, a):
@@ -2557,6 +2663,13 @@ def affinity_rows(port, route, launches):
     ms = time_cuda(torch, lambda: ak.affinity_scores_tensors(w, c), reps=20,
                    warm=2)
     lib_ms = time_cuda(torch, lambda: w @ c, reps=20, warm=2)
+    # K14's other instance (4-byte copies, scalar stores) on the same
+    # values: copies whose bases lie 4 bytes past a 16-byte boundary
+    w4, c4 = (unaligned_copy(torch, t) for t in (w, c))
+    if not bits_equal(torch, ak.affinity_scores_tensors(w4, c4), want):
+        fail("K14's 4-byte-copy instance disagrees with its plain version")
+    ms_4byte = time_cuda(torch, lambda: ak.affinity_scores_tensors(w4, c4),
+                         reps=20, warm=2)
     bytes_ = nbytes(w, c, got)
     ops = 2 * Ub * Tb * N
     b = bound(bytes_, ops)
@@ -2569,10 +2682,23 @@ def affinity_rows(port, route, launches):
                  "library_ms": lib_ms, "match": True,
                  "library_call": "weights @ counts (torch.matmul, TF32 off)",
                  "bytes": bytes_, "ops": ops,
+                 "tflops": ops / ms / 1e9,
+                 "library_tflops": ops / lib_ms / 1e9,
+                 "ms_4byte_instance": ms_4byte,
+                 "ptxas": PTXAS.get("affinity_scores"),
                  "shape": f"U={Ub} T={Tb} N={N} (K13's padded shapes; "
                           f"integer weights in [-100, 100], counts in "
                           f"[0, 50], seed {SCORES_SEED})"})
     return rows
+
+
+def unaligned_copy(torch, t):
+    """A contiguous copy of t whose data starts one element past the
+    allocation's (16-byte aligned) start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    return v
 
 
 def verify_domains(port, log, label):
@@ -2732,9 +2858,24 @@ def main() -> None:
     print(f"build: {len(built)} kernels with nvcc (sm_90a) in "
           f"{time.perf_counter() - t0:.1f} s, in parallel")
     for k, v in built.items():
+        if k in SPILL_GATED:
+            continue
         info = [ln.strip() for ln in v["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {k}: {os.path.basename(v['path'])}: {' | '.join(info)}")
+    for k in SPILL_GATED:
+        PTXAS[k] = ptxas_info(built[k]["log"])
+        if not PTXAS[k]:
+            fail(f"{k}: no entry function in the -Xptxas -v output")
+        for fn, d in PTXAS[k].items():
+            if not {"registers", "spill_stores", "spill_loads"} <= set(d):
+                fail(f"{k}: {fn}: no register or spill counts in the "
+                     "-Xptxas -v output")
+            print(f"  {k}: {fn}: {d['registers']} registers, "
+                  f"{d['smem_bytes']} bytes smem, spill "
+                  f"{d['spill_stores']} / {d['spill_loads']} bytes")
+            if d["spill_stores"] or d["spill_loads"]:
+                fail(f"{k}: {fn} spills registers")
     port = Port()
     kb = port.kb
     dev = torch.device("cuda")
@@ -3425,6 +3566,16 @@ def main() -> None:
               f"{r['library_ms']} ms, bound {r['bound_ms']} ms by "
               f"{r['bound_by']}); {r['launches']} launches on the main "
               f"path {tag}")
+        if r["name"] == "drf_order":
+            for n, t in r["sweep"].items():
+                print(f"    K5 at P={n}: {t['ms']} ms events / "
+                      f"{t['device_ms']} ms device; two-pass torch.sort "
+                      f"{t['library_ms']} ms events / "
+                      f"{t['library_device_ms']} ms device {tag}")
+        if r["name"] == "affinity_scores":
+            print(f"    K14 {r['tflops']} TFLOP/s (library "
+                  f"{r['library_tflops']}); its 4-byte-copy instance on "
+                  f"the same values {r['ms_4byte_instance']} ms {tag}")
 
     lap("kernel phase")
     # ---- small drain: card against CPU

@@ -7,7 +7,7 @@ hand-written CUDA kernel (csrc/):
 
     drf_dominant -> K4  csrc/drf_dominant.cu   [T, R] usage -> [T] shares
     drf_order    -> K5  csrc/drf_order.cu      lexsort permutation, by
-                        counting ranks (no sort library)
+                        sorted runs and merged ranks (no sort library)
 
 Dispatch is by tensor device, as in scheduler/kernels/batch.py: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel (a
@@ -17,13 +17,16 @@ launch.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 
 from ..scheduler.kernels.batch import _I, _P, _fn, _on_cuda, _ptr, _stream
 
-#: kernel launches by name; each wrapper adds one per launch
+#: kernel launches by name; each wrapper adds one per launch. drf_order
+#: counts its C calls: each enqueues the run sort and, past one run of
+#: pods, the merge of the runs
 LAUNCHES: Dict[str, int] = {"drf_dominant": 0, "drf_order": 0}
 
 
@@ -87,6 +90,13 @@ def drf_order_plain(prio: torch.Tensor, shares: torch.Tensor,
     return perm.to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def order_run() -> int:
+    """K5's pods a sorted run, as csrc/drf_order.cu defines it (its
+    library is built on first use)."""
+    return int(_fn("drf_order", "ktpu_drf_order_run", [])())
+
+
 def drf_order(prio: torch.Tensor, shares: torch.Tensor, tidx: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
     """[P] int32 priorities, [T] f32 dominant shares, [P] int32 tenant
@@ -105,14 +115,20 @@ def drf_order(prio: torch.Tensor, shares: torch.Tensor, tidx: torch.Tensor,
     if not _on_cuda(prio):
         return drf_order_plain(prio, shares, tidx, pos)
     from ..scheduler.kernels.build import check
+    ins = (_ptr(prio, torch.int32, "prio"),
+           _ptr(shares, torch.float32, "shares"),
+           _ptr(tidx, torch.int32, "tidx"), _ptr(pos, torch.int32, "pos"))
     perm = torch.empty((P,), dtype=torch.int32, device=prio.device)
-    args = (_ptr(prio, torch.int32, "prio"),
-            _ptr(shares, torch.float32, "shares"),
-            _ptr(tidx, torch.int32, "tidx"), _ptr(pos, torch.int32, "pos"),
-            _ptr(perm, torch.int32, "perm"), P, shares.shape[0],
-            _stream(prio))
-    rc = _fn("drf_order", "ktpu_drf_order",
-             [_P] * 5 + [_I] * 2 + [_P])(*args)
+    # the keys in sorted runs (16 bytes a slot), alive until the launches
+    # are enqueued
+    run = order_run()
+    slots = -(-P // run) * run if P > run else 0
+    runs = (torch.empty((slots, 4), dtype=torch.int32, device=prio.device)
+            if slots else None)
+    rc = _fn("drf_order", "ktpu_drf_order", [_P] * 6 + [_I] * 3 + [_P])(
+        *ins, _ptr(perm, torch.int32, "perm"),
+        _ptr(runs, torch.int32, "runs") if slots else None, slots, P,
+        shares.shape[0], _stream(prio))
     check(rc, "drf_order")
     LAUNCHES["drf_order"] += 1
     return perm

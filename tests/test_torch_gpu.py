@@ -653,6 +653,54 @@ def test_drf_order_kernel_nan_shares_give_a_permutation(cuda, P):
         assert got.cpu().tolist() == [2, 0, 3, 1]
 
 
+#: one run (P <= 2,048 sorts in one block, perm written directly), the
+#: run edges, and several runs merged by rank (up to 20 at 40,000)
+ORDER_SIZES = [2, 63, 64, 2047, 2048, 2049, 6000, 16_384, 40_000]
+
+
+def _order_hazards(seed, P):
+    """Keys at every hazard at once: INT32_MIN / INT32_MAX and wrapping
+    priorities, NaN of both signs, ±0.0 and ±inf shares, and pop
+    positions repeated about four times each."""
+    rng = np.random.default_rng(seed)
+    prio = rng.choice(np.array([0, 1000, -2 ** 31, 2 ** 31 - 1,
+                                -2_147_483_647, 2_000_001_000], np.int32),
+                      P).astype(np.int32)
+    shares = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 0.25,
+                       1e-3, 0.5, -0.25], np.float32)
+    tidx = rng.integers(0, shares.shape[0], P).astype(np.int32)
+    pos = rng.integers(0, max(P // 4, 1), P).astype(np.int32)
+    return prio, shares, tidx, pos
+
+
+@pytest.mark.parametrize("P", ORDER_SIZES)
+@pytest.mark.parametrize("keys", ["drain", "hazards", "all-equal"])
+def test_drf_order_kernel_runs_and_merge_match_plain(cuda, P, keys):
+    """The run sort and the merged ranks against the plain version (held
+    against JAX's lexsort on the CPU), at sizes on both sides of the
+    2,048-pod run; one launch counted a call."""
+    from kubernetes_tpu_torch.tenancy import kernels as tk
+    if keys == "drain":
+        arrays = _drf_inputs(P, P, 9)
+    elif keys == "hazards":
+        arrays = _order_hazards(P, P)
+    else:
+        arrays = (np.full(P, 7, np.int32), np.array([0.5], np.float32),
+                  np.zeros(P, np.int32), np.full(P, 3, np.int32))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = tk.LAUNCHES["drf_order"]
+    got = tk.drf_order(*args)
+    assert tk.LAUNCHES["drf_order"] == before + 1
+    want = tk.drf_order_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(torch.sort(got.long()).values,
+                       torch.arange(P, device=cuda))
+    assert torch.equal(got, want)
+    if keys == "all-equal":
+        assert torch.equal(got.long(), torch.arange(P, device=cuda))
+
+
 def test_drf_order_kernel_single_tenant_keeps_pop_order(cuda):
     from kubernetes_tpu_torch.tenancy import kernels as tk
     prio, _, _, pos = _drf_inputs(5, 1000, 1)
@@ -890,7 +938,14 @@ def test_affinity_masks_kernel_matches_plain(cuda, U, T, N):
                                   ak.affinity_masks(*args, device="cpu"))
 
 
-@pytest.mark.parametrize("U,T,N", AFFINITY_SHAPES)
+#: K14's ragged edges: no tile divides U, T or N, rows that do not start
+#: 16-byte aligned (T or N not a multiple of 4), one node, and the padded
+#: service shape one node wider
+SCORES_SHAPES = AFFINITY_SHAPES + [(8, 8, 27), (129, 17, 131), (33, 7, 1),
+                                   (1024, 2048, 8193)]
+
+
+@pytest.mark.parametrize("U,T,N", SCORES_SHAPES)
 def test_affinity_scores_kernel_matches_plain(cuda, U, T, N):
     """Bit for bit on integer inputs (weights in [-100, 100], counts in
     [0, 50]); on random f32 within T · 2^-23 · sum|w·c| (each term order
@@ -916,3 +971,25 @@ def test_affinity_scores_kernel_matches_plain(cuda, U, T, N):
     want = ak.affinity_scores_plain(w, c).double()
     tol = T * 2.0 ** -23 * (w.abs().double() @ c.abs().double())
     assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("U,T,N", [(130, 64, 256), (64, 33, 129)])
+def test_affinity_scores_kernel_misaligned_bases(cuda, U, T, N):
+    """Tensors that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies even where T and N are multiples of 4: bit for bit on integer
+    inputs; one launch counted."""
+    from kubernetes_tpu_torch.scheduler.kernels import affinity as ak
+    rng = np.random.default_rng(U + T + N)
+    wbuf = torch.from_numpy(rng.integers(-100, 101, U * T + 1).astype(
+        np.float32)).to(cuda)
+    cbuf = torch.from_numpy(rng.integers(0, 51, T * N + 1).astype(
+        np.float32)).to(cuda)
+    w = wbuf[1:].view(U, T)
+    c = cbuf[1:].view(T, N)
+    assert w.data_ptr() % 16 and c.data_ptr() % 16
+    before = ak.LAUNCHES["affinity_scores"]
+    got = ak.affinity_scores_tensors(w, c)
+    want = ak.affinity_scores_plain(w, c)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["affinity_scores"] == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
