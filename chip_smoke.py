@@ -429,7 +429,8 @@ POD_SCAN_ROWS = (("pod_scan", "uniform", "batch.py:652"),
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: libraries whose build fails the script if ptxas reports a spill
-SPILL_GATED = ("drf_order", "affinity_scores")
+SPILL_GATED = ("drf_order", "affinity_scores", "affinity_masks",
+               "apply_dirty")
 #: library name -> ptxas_info of its build (filled by main)
 PTXAS = {}
 
@@ -1285,11 +1286,11 @@ def time_host(torch, fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def device_ms(torch, fn, reps, warm=2):
-    """Mean device ms of the work of one fn() call: the summed device time
-    of every kernel, copy and fill torch.profiler records (CUPTI) over
-    reps calls, with no host time between them. None when the profiler
-    records no device time."""
+def device_split(torch, fn, reps, warm=2):
+    """{profiler key: mean device ms a call} of the work of fn(): every
+    kernel, copy and fill torch.profiler records (CUPTI) over reps calls,
+    with no host time between them; empty when the profiler records no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
         fn()
@@ -1300,10 +1301,20 @@ def device_ms(torch, fn, reps, warm=2):
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    us = sum(getattr(e, "self_device_time_total",
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages() if e.device_type == cuda)
-    return us / 1e3 / reps if us > 0 else None
+        if e.device_type == cuda and us > 0:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def device_ms(torch, fn, reps, warm=2):
+    """Mean device ms of the work of one fn() call (device_split summed);
+    None when the profiler records no device time."""
+    split = device_split(torch, fn, reps, warm)
+    return sum(split.values()) if split else None
 
 
 def nbytes(*ts):
@@ -1436,51 +1447,7 @@ def kernel_phase(port, rec, route, launches):
     # ---- K3 apply_dirty
     if rec.dirty_inputs is None:
         fail("the main path never scattered dirty rows (K3)")
-    cfg0, use0, idx, cfg_rows, use_rows = rec.dirty_inputs
-
-    def fresh():
-        return ({k: v.clone() for k, v in cfg0.items()},
-                {k: v.clone() for k, v in use0.items()})
-    ck, uk = kb.apply_dirty(*fresh(), idx, cfg_rows, use_rows)
-    cp_, up_ = kb.apply_dirty_plain(*fresh(), idx, cfg_rows, use_rows)
-    torch.cuda.synchronize()
-    for k in ck:
-        if not bits_equal(torch, ck[k], cp_[k]):
-            fail(f"K3 apply_dirty disagrees on {k}")
-    for k in uk:
-        if not bits_equal(torch, uk[k], up_[k]):
-            fail(f"K3 apply_dirty disagrees on {k}")
-    tables = fresh()
-    k3_ms = time_cuda(torch, lambda: kb.apply_dirty(
-        tables[0], tables[1], idx, cfg_rows, use_rows), reps=50, warm=3)
-    k3_plain_ms, _ = time_host(torch, lambda: kb.apply_dirty_plain(
-        tables[0], tables[1], idx, cfg_rows, use_rows))
-    cap = next(iter(cfg0.values())).shape[0]
-    keep = (idx >= 0) & (idx < cap)
-    live = idx[keep].long()
-    lib_src = {k: v[keep] for k, v in {**cfg_rows, **use_rows}.items()}
-    lib_dst = {**tables[0], **tables[1]}
-
-    def library():
-        for k, t in lib_dst.items():
-            t.index_copy_(0, live, lib_src[k])
-    k3_lib_ms = time_cuda(torch, library, reps=50, warm=3)
-    D = idx.shape[0]
-    n_live = int(keep.sum())
-    row_bytes = sum(t.element_size() * (t.numel() // t.shape[0])
-                    for t in lib_dst.values())
-    k3_bytes = D * 4 + 2 * n_live * row_bytes
-    k3_bound = bound(k3_bytes, 0)
-    rows.append({"name": "apply_dirty", "route": "cuda",
-                 "source": "kubernetes_tpu_torch/csrc/apply_dirty.cu",
-                 "replaces": "kubernetes_tpu/scheduler/kernels/batch.py:1146",
-                 "launches": launches["apply_dirty"], "max_abs_err": 0.0,
-                 "ms": k3_ms, "plain_ms": k3_plain_ms,
-                 "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-                 "library_ms": k3_lib_ms, "match": True,
-                 "library_call": f"index_copy_ x{len(lib_dst)} tables",
-                 "bytes": k3_bytes, "ops": 0,
-                 "shape": f"D={D} ({n_live} rows) N={cap}"})
+    rows.append(dirty_row(port, rec, launches))
     rows.extend(drf_rows(port, rec, launches))
     rows.append(price_row(port, rec, launches))
     # ---- K9 per instance, the singleton replay against K7, K10, K11
@@ -1493,6 +1460,126 @@ def kernel_phase(port, rec, route, launches):
     rows.append(domains_row(port, rec, launches))
     rows.extend(affinity_rows(port, route, launches))
     return rows
+
+
+def dirty_times(torch, kb, cfg0, use0, idx, cfg_rows, use_rows, reps):
+    """K3 on one scatter's inputs: held bit for bit against the plain
+    version (fails otherwise), then timed by CUDA events (the enqueue
+    included) and by device time, beside index_copy_ once a table on the
+    same rows. The tables are copies; returns a dict of ms."""
+    def fresh():
+        return ({k: v.clone() for k, v in cfg0.items()},
+                {k: v.clone() for k, v in use0.items()})
+    got, want = fresh(), fresh()
+    kb.apply_dirty(*got, idx, cfg_rows, use_rows)
+    kb.apply_dirty_plain(*want, idx, cfg_rows, use_rows)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        for k in g:
+            if not bits_equal(torch, g[k], w[k]):
+                fail(f"K3 apply_dirty disagrees with its plain version on "
+                     f"{k}")
+    tables = fresh()
+
+    def k3():
+        kb.apply_dirty(tables[0], tables[1], idx, cfg_rows, use_rows)
+    cap = next(iter(cfg0.values())).shape[0]
+    keep = (idx >= 0) & (idx < cap)
+    live = idx[keep].long()
+    lib_src = {k: v[keep] for k, v in {**cfg_rows, **use_rows}.items()}
+    lib_dst = {**tables[0], **tables[1]}
+
+    def library():
+        for k, t in lib_dst.items():
+            t.index_copy_(0, live, lib_src[k])
+    out = {"ms": time_cuda(torch, k3, reps=reps, warm=5),
+           "device_ms": device_ms(torch, k3, reps=50),
+           "library_ms": time_cuda(torch, library, reps=reps, warm=5),
+           "library_device_ms": device_ms(torch, library, reps=50)}
+    out["plain_ms"], _ = time_host(torch, lambda: kb.apply_dirty_plain(
+        tables[0], tables[1], idx, cfg_rows, use_rows))
+    return out
+
+
+def scatter_times(torch, mirror_cls, host, rows, device, reps=50):
+    """The mirror's scatter of `rows` (int32) from host arrays to the card
+    (TensorMirror.device_cfg_usage with those rows dirty: one packed
+    upload and K3), against the same rows uploaded one tensor a table and
+    scattered with index_copy_ x8; host ms to a synchronize, each the
+    mean of `reps` after two warm-ups. `host`: table name -> [capacity,
+    ...] numpy array, the mirror's layout."""
+    from kubernetes_tpu_torch.scheduler.tensorize import ResourceVocab
+    cap, cols = host["alloc"].shape
+    mirror = mirror_cls(ResourceVocab(extra_capacity=cols - 3),
+                        min_capacity=cap, device=device)
+    if mirror.t.capacity != cap or mirror.t.n_cols != cols:
+        fail(f"scatter: a mirror of {(cap, cols)} came out "
+             f"{(mirror.t.capacity, mirror.t.n_cols)}")
+    for k, a in mirror.t.arrays().items():
+        a[...] = host[k]
+    mirror.device_cfg_usage()   # the full upload
+    lib = {k: v.clone() for k, v in
+           {**mirror._device_cfg, **mirror._device_usage}.items()}
+
+    def timed(fn, prep):
+        ts = []
+        for i in range(reps + 2):
+            prep()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= 2:
+                ts.append((time.perf_counter() - t0) * 1e3)
+        return sum(ts) / len(ts)
+
+    def dirty():
+        mirror._dirty_rows = set(rows.tolist())
+
+    def library():
+        dst = torch.from_numpy(rows).to(device).long()
+        for k, t in lib.items():
+            t.index_copy_(0, dst, torch.from_numpy(host[k][rows]).to(device))
+    out = {"scatter_ms": timed(mirror.device_cfg_usage, dirty),
+           "library_scatter_ms": timed(library, lambda: None)}
+    got = {**mirror._device_cfg, **mirror._device_usage}
+    if not mirror.device_ready() or not all(
+            bits_equal(torch, got[k], lib[k]) for k in lib):
+        fail("scatter: the mirror's tables differ from index_copy_'s")
+    out["scatter_rows"] = int(len(rows))
+    return out
+
+
+def dirty_row(port, rec, launches):
+    """K3 on the main path's largest scatter, and the scatter from the
+    host arrays through the mirror (scatter_times) at its rows."""
+    torch, kb = port.torch, port.kb
+    from kubernetes_tpu_torch.scheduler.tensorize import TensorMirror
+    cfg0, use0, idx, cfg_rows, use_rows = rec.dirty_inputs
+    t = dirty_times(torch, kb, cfg0, use0, idx, cfg_rows, use_rows, 200)
+    cap = next(iter(cfg0.values())).shape[0]
+    keep = (idx >= 0) & (idx < cap)
+    n_live = int(keep.sum())
+    host = {k: v.cpu().numpy() for k, v in {**cfg0, **use0}.items()}
+    t.update(scatter_times(torch, TensorMirror, host,
+                           idx[keep].cpu().numpy(), idx.device))
+    D = idx.shape[0]
+    row_bytes = sum(a.itemsize * (a.size // a.shape[0])
+                    for a in host.values())
+    k3_bytes = D * 4 + 2 * n_live * row_bytes
+    b = bound(k3_bytes, 0)
+    return {"name": "apply_dirty", "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/apply_dirty.cu",
+            "replaces": "kubernetes_tpu/scheduler/kernels/batch.py:1146",
+            "launches": launches["apply_dirty"], "max_abs_err": 0.0,
+            **t, "bound_ms": b[0], "bound_by": b[1], "match": True,
+            "library_call": f"index_copy_ x{len(host)} tables",
+            "library_scatter": f"{len(host)} uploads (one a table) and "
+                               f"index_copy_ x{len(host)}",
+            "bytes": k3_bytes, "ops": 0,
+            "ptxas": PTXAS.get("apply_dirty"),
+            "shape": f"D={D} ({n_live} rows, {row_bytes} bytes a row) "
+                     f"N={cap}"}
 
 
 def scan_row(port, rec, launches, name, path, line):
@@ -2067,8 +2154,11 @@ def drf_rows(port, rec, launches):
                       warm=5)
     k4_plain_ms, _ = time_host(torch, lambda: tk.drf_dominant_plain(
         usage, cap))
-    k4_lib_ms = time_cuda(torch, lambda: (
-        usage / torch.clamp_min(cap, 1.0)).amax(1), reps=200, warm=5)
+    def k4_lib():
+        return (usage / torch.clamp_min(cap, 1.0)).amax(1)
+    k4_lib_ms = time_cuda(torch, k4_lib, reps=200, warm=5)
+    k4_dev = device_ms(torch, lambda: tk.drf_dominant(usage, cap), reps=50)
+    k4_lib_dev = device_ms(torch, k4_lib, reps=50)
     k4_bytes = T * R * 4 + R * 4 + T * 4
     k4_bound = bound(k4_bytes, 2 * T * R)
     rows.append({"name": "drf_dominant", "route": "cuda",
@@ -2081,6 +2171,7 @@ def drf_rows(port, rec, launches):
                  "library_ms": k4_lib_ms, "match": True,
                  "library_call": "(usage / clamp_min(cap, 1)).amax(1), "
                                  "one expression of three calls",
+                 "device_ms": k4_dev, "library_device_ms": k4_lib_dev,
                  "bytes": k4_bytes, "ops": 2 * T * R,
                  "shape": f"T={T} R={R}"})
 
@@ -2259,6 +2350,9 @@ def price_row(port, rec, launches):
     plain_ms, _ = time_host(torch, lambda: pk.price_nodes_plain(*args))
     lib_ms = time_cuda(torch, lambda: price_vectorized(torch, args),
                        reps=50, warm=3)
+    dev_ms = device_ms(torch, lambda: pk.price_nodes(*args), reps=50)
+    lib_dev_ms = device_ms(torch, lambda: price_vectorized(torch, args),
+                           reps=20)
     N, V, R = args[4].shape
     any_elig = price_vectorized(torch, args)[4]
     # pass 1 walks each row's units until the first fitting one (all V
@@ -2279,6 +2373,7 @@ def price_row(port, rec, launches):
             "library_call": "the plain expression with torch.cumsum and "
                             "whole-tensor reductions (no one library call "
                             "prices victims)",
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
             "bytes": bytes_, "ops": ops,
             "shape": f"N={N} V={V} R={R} ({int(args[12].sum())} candidate "
                      "rows, storm's last decision)"}
@@ -2631,22 +2726,35 @@ def affinity_rows(port, route, launches):
     if not torch.equal(got, want):
         fail(f"K13 affinity_masks disagrees with its plain version "
              f"({int((got != want).sum())} of {got.numel()} entries)")
-    ms = time_cuda(torch, lambda: ak.affinity_masks_tensors(*args), reps=20,
-                   warm=2)
-    lib_ms = time_cuda(torch, lambda: ak.affinity_masks_plain(*args),
-                       reps=20, warm=2)
+    t = mask_times(torch, ak, args)
     bytes_ = nbytes(*args, got)
-    ops = 6 * Ub * Tb * N
+    # the work the data needs: an AND and an OR a set selector term a node
+    ops = 2 * int(sum(int((a != 0).sum()) for a in args[2:])) * N
     b = bound(bytes_, ops)
+    f32_ops = 6 * Ub * Tb * N
+    # the GPU test's random selectors (two terms a template at random
+    # columns, so few chunks are skipped) at the same shape
+    rnd = [torch.from_numpy(a).to(dev)
+           for a in random_mask_inputs(np, SCORES_SEED, Ub, Tb, N)]
+    if not torch.equal(ak.affinity_masks_tensors(*rnd),
+                       ak.affinity_masks_plain(*rnd)):
+        fail("K13 affinity_masks disagrees with its plain version on "
+             "random selectors")
+    t_rnd = mask_times(torch, ak, rnd)
     rows = [{"name": "affinity_masks", "route": "cuda",
              "source": "kubernetes_tpu_torch/csrc/affinity_masks.cu",
              "replaces": "kubernetes_tpu/scheduler/kernels/affinity.py:39",
              "launches": launches["affinity_masks"], "max_abs_err": 0.0,
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
-             "bound_by": b[1], "library_ms": lib_ms, "match": True,
+             **t, "plain_ms": plain_ms, "bound_ms": b[0],
+             "bound_by": b[1], "match": True,
+             "f32_ops_bound_ms": f32_ops / F32_OPS_PER_S * 1e3,
              "library_call": "(sd @ (1 - hd) + sp @ (1 - pr)) + sa @ pr "
                              "== 0 with torch.matmul, TF32 off",
-             "bytes": bytes_, "ops": ops,
+             "bytes": bytes_, "ops": ops, "f32_ops": f32_ops,
+             "random_selectors": {k: t_rnd[k] for k in (
+                 "ms", "device_ms", "pack_share", "chunks_skipped",
+                 "library_ms")},
+             "ptxas": PTXAS.get("affinity_masks"),
              "mask_true_share": float(got[:U].float().mean()),
              "shape": f"U={U} (Ub={Ub}) T={T} (Tb={Tb}) N={N} (the "
                       "largest call of service-anti-affinity)"}]
@@ -2690,6 +2798,50 @@ def affinity_rows(port, route, launches):
                           f"integer weights in [-100, 100], counts in "
                           f"[0, 50], seed {SCORES_SEED})"})
     return rows
+
+
+def mask_times(torch, ak, args):
+    """K13 on bucket-padded inputs: ms by CUDA events (each call reads
+    its selector check flag back, as the wrapper does) and device ms, the
+    pack pass's share of the device time, the share of (template tile,
+    chunk) pairs skipped, and the torch.matmul expression's ms."""
+    def k13():
+        ak.affinity_masks_tensors(*args)
+
+    def library():
+        ak.affinity_masks_plain(*args)
+    split = device_split(torch, k13, reps=20)
+    U, T = args[2].shape
+    scratch = ak.mask_scratch(U, T, args[0].shape[1], args[0].device)
+    ak._affinity_masks_cuda(*args, scratch=scratch)
+    torch.cuda.synchronize()
+    total = sum(split.values())
+    return {"ms": time_cuda(torch, k13, reps=20, warm=2),
+            "device_ms": total if split else "not measured",
+            "pack_share": (sum(v for k, v in split.items() if "pack" in k)
+                           / total) if split else "not measured",
+            "device_split": split,
+            "chunks_skipped": 1.0 - float(scratch["chunks"].float().mean()),
+            "library_ms": time_cuda(torch, library, reps=20, warm=2),
+            "library_device_ms": device_ms(torch, library, reps=20)}
+
+
+def random_mask_inputs(np, seed, U, T, N):
+    """has_dom, present [T, N] bool and the three selectors [U, T] f32 of
+    tests/test_torch_gpu.py _affinity_inputs: two terms a template at
+    random columns, each as required, waived or anti-affinity."""
+    rng = np.random.default_rng(seed)
+    has_dom = rng.random((T, N)) < 0.9
+    present = rng.random((T, N)) < 0.5
+    sels = [np.zeros((U, T), np.float32) for _ in range(3)]
+    u = np.repeat(np.arange(U), 2)
+    t = rng.integers(0, T, 2 * U)
+    kind = rng.integers(0, 3, 2 * U)
+    kind[1::2] = np.where(rng.random(U) < 0.5, kind[1::2], -1)
+    for k, sel in ((0, (0, 1)), (1, (0,)), (2, (2,))):
+        for j in sel:
+            sels[j][u[kind == k], t[kind == k]] = 1.0
+    return (has_dom, present, *sels)
 
 
 def unaligned_copy(torch, t):
@@ -3572,6 +3724,24 @@ def main() -> None:
                       f"{t['device_ms']} ms device; two-pass torch.sort "
                       f"{t['library_ms']} ms events / "
                       f"{t['library_device_ms']} ms device {tag}")
+        if "device_ms" in r and r["name"] != "drf_order":
+            print(f"    {r['name']} device {r['device_ms']} ms (library "
+                  f"{r.get('library_device_ms')} ms) {tag}")
+        if r["name"] == "apply_dirty":
+            print(f"    K3 scatter from the host arrays through the mirror "
+                  f"({r['scatter_rows']} rows): {r['scatter_ms']} ms; one "
+                  f"upload a table and index_copy_ "
+                  f"{r['library_scatter_ms']} ms {tag}")
+        if r["name"] == "affinity_masks":
+            rnd = r["random_selectors"]
+            print(f"    K13 pack pass {r['pack_share']} of its device "
+                  f"time, {r['chunks_skipped']} of the chunks skipped; "
+                  f"bound {r['bound_ms']} ms by {r['bound_by']} (the f32 "
+                  f"form's {r['f32_ops_bound_ms']} ms by operations); "
+                  f"ptxas {r['ptxas']}; on random selectors {rnd['ms']} "
+                  f"ms ({rnd['device_ms']} device, pack "
+                  f"{rnd['pack_share']}, skipped {rnd['chunks_skipped']}; "
+                  f"library {rnd['library_ms']}) {tag}")
         if r["name"] == "affinity_scores":
             print(f"    K14 {r['tflops']} TFLOP/s (library "
                   f"{r['library_tflops']}); its 4-byte-copy instance on "

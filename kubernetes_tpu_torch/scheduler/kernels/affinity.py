@@ -19,8 +19,8 @@ batches stay on host numpy.
 
 The device programs:
 
-    affinity_masks  -> K13 csrc/affinity_masks.cu   the three sums and the
-                           compare, tiled over (template, node)
+    affinity_masks  -> K13 csrc/affinity_masks.cu   the terms packed into
+                           32-bit words, mask = (OR of word ANDs) == 0
     affinity_scores -> K14 csrc/affinity_scores.cu  weights @ counts, the
                            preferred-term score accumulation (no caller in
                            the scheduler, as in the reference)
@@ -32,12 +32,20 @@ upload to `device` and return the unpadded numpy result; on the tensors,
 dispatch is by device, as in kernels/batch.py: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel (a build or launch
 failure raises). LAUNCHES counts the launches.
+
+K13's contract: its bit form is exact for selectors in {0.0, -0.0, 1.0},
+all that required_masks ever passes. A selector of any other value (0.5,
+2.0, NaN) on the card raises ValueError, never a silent wrong mask and
+never the plain version in its place; `affinity_masks_plain` keeps JAX's
+f32 arithmetic for any selector values.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -89,22 +97,61 @@ def affinity_masks_plain(has_dom: torch.Tensor, present: torch.Tensor,
     return viol == 0.0
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_words(U: int, T: int, N: int) -> Tuple[int, int, int]:
+    """4-byte words of K13's scratch at (U, T, N): the selector words, the
+    node words and the chunk flags (the C library's own tiling)."""
+    from .build import check
+    words = (ctypes.c_longlong * 3)()
+    check(_fn("affinity_masks", "ktpu_affinity_masks_scratch",
+              [_I] * 3 + [_P])(U, T, N, ctypes.cast(words, _P)),
+          "affinity_masks_scratch")
+    return tuple(int(w) for w in words)
+
+
+def mask_scratch(U: int, T: int, N: int, device) -> Dict[str, torch.Tensor]:
+    """K13's scratch on `device`: "sel_words" and "node_words" (the packed
+    terms), "chunks" (a flag for each template tile and chunk of words
+    with a selector bit set) and "err" (set by a selector outside
+    {0, -0, 1}), all int32."""
+    a, b, c = _scratch_words(U, T, N)
+    return {name: torch.empty(n, dtype=torch.int32, device=device)
+            for name, n in (("sel_words", a), ("node_words", b),
+                            ("chunks", c), ("err", 1))}
+
+
 def _affinity_masks_cuda(has_dom, present, sel_dom, sel_present,
-                         sel_absent) -> torch.Tensor:
+                         sel_absent, scratch=None) -> torch.Tensor:
+    """K13; `scratch` (mask_scratch's) is allocated here unless given, and
+    holds the packed words and chunk flags of the call afterwards."""
     from .build import check
     T, N = has_dom.shape
     U = sel_dom.shape[0]
     out = torch.empty((U, N), dtype=torch.bool, device=has_dom.device)
+    if scratch is None:
+        scratch = mask_scratch(U, T, N, has_dom.device)
+    elif any(scratch[k].numel() < n for k, n in
+             zip(("sel_words", "node_words", "chunks", "err"),
+                 (*_scratch_words(U, T, N), 1))):
+        raise ValueError(f"affinity_masks: scratch too small for "
+                         f"{(U, T, N)}")
     rc = _fn("affinity_masks", "ktpu_affinity_masks",
-             [_P] * 6 + [_I] * 3 + [_P])(
+             [_P] * 6 + [_I] * 3 + [_P] * 5)(
         _ptr(has_dom, torch.bool, "has_dom"),
         _ptr(present, torch.bool, "present"),
         _ptr(sel_dom, torch.float32, "sel_dom"),
         _ptr(sel_present, torch.float32, "sel_present"),
         _ptr(sel_absent, torch.float32, "sel_absent"),
-        _ptr(out, torch.bool, "out"), U, T, N, _stream(has_dom))
+        _ptr(out, torch.bool, "out"), U, T, N,
+        *(_ptr(scratch[k], torch.int32, k)
+          for k in ("sel_words", "node_words", "chunks", "err")),
+        _stream(has_dom))
     check(rc, "affinity_masks")
     LAUNCHES["affinity_masks"] += 1
+    if int(scratch["err"].item()):
+        raise ValueError("affinity_masks: a selector outside {0.0, -0.0, "
+                         "1.0}; K13's bit form is exact only for 0/1 "
+                         "selectors (the plain version takes any f32)")
     return out
 
 

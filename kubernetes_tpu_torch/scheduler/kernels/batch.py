@@ -64,7 +64,7 @@ left as they were), so consecutive batches chain on the device.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -165,13 +165,21 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+#: (library, entry) -> its configured ctypes function
+_FNS: Dict[Tuple[str, str], Any] = {}
+
+
 def _fn(lib_name: str, fn_name: str, argtypes):
     """A C entry of a kernel library (built on first use); pointers and
-    the stream pass as c_void_p, sizes as c_int."""
-    from .build import load
-    fn = getattr(load(lib_name), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    the stream pass as c_void_p, sizes as c_int. Each entry is configured
+    once, on its first call: an entry's argtypes never change."""
+    fn = _FNS.get((lib_name, fn_name))
+    if fn is None:
+        from .build import load
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[(lib_name, fn_name)] = fn
     return fn
 
 
@@ -1468,41 +1476,70 @@ def apply_dirty_plain(node_cfg: dict, usage: dict, idx: torch.Tensor,
     return node_cfg, usage
 
 
-def apply_dirty(node_cfg: dict, usage: dict, idx: torch.Tensor,
-                cfg_rows: dict, usage_rows: dict) -> Tuple[dict, dict]:
-    """Dirty-row scatter into the device tables, in place (the reference
-    donates its input buffers, so in place is the same contract): plain
-    on the CPU, kernel K3 on CUDA."""
-    if not _on_cuda(idx):
-        return apply_dirty_plain(node_cfg, usage, idx, cfg_rows,
-                                 usage_rows)
-    from .build import check
-    pairs = [(node_cfg[k], cfg_rows[k], k) for k in node_cfg] + \
-            [(usage[k], usage_rows[k], k) for k in usage]
-    n = len(pairs)
-    dst = (ctypes.c_void_p * n)()
-    src = (ctypes.c_void_p * n)()
-    cols = (ctypes.c_int * n)()
-    elem = (ctypes.c_int * n)()
+class _DirtyTables(ctypes.Structure):
+    """K3's table descriptor (KtpuDirtyHost in csrc/apply_dirty.cu)."""
+    _fields_ = [("dst", ctypes.c_void_p * 16), ("src", ctypes.c_void_p * 16),
+                ("cols", ctypes.c_int * 16), ("elem", ctypes.c_int * 16),
+                ("n", ctypes.c_int)]
+
+
+#: K3's descriptors, keyed by the layout of the tables and rows they
+#: describe (_dirty_key): built once for a set of tables, checks and all
+_DIRTY_DESC: Dict[tuple, _DirtyTables] = {}
+
+
+def _dirty_key(tensors) -> tuple:
+    return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+                 for t in tensors)
+
+
+def _dirty_desc(pairs, D: int) -> _DirtyTables:
+    """The descriptor of (table, rows, name) pairs, every table checked
+    CUDA, contiguous, of one capacity, and its rows [D, ...] of its
+    dtype."""
+    if len(pairs) > 16:
+        raise ValueError(f"apply_dirty: {len(pairs)} tables, K3 takes 16")
+    desc = _DirtyTables()
     cap = pairs[0][0].shape[0]
-    D = idx.shape[0]
     for j, (t, rows, name) in enumerate(pairs):
         if t.shape[0] != cap or tuple(rows.shape) != (D,) + tuple(t.shape[1:]):
             raise ValueError(f"apply_dirty: {name} rows {tuple(rows.shape)}"
                              f" do not match table {tuple(t.shape)}")
         if rows.dtype != t.dtype or t.element_size() not in (1, 4):
             raise TypeError(f"apply_dirty: {name} is {t.dtype}/{rows.dtype}")
-        dst[j] = _ptr(t, t.dtype, name).value
-        src[j] = _ptr(rows, t.dtype, name + " rows").value
-        cols[j] = int(np.prod(t.shape[1:], dtype=np.int64))
-        elem[j] = t.element_size()
-    args = (_ptr(idx, torch.int32, "idx"), D, cap, n,
-            ctypes.cast(dst, ctypes.c_void_p),
-            ctypes.cast(src, ctypes.c_void_p),
-            ctypes.cast(cols, ctypes.c_void_p),
-            ctypes.cast(elem, ctypes.c_void_p), _stream(idx))
-    rc = _fn("apply_dirty", "ktpu_apply_dirty",
-             [_P] + [_I] * 3 + [_P] * 5)(*args)
+        desc.dst[j] = _ptr(t, t.dtype, name).value
+        desc.src[j] = _ptr(rows, t.dtype, name + " rows").value
+        desc.cols[j] = int(np.prod(t.shape[1:], dtype=np.int64))
+        desc.elem[j] = t.element_size()
+    desc.n = len(pairs)
+    return desc
+
+
+def apply_dirty(node_cfg: dict, usage: dict, idx: torch.Tensor,
+                cfg_rows: dict, usage_rows: dict) -> Tuple[dict, dict]:
+    """Dirty-row scatter into the device tables, in place (the reference
+    donates its input buffers, so in place is the same contract): plain
+    on the CPU, kernel K3 on CUDA. The descriptor of a set of tables and
+    rows is built (and checked) on its first scatter and reused while
+    their pointers and layouts stay."""
+    if not _on_cuda(idx):
+        return apply_dirty_plain(node_cfg, usage, idx, cfg_rows,
+                                 usage_rows)
+    from .build import check
+    tables = [*node_cfg.values(), *usage.values()]
+    rows = [*(cfg_rows[k] for k in node_cfg), *(usage_rows[k] for k in usage)]
+    D = idx.shape[0]
+    key = (D, *_dirty_key(tables), *_dirty_key(rows))
+    desc = _DIRTY_DESC.get(key)
+    if desc is None:
+        names = [*node_cfg, *usage]
+        desc = _dirty_desc(list(zip(tables, rows, names)), D)
+        if len(_DIRTY_DESC) >= 64:
+            _DIRTY_DESC.clear()
+        _DIRTY_DESC[key] = desc
+    rc = _fn("apply_dirty", "ktpu_apply_dirty", [_P, _P, _I, _I, _P])(
+        ctypes.byref(desc), _ptr(idx, torch.int32, "idx"), D,
+        tables[0].shape[0], _stream(idx))
     check(rc, "apply_dirty")
     LAUNCHES["apply_dirty"] += 1
     return node_cfg, usage

@@ -171,6 +171,8 @@ class TensorMirror:
         #: bumped on any node change; TermCompiler cache epoch
         self.epoch = 0
         self._dirty_rows: set = set()
+        #: (D bucket, column widths) -> _DirtyStage of the packed scatter
+        self._stages: Dict[tuple, _DirtyStage] = {}
         self._device_cfg: Optional[dict] = None
         self._device_usage: Optional[dict] = None
         #: bumped by invalidate_usage; pending batches launched before an
@@ -270,6 +272,7 @@ class TensorMirror:
             self._device_cfg = None
             self._device_usage = None
             self._dirty_rows.clear()
+            self._stages.clear()   # their layout has the old widths
 
     def _write_row(self, name: str, ni: NodeInfo) -> None:
         row = self.row_of.get(name)
@@ -341,8 +344,10 @@ class TensorMirror:
 
     def device_cfg_usage(self) -> Tuple[dict, dict]:
         """The (node_cfg, usage) pytrees on device. Dirty rows ship as ONE
-        packed scatter (kernels.apply_dirty, K3 on the card); full upload
-        only after a capacity/column resize."""
+        packed scatter: the rows of every table and their indices in one
+        staging buffer (_DirtyStage), one host-to-device copy, then
+        kernels.apply_dirty (K3 on the card); full upload only after a
+        capacity/column resize or invalidate_usage."""
         t = self.t
         if self._device_cfg is None or self._device_usage is None:
             # resize or invalidate_usage: both re-uploaded from host truth
@@ -354,19 +359,24 @@ class TensorMirror:
             from .kernels.batch import apply_dirty
             idx = np.fromiter(self._dirty_rows, dtype=np.int32,
                               count=len(self._dirty_rows))
-            D = _bucket(len(idx), minimum=8)
-            # pad with an out-of-range row; apply_dirty drops it
-            pad = np.full((D,), t.capacity, np.int32)
-            pad[:len(idx)] = idx
-            cfg_rows = {k: self.put(_padded_rows(v, idx, D))
-                        for k, v in t.cfg_arrays().items()}
-            usage_rows = {k: self.put(_padded_rows(v, idx, D))
-                          for k, v in t.usage_arrays().items()}
+            tables = t.arrays()
+            stage = self._stage(_bucket(len(idx), minimum=8), tables)
+            rows = stage.pack(idx, t.capacity, tables)
             self._device_cfg, self._device_usage = apply_dirty(
-                self._device_cfg, self._device_usage,
-                self.put(pad), cfg_rows, usage_rows)
+                self._device_cfg, self._device_usage, rows["idx"],
+                {k: rows[k] for k in CFG_KEYS},
+                {k: rows[k] for k in USAGE_KEYS})
         self._dirty_rows.clear()
         return self._device_cfg, self._device_usage
+
+    def _stage(self, D: int, tables: Dict[str, np.ndarray]) -> "_DirtyStage":
+        """The staging buffers of the D bucket, made on first use and kept
+        while the tables' column widths stay."""
+        key = (D, tuple(a.shape[1:] for a in tables.values()))
+        stage = self._stages.get(key)
+        if stage is None:
+            stage = self._stages[key] = _DirtyStage(D, tables, self.device)
+        return stage
 
     def adopt_usage(self, usage: dict, epoch: Optional[int] = None) -> bool:
         """Adopt the kernel's post-batch usage (device-side chaining). Safe
@@ -402,10 +412,55 @@ class TensorMirror:
         return len(self.row_of)
 
 
-def _padded_rows(arr: np.ndarray, idx: np.ndarray, D: int) -> np.ndarray:
-    out = np.zeros((D,) + arr.shape[1:], arr.dtype)
-    out[:len(idx)] = arr[idx]
-    return out
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.bool_): torch.bool}
+
+
+class _DirtyStage:
+    """The staging of one D bucket's packed dirty-row scatter: a host
+    buffer (pinned when the device is CUDA) and a device buffer of one
+    layout, the slots' row indices ("idx", int32 [D]) and then each
+    table's [D, ...] rows, every segment starting at a 16-byte boundary.
+    `pack` fills the host buffer, ships it in one copy and returns the
+    device segments as contiguous views of the device buffer. The event
+    recorded after that copy guards the host buffer's next fill. The
+    device buffer is never host memory (on the CPU it is a second
+    buffer), so device state never aliases the host mirror."""
+
+    def __init__(self, D: int, tables: Dict[str, np.ndarray], device):
+        segs = [("idx", np.dtype(np.int32), ())] + \
+            [(k, a.dtype, a.shape[1:]) for k, a in tables.items()]
+        layout, off = [], 0
+        for name, dtype, tail in segs:
+            nbytes = D * int(np.prod(tail, dtype=np.int64)) * dtype.itemsize
+            layout.append((name, dtype, (D,) + tail, off, nbytes))
+            off = (off + nbytes + 15) // 16 * 16
+        cuda = torch.device(device).type == "cuda"
+        self.host = torch.empty(off, dtype=torch.uint8, pin_memory=cuda)
+        self.dev = torch.empty(off, dtype=torch.uint8, device=device)
+        host = self.host.numpy()
+        self.h = {name: host[o:o + n].view(dt).reshape(shape)
+                  for name, dt, shape, o, n in layout}
+        self.d = {name: self.dev[o:o + n].view(_TORCH_DTYPES[dt]).view(shape)
+                  for name, dt, shape, o, n in layout}
+        self.event = torch.cuda.Event() if cuda else None
+
+    def pack(self, idx: np.ndarray, capacity: int,
+             tables: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if self.event is not None:
+            self.event.synchronize()   # the last copy out has finished
+        n = len(idx)
+        h = self.h
+        h["idx"][:n] = idx
+        h["idx"][n:] = capacity   # pad slots: an out-of-range row, dropped
+        for k, arr in tables.items():
+            np.take(arr, idx, axis=0, out=h[k][:n])
+            h[k][n:] = 0
+        self.dev.copy_(self.host, non_blocking=True)
+        if self.event is not None:
+            self.event.record()
+        return self.d
 
 
 # --------------------------------------------------------------- terms

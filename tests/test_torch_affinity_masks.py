@@ -112,6 +112,94 @@ def test_plain_masks_match_jax(U, T, N):
     assert 0 < ref_u.sum() < ref_u.size
 
 
+def affinity_masks_bits_plain(has_dom, present, sel_dom, sel_present,
+                              sel_absent):
+    """K13's bit form (csrc/affinity_masks.cu) in plain torch integer
+    ops: the three selectors packed into Tw = ceil(T / 32) words each and
+    stacked, A = [sd | sp | sa] [U, 3·Tw]; the node side likewise,
+    B = [~hd | ~pr | pr] [N, 3·Tw] with pr = present & hd and pad terms 0;
+    mask = (OR_k A[u, k] & B[n, k]) == 0. Exact for selectors in
+    {0.0, -0.0, 1.0}; raises for any other value, as the kernel does."""
+    sels = (sel_dom, sel_present, sel_absent)
+    for s in sels:
+        if not bool(((s == 0.0) | (s == 1.0)).all()):
+            raise ValueError("affinity_masks: a selector outside "
+                             "{0.0, -0.0, 1.0}")
+    T = has_dom.shape[0]
+    Tw = (T + 31) // 32
+    bit = torch.ones(32, dtype=torch.int64) << torch.arange(32)
+
+    def words(bits):       # [..., T] bool -> [..., Tw] words of 32 terms
+        b = torch.nn.functional.pad(bits.to(torch.int64), (0, 32 * Tw - T))
+        return (b.view(*b.shape[:-1], Tw, 32) * bit).sum(-1)
+    hd, pr = has_dom.T, (present & has_dom).T
+    terms = words(torch.ones(T, dtype=torch.bool))
+    A = torch.cat([words(s == 1.0) for s in sels], 1)
+    B = torch.cat([words(~hd) & terms, words(~pr) & terms, words(pr)], 1)
+    return ((A[:, None, :] & B[None, :, :]) == 0).all(-1)
+
+
+def _bit_inputs(seed, U, T, N):
+    """Random 0/1 selectors with set terms at the word boundaries (31, 32,
+    63, 64, T - 1), template 0 all ones, template 1 all zeros."""
+    has_dom, present, *sels = _mask_inputs(seed, U, T, N)
+    rng = np.random.default_rng(seed + 1)
+    for j, t in enumerate(t for t in (31, 32, 63, 64, T - 1) if t < T):
+        sels[j % 3][2 + j % (U - 2), t] = 1.0
+    for s in sels:
+        s[2:][rng.random((U - 2, T)) < min(0.1, 2.0 / T)] = 1.0
+        s[0] = 1.0
+        s[1] = 0.0
+    return (has_dom, present, *sels)
+
+
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 63, 64, 65, 2048])
+def test_bit_form_matches_jax(T):
+    U, N = 12, 40
+    args = _bit_inputs(T, U, T, N)
+    ref = np.asarray(jaff._affinity_masks_jit(*args))
+    ts = [torch.from_numpy(a) for a in args]
+    got = affinity_masks_bits_plain(*ts)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(taff.affinity_masks_plain(*ts).numpy(),
+                                  ref)
+    assert not ref[0].any()                # all ones: every node violates
+    assert ref[1].all()                    # all zeros: every node passes
+    assert 0 < ref[2:].sum() < ref[2:].size
+
+
+@pytest.mark.parametrize("T", [5, 64, 70])
+def test_bit_form_takes_negative_zero_selectors(T):
+    U, N = 9, 33
+    has_dom, present, *sels = _bit_inputs(100 + T, U, T, N)
+    neg = [np.where(s == 0.0, np.float32(-0.0), s) for s in sels]
+    assert all(np.signbit(s[s == 0.0]).all() for s in neg)
+    ref = np.asarray(jaff._affinity_masks_jit(has_dom, present, *neg))
+    np.testing.assert_array_equal(ref, np.asarray(
+        jaff._affinity_masks_jit(has_dom, present, *sels)))
+    got = affinity_masks_bits_plain(
+        *(torch.from_numpy(a) for a in (has_dom, present, *neg)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("value", [0.5, 2.0, float("nan")])
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_bit_form_refuses_other_selectors_and_plain_keeps_jax(value, which):
+    """A selector outside {0, -0, 1} has no bit form: the model raises
+    (on the card K13 raises ValueError). The plain version keeps JAX's
+    f32 arithmetic for it, bit for bit."""
+    U, T, N = 6, 40, 24
+    args = list(_mask_inputs(7, U, T, N))
+    args[2 + which][3, 17] = value
+    args[2 + (which + 1) % 3][4, 2] = -1.0
+    ts = [torch.from_numpy(a) for a in args]
+    with pytest.raises(ValueError, match="selector"):
+        affinity_masks_bits_plain(*ts)
+    ref = np.asarray(jaff._affinity_masks_jit(*args))
+    np.testing.assert_array_equal(taff.affinity_masks_plain(*ts).numpy(),
+                                  ref)
+
+
 def _score_inputs(seed, U, T, N, integer):
     rng = np.random.default_rng(seed)
     if integer:

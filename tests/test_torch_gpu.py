@@ -582,6 +582,115 @@ def test_apply_dirty_kernel_matches_plain(cuda):
             assert torch.equal(x[k], y[k]), k
 
 
+def _dirty_rows(rng, node_cfg, usage, D, n_live):
+    """idx [D] with n_live distinct live rows and pad slots (the capacity,
+    -1 and past it), and random rows of every table."""
+    cap = node_cfg["alloc"].shape[0]
+    idx = rng.choice([cap, -1, cap + 7], D).astype(np.int32)
+    idx[rng.permutation(D)[:n_live]] = rng.choice(cap, n_live,
+                                                  replace=False)
+    rows_c = {k: (rng.random((D,) + v.shape[1:]) < 0.5) if v.dtype == bool
+              else (rng.random((D,) + v.shape[1:]) * 9).astype(v.dtype)
+              for k, v in node_cfg.items()}
+    rows_u = {k: (rng.random((D,) + v.shape[1:]) * 9).astype(v.dtype)
+              for k, v in usage.items()}
+    return idx, rows_c, rows_u
+
+
+@pytest.mark.parametrize("D,n_live", [(8, 5), (16, 16), (8192, 5000)])
+def test_apply_dirty_kernel_matches_plain_at_d(cuda, D, n_live):
+    """Bit for bit against the plain scatter at the D buckets of a small
+    and of the main path's largest dirty set (pad slots dropped, the last
+    row untouched), and again on a second scatter into the same tables
+    with the same buffers (K3's cached descriptor)."""
+    node_cfg, usage, _ = _state(D, N=8192)
+    rng = np.random.default_rng(D)
+    a = tables_from_numpy(node_cfg, usage, None, cuda)
+    b = tables_from_numpy(node_cfg, usage, None, cuda)
+    idx, rows_c, rows_u = _dirty_rows(rng, node_cfg, usage, D, n_live)
+    rc, ru, _ = tables_from_numpy(rows_c, rows_u, None, cuda)
+    t_idx = torch.from_numpy(idx).to(cuda)
+    before = kb.LAUNCHES["apply_dirty"]
+    for rep in range(2):
+        kb.apply_dirty(a[0], a[1], t_idx, rc, ru)
+        kb.apply_dirty_plain(b[0], b[1], t_idx, rc, ru)
+        torch.cuda.synchronize()
+        for x, y in ((a[0], b[0]), (a[1], b[1])):
+            for k in x:
+                assert torch.equal(x[k], y[k]), (rep, k)
+        # the second scatter: new rows and slots through the same buffers
+        idx2, rows_c2, rows_u2 = _dirty_rows(rng, node_cfg, usage, D,
+                                             n_live)
+        t_idx.copy_(torch.from_numpy(idx2))
+        for dst, src in ((rc, rows_c2), (ru, rows_u2)):
+            for k in dst:
+                dst[k].copy_(torch.from_numpy(src[k]))
+    assert kb.LAUNCHES["apply_dirty"] == before + 2
+
+
+def _port_node(api, i, cpu="8", ready=True, gpu=None):
+    alloc = {"cpu": api.Quantity(cpu), "memory": api.Quantity("16Gi"),
+             "pods": api.Quantity(110)}
+    if gpu is not None:
+        alloc["example.com/gpu"] = api.Quantity(gpu)
+    return api.Node(
+        metadata=api.ObjectMeta(name=f"n{i}"),
+        status=api.NodeStatus(capacity=dict(alloc), allocatable=dict(alloc),
+                              conditions=[api.NodeCondition(
+                                  type="Ready",
+                                  status="True" if ready else "False")]))
+
+
+def test_mirror_scatter_on_the_card_matches_the_cpu(cuda):
+    """TensorMirror.device_cfg_usage on the card (one packed upload, K3)
+    leaves the tables the CPU mirror leaves: scatters with pad slots, two
+    in a row through the same staging buffers, and after a resize (rows
+    past the capacity, then a new column)."""
+    from kubernetes_tpu_torch import api
+    from kubernetes_tpu_torch.scheduler.cache import Cache, Snapshot
+    from kubernetes_tpu_torch.scheduler.tensorize import TensorMirror
+    sides = [(Cache(), Snapshot(), TensorMirror(device=d))
+             for d in (cuda, "cpu")]
+    nodes = {}
+
+    def step(fn):
+        for cache, snap, mirror in sides:
+            fn(cache)
+            mirror.apply(snap, cache.update_snapshot(snap))
+        (gc, gu), (cc, cu) = (m.device_cfg_usage() for _, _, m in sides)
+        torch.cuda.synchronize()
+        for g, c in ((gc, cc), (gu, cu)):
+            for k in c:
+                assert torch.equal(g[k].cpu(), c[k]), k
+
+    def add(i, **kw):
+        def fn(cache):
+            nodes[i] = _port_node(api, i, **kw)
+            cache.add_node(nodes[i])
+        return fn
+
+    def update(i, **kw):
+        def fn(cache):
+            new = _port_node(api, i, **kw)
+            cache.update_node(nodes[i], new)
+        return fn
+
+    for i in range(20):
+        step(add(i))
+    before = kb.LAUNCHES["apply_dirty"]
+    step(update(3, cpu="4"))
+    step(update(5, ready=False))
+    stages = dict(sides[0][2]._stages)
+    step(update(3, cpu="2"))
+    assert sides[0][2]._stages == stages          # reused
+    for i in range(20, 140):                      # past capacity 128
+        step(add(i))
+    step(update(7, cpu="6"))
+    step(add(200, gpu="2"))                       # a new column
+    step(update(9, cpu="1"))
+    assert kb.LAUNCHES["apply_dirty"] > before + 3
+
+
 # ------------------------------------------------- DRF kernels K4, K5
 
 
@@ -936,6 +1045,54 @@ def test_affinity_masks_kernel_matches_plain(cuda, U, T, N):
     # the bucket-padded numpy wrapper on the card against the CPU
     np.testing.assert_array_equal(ak.affinity_masks(*args, device=cuda),
                                   ak.affinity_masks(*args, device="cpu"))
+
+
+#: word boundaries of K13's 32-term words and 512-term chunks, and a
+#: template tile of 64 plus one
+MASK_WORD_SHAPES = [(5, 31, 40), (65, 32, 130), (9, 33, 257), (64, 65, 128),
+                    (3, 511, 64), (7, 513, 129)]
+
+
+@pytest.mark.parametrize("U,T,N", MASK_WORD_SHAPES + AFFINITY_SHAPES[-2:])
+def test_affinity_masks_kernel_word_boundaries(cuda, U, T, N):
+    """K13 against plain where T ends inside, at or just past a word; with
+    template 0's selectors all ones (no chunk of its tile skipped), -0.0
+    in place of every zero of template 1, and with all-zero selectors
+    (every chunk skipped, every entry True)."""
+    from kubernetes_tpu_torch.scheduler.kernels import affinity as ak
+    has_dom, present, *sels = _affinity_inputs(U * T + N, U, T, N)
+    for s in sels:
+        s[0] = 1.0
+        if U > 1:
+            s[1] = np.where(s[1] == 0.0, np.float32(-0.0), s[1])
+    ts = [torch.from_numpy(a).to(cuda) for a in (has_dom, present, *sels)]
+    scratch = ak.mask_scratch(U, T, N, cuda)
+    got = ak._affinity_masks_cuda(*ts, scratch=scratch)
+    want = ak.affinity_masks_plain(*ts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not want[0].any()
+    chunks = scratch["chunks"].view(-1, (3 * ((T + 31) // 32) + 15) // 16)
+    assert bool(chunks[0].all())          # tile 0: no chunk skipped
+    zero = [torch.zeros_like(t) for t in ts[2:]]
+    got = ak._affinity_masks_cuda(*ts[:2], *zero, scratch=scratch)
+    torch.cuda.synchronize()
+    assert bool(got.all()) and not bool(scratch["chunks"].any())
+
+
+@pytest.mark.parametrize("value", [0.5, 2.0, float("nan"), -1.0])
+def test_affinity_masks_kernel_refuses_other_selectors(cuda, value):
+    """A selector outside {0, -0, 1} on the card raises ValueError: K13's
+    bit form has no answer for it, and the plain version is no fallback."""
+    from kubernetes_tpu_torch.scheduler.kernels import affinity as ak
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _affinity_inputs(3, 70, 100, 300)]
+    args[3][69, 99] = value
+    with pytest.raises(ValueError, match="selector"):
+        ak.affinity_masks_tensors(*args)
+    args[3][69, 99] = 1.0
+    assert torch.equal(ak.affinity_masks_tensors(*args),
+                       ak.affinity_masks_plain(*args))
 
 
 #: K14's ragged edges: no tile divides U, T or N, rows that do not start
