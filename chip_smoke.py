@@ -6,7 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
-one process per source, all started together: K1-K15), then:
+one process per source, all started together: K1-K15), fails if ptxas
+reports a spill in any instance of a library of SPILL_GATED (the scans
+K2 and K9 among them), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -54,14 +56,14 @@ one process per source, all started together: K1-K15), then:
        instance (class_scan_nom) on every batch;
      - `storm`: bench.py preempt_main's preemption storm at 5,000 nodes
        (3 bound victims of priority 0/10/100 on every node, a PodGroup
-       member on every fourth, a PodDisruptionBudget over band b0): 150
+       member on every fourth, a PodDisruptionBudget over band b0): 100
        preemptors of 2 CPU / 3Gi at priority 1000 through
        BatchScheduler.preempt, each plan's victims removed from the cache
        (K6 price_nodes prices every candidate node on each), then the same
        storm through the serial reprieve control (KTPU_PREEMPT_KERNEL=0),
        plans/s of both printed;
      - `preemption`: the same cluster created through the port's Client
-       (with the PDB object), 150 preemptors created pending, and
+       (with the PDB object), 100 preemptors created pending, and
        Scheduler.drain_pipelined with preemption on until nothing is
        pending: each preemptor is priced (K6), nominated, evicts its
        victims, and lands through the nominated overlay (K1's fold, K2's
@@ -100,7 +102,7 @@ one process per source, all started together: K1-K15), then:
        members of 2 CPU / 3Gi at priority 1000, minMember 8, tpu/slice,
        each pricing the 625 slices in one launch of K11 price_domains;
        plans/s, and the host time of build_domain_tables;
-     - `gang-preemption`: the storm cluster through the Client and 10
+     - `gang-preemption`: the storm cluster through the Client and 6
        such gangs arriving one after another, each drained until it is
        bound (workload.drain_until_idle): priced (K11), its members
        nominated across the winner slice's freed nodes, the chosen units
@@ -135,6 +137,12 @@ one process per source, all started together: K1-K15), then:
        loops'; `sharded-pad`, 10,000 uniform pods on 3 shards (capacity 8,192
        padded to 8,193: one shard-pad row), whose binds must equal its
        KTPU_SHARD_MAP=0 control's (K2 over the padded mirror).
+     K2 and K9 each have two designs (kernels/batch.py
+     class_scan_design, kernels/gang.py gang_design) and count launches
+     per "instance:design" beside their instance counts; the `uniform`,
+     `spread` and `scheduler` paths must run K2 in its shared-table
+     design alone, `gang` and `gang-preemption` K9 in its cluster design
+     alone (PATH_DESIGNS), and the script prints each path's designs.
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
@@ -159,10 +167,14 @@ one process per source, all started together: K1-K15), then:
      PyTorch call computes the same function, that call. Each K2
      instance is held on a whole batch of its path (the first batch of
      its plain drain in phase 2, whose inputs must equal the recorded
-     batch's bit for bit; else the plain versions run again); every
-     launch of the
+     batch's bit for bit; else the plain versions run again), in the
+     design the host picks and, where that is the shared table, again in
+     the global design, each design timed and, on the uniform and spread
+     batches, run once more as its profiling instance (csrc/prof.cuh:
+     clock stamps at the step's phase boundaries of every 64th pod, the
+     phases' shares of a step, PROF_PHASES); every launch of the
      nominated instance on the `nominated` and `preemption` paths, and
-     every one of the storm's 150 K6 decisions (winner, chosen units,
+     every one of the storm's 100 K6 decisions (winner, chosen units,
      prefix lengths, PDB violations), is held against its plain version.
      Each K7 instance replays the batch of its K2 instance's path with the
      class tables dropped: its assign must equal K2's row for row, and
@@ -170,7 +182,9 @@ one process per source, all started together: K1-K15), then:
      results and post-batch usage its plain version's bit for bit. K8 runs on the uniform and spread batches against its plain
      version (fits equal, score bits equal). Each K9 instance is held on
      the largest batch of its path (assign, the score bits of every pod,
-     rejected gangs' members included, and the committed usage bits), and
+     rejected gangs' members included, and the committed usage bits) in
+     its cluster and its single-block design, each timed (the gang
+     batch's also profiled, as K2's are), and
      replays the uniform path's first batch as singletons in pod order,
      where its assign and the active pods' score bits must equal K7's;
      gang_scan_cap_nom with the own-gang exemption also replays the gang
@@ -247,9 +261,10 @@ SCHED_PATHS = {"anti-affinity": ("pod-anti-affinity", AFF_NODES, AFF_PODS),
                "preferred": ("preferred-affinity", AFF_NODES, AFF_PODS),
                "nominated": ("nominated", NOM_NODES, NOM_PODS)}
 #: bench.py preempt_main's storm at BASELINE.json's north-star cluster
-#: (5,000 nodes in place of the bench's default 400), and the small
+#: (5,000 nodes in place of the bench's default 400; 100 preemptors in
+#: place of 150, to keep the script inside its time), and the small
 #: version held between the card and the CPU
-STORM_NODES, STORM_PODS = 5000, 150
+STORM_NODES, STORM_PODS = 5000, 100
 SMALL_STORM_NODES, SMALL_STORM_PODS = 400, 30
 #: the storm's preemptor priority (workload.storm_preemptor)
 PREEMPTOR_PRIORITY = 1000
@@ -279,7 +294,9 @@ GANG_STORM_REPEATS = 15
 GANG_STORM_KEYLESS = 2
 #: the gang batch's entries K9's exempt-mates replay takes (whole units)
 MATES_REPLAY_ENTRIES = 2048
-GANG_PREEMPT_GANGS = 10
+#: gangs through the gang-preemption loop (6: about 10 s a gang of host
+#: time pricing and evicting; the script's time limit)
+GANG_PREEMPT_GANGS = 6
 SMALL_GANG_PREEMPT = (SMALL_STORM_NODES, 2)
 #: the speculative cohort route (Scheduler(speculative=True), K12) through
 #: the scheduler loop with the divergence oracle on (KTPU_SPEC_ORACLE=1):
@@ -430,7 +447,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: libraries whose build fails the script if ptxas reports a spill
 SPILL_GATED = ("drf_order", "affinity_scores", "affinity_masks",
-               "apply_dirty")
+               "apply_dirty", "class_scan", "class_scan_shared",
+               "gang_scan")
+#: the design each redesigned scan must run on a main path, as
+#: "instance:design" (kernels/batch.py class_scan_design, kernels/gang.py
+#: gang_design): the other design of that instance must not launch there
+PATH_DESIGNS = {"uniform": ("class_scan:shared",),
+                "spread": ("class_scan_spread:shared",),
+                "scheduler": ("class_scan:shared",),
+                "gang": ("gang_scan_cap:cluster",),
+                "gang-preemption": ("gang_scan_cap_nom:cluster",)}
 #: library name -> ptxas_info of its build (filled by main)
 PTXAS = {}
 
@@ -540,8 +566,11 @@ class Port:
         return pod
 
     def launches(self):
+        """Launch counts by kernel instance, and K2's and K9's by
+        "instance:design" beside them."""
         return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES,
-                **self.gk.LAUNCHES, **self.sk.LAUNCHES, **self.ak.LAUNCHES}
+                **self.gk.LAUNCHES, **self.sk.LAUNCHES, **self.ak.LAUNCHES,
+                **self.kb.DESIGN_LAUNCHES, **self.gk.DESIGN_LAUNCHES}
 
     def reset_launches(self):
         self.kb.reset_launches()
@@ -1604,19 +1633,42 @@ def scan_row(port, rec, launches, name, path, line):
     cls = {k: pb[k] for k in kb._CLASS_KEYS}
     rw = pb["resource_weights"]
 
-    def scan_only():
+    def scan_only(design, prof=None):
         # a fresh table and carry for each run; only the scan is timed
         _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb, nom)
-        return lambda: kb._class_scan_cuda(node_cfg, pb, cls, rw, ms0,
-                                           carry, terms, nom)
-    runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
-    ms = sum(runs[1:]) / 2   # the first run pays the library load
+        return lambda: (kb._class_scan_cuda(
+            node_cfg, pb, cls, rw, ms0, carry, terms, nom, prof=prof,
+            design=design), carry)
+    carry0, terms0 = kb._carry_setup(usage, pb)
+    host = kb.scan_design_of(node_cfg, pb, cls, carry0, terms0)
+    designs = (host,) + tuple(d for d in kb.CLASS_SCAN_DESIGNS
+                              if d != host and d == "global")
+    ms_by, profile = {}, {}
+    for design in designs:
+        if design != host:
+            # the other design the batch can take, held on the same batch
+            packed_d, carry_d = scan_only(design)()
+            use_d = kb._usage_out(carry_d)
+            torch.cuda.synchronize()
+            if not torch.equal(packed_d, packed_k) or not all(
+                    bits_equal(torch, use_d[k], use_k[k]) for k in use_k):
+                fail(f"K2 {name} in its {design} design disagrees with "
+                     f"its plain version on the {path} batch")
+        runs = [time_cuda(torch, scan_only(design), reps=1, warm=0)
+                for _ in range(3)]
+        ms_by[design] = sum(runs[1:]) / 2   # the first pays the load
+        if name in ("class_scan", "class_scan_spread"):
+            profile[design] = step_profile(
+                torch, lambda prof, d=design: scan_only(d, prof),
+                pb["class_idx"].shape[0], f"class_scan:{design}")
+    ms = ms_by[host]
     c = scan_costs(kb, node_cfg, usage, pb, nom, packed_k, use_k)
     ops = c["P"] * (c["N"] * c["per_node"] + c["per_pod"]) + c["term_ops"]
     b = bound(c["bytes"], ops)
     return {"name": name, "route": "cuda",
             "source": "kubernetes_tpu_torch/csrc/class_scan.cu"
-                      " + class_step.cuh"
+                      + (" + class_scan_shared.cu" if host == "shared"
+                         else "") + " + class_step.cuh"
                       + (" + affinity.cuh" if topo or soft else ""),
             "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
             "launches": launches[name], "max_abs_err": err,
@@ -1625,6 +1677,7 @@ def scan_row(port, rec, launches, name, path, line):
             "library_ms": None, "match": True,
             "plain_from": "run again" if plain is None
                           else "the first batch of its plain drain",
+            "design": host, "ms_by_design": ms_by, "profile": profile,
             "bytes": c["bytes"], "ops": ops,
             "shape": c["shape"] + f" ({path} batch)"}
 
@@ -2272,6 +2325,74 @@ def order_timings(torch, tk, prio, shares, tidx, pos):
     return {k: ("not measured" if v is None else v) for k, v in out.items()}
 
 
+#: the profiling instances' stamp slots (csrc/prof.cuh) of each design,
+#: as (phase, from slot, to slot); a phase a step skips (the zone sums of
+#: a batch without spread groups) spans two equal stamps
+PROF_PHASES = {
+    "class_scan:global": (("pod scalars", 0, 1), ("zone init", 1, 2),
+                          ("zone sums", 2, 3), ("table read + argmax", 3, 4),
+                          ("argmax fold", 4, 5), ("winner update", 5, 6),
+                          ("refresh", 6, 7)),
+    "class_scan:shared": (("pod scalars", 0, 1),
+                          ("pass 1 + zone sums", 1, 3),
+                          ("table read + argmax", 3, 4),
+                          ("argmax fold", 4, 5), ("winner update", 5, 6),
+                          ("refresh", 6, 7)),
+    "gang_scan:block": (("entry scalars + gate", 0, 1), ("row pass", 1, 2),
+                        ("fold", 2, 3), ("update", 3, 4),
+                        ("end barrier", 4, 5)),
+    "gang_scan:cluster": (("entry scalars + gate", 0, 1),
+                          ("row pass + warp fold", 1, 2),
+                          ("publish + stage", 2, 3),
+                          ("next rows' loads", 3, 6),
+                          ("wait for the cluster's candidates", 6, 7),
+                          ("candidates' fold", 7, 4),
+                          ("update + end", 4, 5)),
+}
+#: sampled steps of a profiling launch: every PROF_EVERY-th pod or entry
+PROF_EVERY = 64
+
+
+def step_profile(torch, make, steps, design, every=PROF_EVERY):
+    """Where a scan's time goes a step: make(prof) prepares fresh inputs
+    and returns a call that runs the profiling instance of `design`
+    (PROF_PHASES) once with the stamp buffer `prof` (an int64 [n, 8]
+    tensor and the stride: every `every`-th step stamped). Returns
+    {phase: {"cycles", "share", "us"}}: the mean SM cycles of the phase
+    over the sampled steps, its share of the sampled steps' cycles and
+    that share of the launch's time a step (CUDA events), with
+    "cycles_a_step" and "ms" (the launch, its stamps included)."""
+    n = (steps + every - 1) // every
+    prof = torch.zeros((n, 8), dtype=torch.int64, device="cuda")
+    run = make((prof, every))
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b)
+    st = prof.cpu().numpy().astype("float64")
+    phases = PROF_PHASES[design]
+    last = phases[-1][2]
+    span = st[:, last] - st[:, 0]
+    # the sampled steps that passed every stamp (a padding entry skips
+    # the member's), in order
+    keep = span > 0
+    for _, f, t in phases:
+        keep &= (st[:, f] > 0) & (st[:, t] >= st[:, f])
+    total = float(span[keep].sum())
+    out = {"ms": ms, "sampled_steps": int(keep.sum()),
+           "cycles_a_step": total / max(int(keep.sum()), 1)}
+    for name, f, t in phases:
+        cyc = float((st[keep, t] - st[keep, f]).sum())
+        share = cyc / total if total else 0.0
+        out[name] = {"cycles": cyc / max(int(keep.sum()), 1),
+                     "share": share, "us": share * ms * 1e3 / steps}
+    return out
+
+
 def ptxas_info(log):
     """{kernel function: {registers, smem_bytes, spill_stores,
     spill_loads}} from nvcc -Xptxas -v output, entry functions only."""
@@ -2448,14 +2569,35 @@ def gang_row(port, rec, launches, name, path):
                       packed_p[1].view(torch.float32)),
               *(max_abs(torch, use_k[k], use_p[k]) for k in use_p))
 
-    def scan_only():
+    def scan_only(design, prof=None):
         # a fresh carry for each run; only the scan is timed
         carry, _ = port.kb._carry_setup(usage, pb)
-        return lambda: gk._gang_scan_cuda(node_cfg, pb, gt, carry, nom,
-                                          mates)
-    runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
-    ms = sum(runs[1:]) / 2   # the first run pays the library load
+        return lambda: (gk._gang_scan_cuda(node_cfg, pb, gt, carry, nom,
+                                           mates, prof=prof,
+                                           design=design), carry)
     N, R = node_cfg["alloc"].shape
+    host = gk.gang_design(N, R)
+    designs = (host,) + tuple(d for d in gk.GANG_SCAN_DESIGNS
+                              if d != host and d == "block")
+    ms_by, profile = {}, {}
+    for design in designs:
+        if design != host:
+            # the other design, held on the same batch
+            packed_d, carry_d = scan_only(design)()
+            use_d = port.kb._usage_out(carry_d)
+            torch.cuda.synchronize()
+            if not torch.equal(packed_d, packed_k) or not all(
+                    bits_equal(torch, use_d[k], use_k[k]) for k in use_k):
+                fail(f"K9 {name} in its {design} design disagrees with its "
+                     f"plain version on the {path} batch")
+        runs = [time_cuda(torch, scan_only(design), reps=1, warm=0)
+                for _ in range(3)]
+        ms_by[design] = sum(runs[1:]) / 2   # the first pays the load
+        if name == "gang_scan_cap":
+            profile[design] = step_profile(
+                torch, lambda prof, d=design: scan_only(d, prof),
+                gt["pod_idx"].shape[0], f"gang_scan:{design}")
+    ms = ms_by[host]
     P = pb["seq"].shape[0]
     T = gt["pod_idx"].shape[0]
     entries = int((gt["pod_idx"] >= 0).sum())
@@ -2492,6 +2634,7 @@ def gang_row(port, rec, launches, name, path):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None, "match": True,
+            "design": host, "ms_by_design": ms_by, "profile": profile,
             "bytes": bytes_, "ops": ops,
             "shape": f"T={T} ({entries} entries, {units} units, {gated} "
                      f"gated gang starts, {placed} placed) P={P} N={N} "
@@ -3246,6 +3389,19 @@ def main() -> None:
         for k in kernels:
             if per_path[path][k] == 0:
                 fail(f"kernel {k} was never launched on the {path} path")
+    for path, want in PATH_DESIGNS.items():
+        for key in want:
+            inst, design = key.split(":")
+            other = [k for k, v in per_path[path].items()
+                     if v and k.startswith(inst + ":") and k != key]
+            if not per_path[path][key] or other:
+                fail(f"{path}: {inst} ran {per_path[path][key]} times in "
+                     f"its {design} design, and in {other}")
+    for path in per_path:
+        ran = {k: v for k, v in per_path[path].items() if ":" in k and v}
+        if ran:
+            print(f"designs on the {path} path (instance:design: "
+                  f"launches): {ran}")
     for k in ("drf_dominant", "drf_order"):
         if per_path["scheduler"][k] < 4:
             fail(f"{k} launched {per_path['scheduler'][k]} times on the "
@@ -3718,6 +3874,11 @@ def main() -> None:
               f"{r['library_ms']} ms, bound {r['bound_ms']} ms by "
               f"{r['bound_by']}); {r['launches']} launches on the main "
               f"path {tag}")
+        if "ms_by_design" in r:
+            print(f"    {r['name']} by design (host's: {r['design']}): "
+                  f"{r['ms_by_design']} ms {tag}")
+            for d, prof in r["profile"].items():
+                print(f"    {r['name']} {d} design, per step: {prof} {tag}")
         if r["name"] == "drf_order":
             for n, t in r["sweep"].items():
                 print(f"    K5 at P={n}: {t['ms']} ms events / "

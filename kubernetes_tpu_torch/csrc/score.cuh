@@ -46,25 +46,27 @@ struct KtpuClasses {
   int C;
 };
 
-// LeastRequested + BalancedAllocation (batch.py _class_resource_score)
-__device__ __forceinline__ float ktpu_resource_score(
-    float cap_cpu, float cap_mem, float req_cpu, float req_mem,
-    float rw0, float rw1) {
-  const float safe_cpu = fmaxf(cap_cpu, 1.0f);
-  const float safe_mem = fmaxf(cap_mem, 1.0f);
-  const float lr_c = (cap_cpu > 0.0f && req_cpu <= cap_cpu)
-      ? floorf(__fdiv_rn(__fmul_rn(__fsub_rn(cap_cpu, req_cpu),
-                                   KTPU_MAX_PRIORITY), safe_cpu))
+// LeastRequested's term of one resource (batch.py _least_requested):
+// 0 where the node has no capacity or the request exceeds it
+__device__ __forceinline__ float ktpu_lr_term(float cap, float req) {
+  return (cap > 0.0f && req <= cap)
+      ? floorf(__fdiv_rn(__fmul_rn(__fsub_rn(cap, req), KTPU_MAX_PRIORITY),
+                         fmaxf(cap, 1.0f)))
       : 0.0f;
-  const float lr_m = (cap_mem > 0.0f && req_mem <= cap_mem)
-      ? floorf(__fdiv_rn(__fmul_rn(__fsub_rn(cap_mem, req_mem),
-                                   KTPU_MAX_PRIORITY), safe_mem))
-      : 0.0f;
+}
+
+// BalancedAllocation's fraction of one resource (batch.py
+// _balanced_allocation): 1 where the node has no capacity
+__device__ __forceinline__ float ktpu_frac_term(float cap, float req) {
+  return cap > 0.0f ? __fdiv_rn(req, fmaxf(cap, 1.0f)) : 1.0f;
+}
+
+// the two terms of each resource combined: rw0 LeastRequested + rw1
+// BalancedAllocation
+__device__ __forceinline__ float ktpu_resource_combine(
+    float lr_c, float lr_m, float cpu_frac, float mem_frac, float rw0,
+    float rw1) {
   const float lr = floorf(__fdiv_rn(__fadd_rn(lr_c, lr_m), 2.0f));
-  const float cpu_frac = cap_cpu > 0.0f ? __fdiv_rn(req_cpu, safe_cpu)
-                                        : 1.0f;
-  const float mem_frac = cap_mem > 0.0f ? __fdiv_rn(req_mem, safe_mem)
-                                        : 1.0f;
   float ba = floorf(__fadd_rn(
       __fmul_rn(__fsub_rn(1.0f, fabsf(__fsub_rn(cpu_frac, mem_frac))),
                 KTPU_MAX_PRIORITY),
@@ -73,28 +75,56 @@ __device__ __forceinline__ float ktpu_resource_score(
   return __fadd_rn(__fmul_rn(rw0, lr), __fmul_rn(rw1, ba));
 }
 
+// LeastRequested + BalancedAllocation (batch.py _class_resource_score);
+// its four divisions are independent, so a warp may split them over
+// lanes (class_step.cuh's shared refresh) with the same roundings
+__device__ __forceinline__ float ktpu_resource_score(
+    float cap_cpu, float cap_mem, float req_cpu, float req_mem,
+    float rw0, float rw1) {
+  return ktpu_resource_combine(
+      ktpu_lr_term(cap_cpu, req_cpu), ktpu_lr_term(cap_mem, req_mem),
+      ktpu_frac_term(cap_cpu, req_cpu), ktpu_frac_term(cap_mem, req_mem),
+      rw0, rw1);
+}
+
+// Masked score of one class at one node from values already read: the
+// class's request row req_c [R], its non-zero request (cnz0, cnz1) and
+// blocked flag, the node's allocatable row alloc_n [R], usage row used_n
+// [R], non-zero usage, pod count, max pods, memory pressure, node_ok &&
+// valid, the class's static mask and score at the node. NEG where the
+// class does not fit.
+__device__ __forceinline__ float ktpu_class_score_at(
+    const float* req_c, float cnz0, float cnz1, bool blocked_c,
+    const float* alloc_n, const float* used_n, float nz0, float nz1,
+    float cnt, float max_pods_n, bool mem_pressure_n, bool ok_n,
+    bool mask_v, float static_v, float rw0, float rw1, int R) {
+  bool fits = true;
+  for (int r = 0; r < R; ++r)
+    fits = fits && (__fadd_rn(req_c[r], used_n[r]) <= alloc_n[r]);
+  fits = fits && (__fadd_rn(cnt, 1.0f) <= max_pods_n);
+  fits = fits && !(blocked_c && mem_pressure_n);
+  fits = fits && ok_n;
+  fits = fits && mask_v;
+  const float s = __fadd_rn(
+      ktpu_resource_score(alloc_n[0], alloc_n[1], __fadd_rn(nz0, cnz0),
+                          __fadd_rn(nz1, cnz1), rw0, rw1),
+      static_v);
+  return fits ? s : KTPU_NEG;
+}
+
 // Masked score of class c at node row n (batch.py _class_col /
-// _class_ms_init): NEG where the class does not fit. `used_n` is the
+// _class_ms_init): ktpu_class_score_at on the tables. `used_n` is the
 // node's [R] usage row; nz0/nz1/cnt its non-zero usage and pod count.
 __device__ __forceinline__ float ktpu_class_score(
     const KtpuNodeCfg& cfg, const KtpuClasses& cl, float rw0, float rw1,
     int c, int n, int N, int R, const float* used_n, float nz0, float nz1,
     float cnt) {
-  const float* alloc_n = cfg.alloc + (size_t)n * R;
-  const float* req_c = cl.req + (size_t)c * R;
-  bool fits = true;
-  for (int r = 0; r < R; ++r)
-    fits = fits && (__fadd_rn(req_c[r], used_n[r]) <= alloc_n[r]);
-  fits = fits && (__fadd_rn(cnt, 1.0f) <= cfg.max_pods[n]);
-  fits = fits && !(cl.blocked[c] && cfg.mem_pressure[n]);
-  fits = fits && cfg.node_ok[n] && cfg.valid[n];
-  fits = fits && cl.unique_masks[(size_t)cl.mask_idx[c] * N + n];
-  const float s = __fadd_rn(
-      ktpu_resource_score(alloc_n[0], alloc_n[1],
-                          __fadd_rn(nz0, cl.nz[2 * c]),
-                          __fadd_rn(nz1, cl.nz[2 * c + 1]), rw0, rw1),
-      cl.unique_scores[(size_t)cl.score_idx[c] * N + n]);
-  return fits ? s : KTPU_NEG;
+  return ktpu_class_score_at(
+      cl.req + (size_t)c * R, cl.nz[2 * c], cl.nz[2 * c + 1],
+      cl.blocked[c], cfg.alloc + (size_t)n * R, used_n, nz0, nz1, cnt,
+      cfg.max_pods[n], cfg.mem_pressure[n], cfg.node_ok[n] && cfg.valid[n],
+      cl.unique_masks[(size_t)cl.mask_idx[c] * N + n],
+      cl.unique_scores[(size_t)cl.score_idx[c] * N + n], rw0, rw1, R);
 }
 
 // SelectorSpread score of one node (batch.py _spread_score) from the
@@ -116,6 +146,38 @@ __device__ __forceinline__ float ktpu_spread_score(
   const float blended = have_zones
       ? __fadd_rn(__fmul_rn(node_s, KTPU_NODE_WEIGHT),
                   __fmul_rn(KTPU_ZONE_WEIGHT, zone_s))
+      : node_s;
+  return floorf(blended);
+}
+
+// ktpu_spread_score with the zone's part taken from a table: zpart is
+// KTPU_ZONE_WEIGHT times the zone score of the node's zone, which
+// ktpu_spread_zone_part computes once a zone (the same roundings)
+__device__ __forceinline__ float ktpu_spread_zone_part(float zsum,
+                                                      float maxz) {
+  const float zone_s = maxz > 0.0f
+      ? __fdiv_rn(__fmul_rn(KTPU_MAX_PRIORITY, __fsub_rn(maxz, zsum)),
+                  fmaxf(maxz, 1.0f))
+      : KTPU_MAX_PRIORITY;
+  return __fmul_rn(KTPU_ZONE_WEIGHT, zone_s);
+}
+
+// the node's part of ktpu_spread_score: a function of its count alone,
+// which a warp may compute once a count value
+__device__ __forceinline__ float ktpu_spread_node_part(float cnt,
+                                                       float maxc) {
+  return maxc > 0.0f
+      ? __fdiv_rn(__fmul_rn(KTPU_MAX_PRIORITY, __fsub_rn(maxc, cnt)),
+                  fmaxf(maxc, 1.0f))
+      : KTPU_MAX_PRIORITY;
+}
+
+// ktpu_spread_score from the node's part and the zone's
+__device__ __forceinline__ float ktpu_spread_blend(float node_s,
+                                                   float zpart,
+                                                   bool have_zones) {
+  const float blended = have_zones
+      ? __fadd_rn(__fmul_rn(node_s, KTPU_NODE_WEIGHT), zpart)
       : node_s;
   return floorf(blended);
 }

@@ -10,8 +10,10 @@ hand-written CUDA kernel (csrc/):
                           with the nominated reservations folded into
                           feasibility (_nom_feas_usage)
     schedule_batch -> K2  csrc/class_scan.cu      the class route, one
-                          launch per batch; class_col, spread_score and
-                          tie_penalized are its __device__ functions,
+                          (+ class_scan_shared.cu) launch per batch, in
+                          the design class_scan_design picks; class_col,
+                          spread_score and tie_penalized are its
+                          __device__ functions,
                           pack_results its epilogue; the required
                           (anti-)affinity carry (term_hits / topo_bad /
                           topo_scatter) and the preferred credits
@@ -108,13 +110,65 @@ LAUNCHES: Dict[str, int] = {
        for sp in (False, True) for tp in (False, True)
        for sf in (False, True)}}
 
+#: K2's designs: "shared" (csrc/class_scan_shared.cu), the [C, N] table,
+#: the class constants and (where they fit) the spread counts in shared
+#: memory, and "global" (csrc/class_scan.cu), every table in global memory
+#: (any batch); the host picks one by the batch's sizes (class_scan_design)
+CLASS_SCAN_DESIGNS = ("shared", "global")
+#: the shared design's bounds: dynamic shared memory (bytes), rows (8 a
+#: thread of 1,024, or 16 of 512 with spread or soft terms) and classes
+#: (the refresh runs in one warp)
+SCAN_SMEM_LIMIT = 200 * 1024
+SCAN_SMEM_ROWS = 8192
+SCAN_SMEM_CLASSES = 32
+#: the shared design's zone partials: 32 warps x 32 zones (spread)
+SCAN_SMEM_ZONE_WORDS = 32 * 32
+
+
+def class_scan_smem_words(C: int, N: int, R: int, G: int, Z: int,
+                          spread: bool, hold_spread: bool) -> int:
+    """The shared design's dynamic shared memory in 4-byte words
+    (csrc/class_scan_shared.cu ktpu_scan_smem_words): the [C, N] table,
+    the class constants, with spread the zone sums and zinit and the
+    warps' zone partials, and the [G, N] spread counts when they are held
+    there."""
+    w = C * N + C * (R + 4) + (C + 3) // 4
+    if spread:
+        w += 2 * Z + SCAN_SMEM_ZONE_WORDS
+    if spread and hold_spread:
+        w += G * N
+    return w
+
+
+def class_scan_design(C: int, N: int, R: int, G: int = 0, Z: int = 0,
+                      has_spread: bool = False) -> str:
+    """The K2 design for a batch of C classes over N rows of R columns
+    (with spread: G groups, Z zones): "shared" where the table and the
+    class constants fit in shared memory beside the zone sums, else
+    "global"."""
+    if not (1 <= C <= SCAN_SMEM_CLASSES and 1 <= N <= SCAN_SMEM_ROWS
+            and R <= MAX_R):
+        return "global"
+    words = class_scan_smem_words(C, N, R, G, Z, has_spread, False)
+    return "shared" if words * 4 <= SCAN_SMEM_LIMIT else "global"
+
+
 _CLASS_KEYS = ("class_req", "class_nz", "class_blocked", "class_mask_idx",
                "class_score_idx")
+
+
+#: K2 launches by "instance:design" (class_scan_design), beside LAUNCHES
+DESIGN_LAUNCHES: Dict[str, int] = {
+    f"{scan_instance(sp, tp, sf, nm)}:{d}": 0 for d in CLASS_SCAN_DESIGNS
+    for nm in (False, True) for sp in (False, True) for tp in (False, True)
+    for sf in (False, True)}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in DESIGN_LAUNCHES:
+        DESIGN_LAUNCHES[k] = 0
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -807,11 +861,11 @@ _SCAN_PTRS = (
     "alloc", "max_pods", "node_ok", "mem_pressure", "valid", "class_req",
     "class_nz", "class_blocked", "class_mask_idx", "class_score_idx",
     "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
-    "ms", "class_idx", "seq", "active") + _TERM_PTRS + ("packed",)
+    "ms", "class_idx", "seq", "active") + _TERM_PTRS + ("packed", "prof")
 #: the int fields that follow them
 _SCAN_INTS = ("N", "R", "C", "P", "G", "Z", "T", "D", "K", "Ts", "Ds", "Ks",
               "Sb", "has_spread", "has_topo", "has_dir2", "has_soft",
-              "has_nom")
+              "has_nom", "prof_every")
 #: K7's parameter block (KtpuPodScanParams in csrc/pod_scan.cu): the pod
 #: rows in place of the class tables, the same terms, the same ints
 #: without C
@@ -820,7 +874,8 @@ _POD_SCAN_PTRS = (
     "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
     "req", "nz_req", "blocked", "mask_idx", "score_idx", "seq",
     "active") + _TERM_PTRS + ("packed",)
-_POD_SCAN_INTS = tuple(k for k in _SCAN_INTS if k != "C")
+_POD_SCAN_INTS = tuple(k for k in _SCAN_INTS
+                       if k not in ("C", "prof_every"))
 
 
 class _ScanParams(ctypes.Structure):
@@ -998,17 +1053,49 @@ def _class_scan_params(node_cfg, pod_batch, cls, rw, ms, carry, terms,
     return _fill(_ScanParams, _SCAN_INTS, dims, ptrs), packed
 
 
+def _set_prof(prm, prof) -> None:
+    """Point a scan's parameter block at a profiling instance's stamp
+    buffer: `prof` is (an int64 [n, 8] CUDA tensor, stamp every k-th
+    step), csrc/prof.cuh."""
+    stamps, every = prof
+    prm.prof = _ptr(stamps, torch.int64, "prof").value
+    prm.prof_every = int(every)
+
+
+def scan_design_of(node_cfg: dict, pod_batch: dict, cls: dict,
+                   carry: dict, terms) -> str:
+    """class_scan_design for a batch of the class route: its classes,
+    rows, usage columns and, with spread groups, groups and zones."""
+    N, R = node_cfg["alloc"].shape
+    spread = terms[0]
+    return class_scan_design(
+        cls["class_req"].shape[0], N, R,
+        carry["spread"].shape[0] if spread else 0,
+        pod_batch["spread_zinit"].shape[0] if spread else 0, spread)
+
+
 def _class_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
-                     nom=None):
+                     nom=None, prof=None, design=None):
     """Kernel K2: the whole batch in one launch of the instance for its
     carried terms (and the nominated overlay with `nom`); returns the
-    [2, P] packed results and mutates `ms` and the `carry` copies."""
+    [2, P] packed results and mutates `ms` and the `carry` copies.
+    The design is class_scan_design's for the batch's sizes; `design`
+    names one of CLASS_SCAN_DESIGNS instead and `prof` launches the
+    profiling instance of the uniform or spread batch with its stamp
+    buffer (chip_smoke.py's kernel phase, which compares the designs)."""
     prm, packed = _class_scan_params(node_cfg, pod_batch, cls, rw, ms,
                                      carry, terms, nom)
+    if prof is not None:
+        _set_prof(prm, prof)
     has_spread, has_topo, _, has_soft = terms
+    if design is None:
+        design = scan_design_of(node_cfg, pod_batch, cls, carry, terms)
     name = scan_instance(has_spread, has_topo, has_soft, nom is not None)
-    _call("class_scan", "ktpu_class_scan", prm, node_cfg["alloc"], name)
+    lib, entry = {"shared": ("class_scan_shared", "ktpu_class_scan_shared"),
+                  "global": ("class_scan", "ktpu_class_scan")}[design]
+    _call(lib, entry, prm, node_cfg["alloc"], f"{name}:{design}")
     LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[f"{name}:{design}"] += 1
     return packed
 
 

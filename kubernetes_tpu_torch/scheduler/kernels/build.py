@@ -28,6 +28,7 @@ BUILD_DIR = PKG_DIR / "build"
 #: kernel name -> source file (each includes csrc/*.cuh as needed)
 SOURCES = {"class_ms_init": "class_ms_init.cu",
            "class_scan": "class_scan.cu",
+           "class_scan_shared": "class_scan_shared.cu",
            "apply_dirty": "apply_dirty.cu",
            "drf_dominant": "drf_dominant.cu",
            "drf_order": "drf_order.cu",

@@ -68,6 +68,39 @@ from .batch import (NEG, _I, _P, _carry_setup, _check_nom, _check_pod_rows,
                     _stream, _usage_out, pack_results, soft_raw, soft_score,
                     soft_write, tie_penalized)
 
+#: K9's designs (csrc/gang_scan.cu): "cluster", one thread-block cluster
+#: of GANG_CLUSTER CTAs (16: Hopper's largest, non-portable cluster),
+#: each holding its rows' state in shared memory, and "block", one block
+#: of 1,024 threads over the rows in global memory (any batch); the host
+#: picks one by the batch's sizes (gang_design)
+GANG_SCAN_DESIGNS = ("cluster", "block")
+#: the cluster design's bounds: CTAs, threads a CTA, rows a thread,
+#: dynamic shared memory a CTA (bytes)
+GANG_CLUSTER = 16
+GANG_CTHREADS = 512
+GANG_RPT = 4
+GANG_SMEM_LIMIT = 200 * 1024
+
+
+def gang_smem_bytes(rows: int, R: int) -> int:
+    """A cluster CTA's shared memory for `rows` rows of R columns
+    (csrc/gang_scan.cu ktpu_gang_smem_bytes): alloc and used [R], nz [2],
+    count, max pods (f32) and a flag byte a row."""
+    return rows * (2 * R + 4) * 4 + ((rows + 15) & ~15)
+
+
+def gang_design(N: int, R: int) -> str:
+    """The K9 design for N rows of R columns: "cluster" where each CTA's
+    N / GANG_CLUSTER rows fit its threads and its shared memory, else
+    "block"."""
+    rows = -(-N // GANG_CLUSTER)
+    threads = min(GANG_CTHREADS, -(-rows // 32) * 32)
+    if N < 1 or rows > threads * GANG_RPT or \
+            gang_smem_bytes(rows, R) > GANG_SMEM_LIMIT:
+        return "block"
+    return "cluster"
+
+
 #: the [T] entry-stream keys every gang table carries, with dom_tab; the
 #: capacity gate's need / greq are optional
 ENTRY_KEYS = ("pod_idx", "start", "end", "gang_id", "entry_dom_idx",
@@ -90,9 +123,17 @@ LAUNCHES: Dict[str, int] = {
        for s in (False, True) for n in (False, True)}}
 
 
+#: K9 launches by "instance:design" (gang_design), beside LAUNCHES
+DESIGN_LAUNCHES: Dict[str, int] = {
+    f"{gang_instance(c, s, n)}:{d}": 0 for d in GANG_SCAN_DESIGNS
+    for c in (False, True) for s in (False, True) for n in (False, True)}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in DESIGN_LAUNCHES:
+        DESIGN_LAUNCHES[k] = 0
 
 
 # ------------------------------------------------------------ K10
@@ -324,9 +365,9 @@ _GANG_PTRS = (
     "need", "greq",
     "log_row", "log_vals", "log_soft", "log_cell", "entry_assign",
     "entry_score", "ok_units", "domcap", "elig", "gex_used", "gex_cnt",
-    "packed")
+    "packed", "prof")
 _GANG_INTS = ("N", "R", "P", "T", "K", "Ts", "Ds", "Ks", "Sb",
-              "has_soft", "has_nom", "has_cap", "mates")
+              "has_soft", "has_nom", "has_cap", "mates", "prof_every")
 
 
 class _GangParams(ctypes.Structure):
@@ -337,11 +378,15 @@ class _GangParams(ctypes.Structure):
 
 
 def _gang_scan_cuda(node_cfg, pod_batch, gang_tab, carry, nom=None,
-                    exempt_mates=False):
+                    exempt_mates=False, prof=None, design=None):
     """Kernel K9: the whole entry stream in one launch of the instance
-    for the batch's terms; returns the [2, P] packed results and mutates
-    the `carry` copies. Index values (pod rows, unit ids, domains, mask
-    and score rows, nominated rows) come from tensorize and core."""
+    for the batch's terms, in gang_design's design for its sizes
+    (`design` names one of GANG_SCAN_DESIGNS instead; `prof` launches the
+    profiling instance of a capacity-gated batch with its stamp buffer:
+    chip_smoke.py's kernel phase, which compares the designs); returns
+    the [2, P] packed results and mutates the `carry` copies. Index values
+    (pod rows, unit ids, domains, mask and score rows, nominated rows)
+    come from tensorize and core."""
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     alloc = node_cfg["alloc"]
     dev = alloc.device
@@ -397,10 +442,14 @@ def _gang_scan_cuda(node_cfg, pod_batch, gang_tab, carry, nom=None,
         _need(gang_tab["greq"], (T, R), "greq")
         ptrs.update(need=(gang_tab["need"], f32),
                     greq=(gang_tab["greq"], f32))
-    # the trial's undo log (a row and its R + 3 old values, and the Ks old
-    # credit cells, per placed member of an open gang), the per-entry
-    # results, the per-unit verdicts, the capacity gate's [N] scratch and
-    # the open unit's own reservations (zero outside it)
+    if design is None:
+        design = gang_design(N, R)
+    # the trial's undo log (a row, with the cluster design one copy a
+    # CTA, and its R + 3 old values, and the Ks old credit cells, per
+    # placed member of an open gang), the per-entry results, the per-unit
+    # verdicts, the capacity gate's two [N] buffers and the open unit's
+    # own reservations (zero outside it)
+    log_rows = T * (GANG_CLUSTER if design == "cluster" else 1)
     ptrs.update(
         seq=(pod_batch["seq"], i32), active=(pod_batch["active"], b8),
         pod_idx=(gang_tab["pod_idx"], i32), start=(gang_tab["start"], b8),
@@ -408,7 +457,7 @@ def _gang_scan_cuda(node_cfg, pod_batch, gang_tab, carry, nom=None,
         entry_dom=(gang_tab["entry_dom_idx"], i32),
         pin_dom=(gang_tab["pin_dom"], i32),
         dom_tab=(gang_tab["dom_tab"], i32),
-        log_row=(torch.empty((T,), dtype=i32, device=dev), i32),
+        log_row=(torch.empty((log_rows,), dtype=i32, device=dev), i32),
         log_vals=(torch.empty((T, R + 3), dtype=f32, device=dev), f32),
         log_soft=(torch.empty((T, max(Ks, 1)), dtype=f32, device=dev), f32),
         log_cell=(torch.empty((T, max(Ks, 1)), dtype=i32, device=dev),
@@ -416,7 +465,7 @@ def _gang_scan_cuda(node_cfg, pod_batch, gang_tab, carry, nom=None,
         entry_assign=(torch.empty((T,), dtype=i32, device=dev), i32),
         entry_score=(torch.empty((T,), dtype=f32, device=dev), f32),
         ok_units=(torch.empty((T,), dtype=i32, device=dev), i32),
-        domcap=(torch.empty((N,), dtype=f32, device=dev), f32),
+        domcap=(torch.empty((2 * N,), dtype=f32, device=dev), f32),
         elig=(torch.empty((N,), dtype=b8, device=dev), b8),
         packed=(packed, i32))
     if dims["mates"]:
@@ -424,9 +473,15 @@ def _gang_scan_cuda(node_cfg, pod_batch, gang_tab, carry, nom=None,
                               f32),
                     gex_cnt=(torch.zeros((N,), dtype=f32, device=dev), f32))
     name = gang_instance(has_cap, has_soft, nom is not None)
-    _launch("gang_scan", "ktpu_gang_scan", _GangParams, _GANG_INTS, dims,
-            ptrs, name)
+    if prof is not None:
+        ptrs["prof"] = (prof[0], torch.int64)
+        dims["prof_every"] = int(prof[1])
+    entry = {"cluster": "ktpu_gang_scan_cluster",
+             "block": "ktpu_gang_scan"}[design]
+    _launch("gang_scan", entry, _GangParams, _GANG_INTS, dims, ptrs,
+            f"{name}:{design}")
     LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[f"{name}:{design}"] += 1
     return packed
 
 

@@ -1150,3 +1150,375 @@ def test_affinity_scores_kernel_misaligned_bases(cuda, U, T, N):
     torch.cuda.synchronize()
     assert ak.LAUNCHES["affinity_scores"] == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ------------------------------------------------------------ K2 designs
+
+
+def _k2_run(tc, tu, tpb, tnom, design):
+    """One K2 design on the batch (the table built by K1): (packed,
+    post-batch usage, the final [C, N] table)."""
+    cls, rw, ms, carry, terms = kb._scan_setup(tc, tu, tpb, tnom)
+    packed = kb._class_scan_cuda(tc, tpb, cls, rw, ms, carry, terms, tnom,
+                                 design=design)
+    return packed, kb._usage_out(carry), ms
+
+
+def _k2_plain(tc, tu, tpb, tnom):
+    def run():
+        cls, rw, ms, carry, terms = kb._scan_setup(tc, tu, tpb, tnom)
+        packed = kb._class_scan_plain(tc, tpb, cls, rw, ms, carry, terms,
+                                      tnom)
+        return packed, kb._usage_out(carry), ms
+    return _plain(run)
+
+
+def _hold_k2(got, ref):
+    """Packed results, post-batch usage and the final table, bit for
+    bit."""
+    torch.cuda.synchronize()
+    (packed, usage, ms), (rp, ru, rms) = got, ref
+    assert torch.equal(packed, rp)
+    assert set(usage) == set(ru)
+    for k in ru:
+        assert torch.equal(usage[k].view(torch.int32),
+                           ru[k].view(torch.int32)), k
+    assert torch.equal(ms.view(torch.int32), rms.view(torch.int32))
+
+
+@pytest.mark.parametrize("design", kb.CLASS_SCAN_DESIGNS)
+@pytest.mark.parametrize("nom", [False, True])
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+def test_scan_designs_match_plain(cuda, design, spread, topo, dir2, soft,
+                                  nom):
+    """Every K2 instance in both designs against the plain versions on a
+    batch of 1,000 rows (not a multiple of the shared design's 512
+    threads): packed results, usage and the final table."""
+    node_cfg, usage, pb = _state(21, N=1000, P=512)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, 21, topo, dir2, soft)
+    tnom = nom_from_numpy(_nom(node_cfg, usage, pb, 21), cuda) if nom \
+        else None
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    name = kb.scan_instance(spread, topo, soft, nom)
+    before = kb.DESIGN_LAUNCHES[f"{name}:{design}"]
+    got = _k2_run(tc, tu, tpb, tnom, design)
+    assert kb.DESIGN_LAUNCHES[f"{name}:{design}"] == before + 1
+    _hold_k2(got, _k2_plain(tc, tu, tpb, tnom))
+    assert (got[0][0] >= 0).sum() > 200
+
+
+@pytest.mark.parametrize("design", kb.CLASS_SCAN_DESIGNS)
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("N", [37, 8192])
+def test_scan_designs_at_row_edges(cuda, design, spread, N):
+    """Fewer rows than a warp, and the shared design's most rows (16 a
+    thread of 512)."""
+    node_cfg, usage, pb = _state(22, N=N, P=256)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    _hold_k2(_k2_run(tc, tu, tpb, None, design),
+             _k2_plain(tc, tu, tpb, None))
+
+
+@pytest.mark.parametrize("C,want", [(4, "shared"), (40, "global")])
+def test_scan_takes_the_design_of_its_size(cuda, C, want):
+    """The host's pick through the public entry: 4 classes take the
+    shared table, 40 (more than the refresh's warp) the global one."""
+    node_cfg, usage, pb = _state(23, N=1024, C=C, P=512)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    name = kb.scan_instance(True, False, False)
+    before = dict(kb.DESIGN_LAUNCHES)
+    packed, new_usage = kb.schedule_batch_packed(tc, tu, tpb)
+    assert kb.DESIGN_LAUNCHES[f"{name}:{want}"] == \
+        before[f"{name}:{want}"] + 1
+    ref, ref_usage = _plain(kb.schedule_batch_packed, tc, tu, tpb)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, ref)
+    for k in ref_usage:
+        assert torch.equal(new_usage[k].view(torch.int32),
+                           ref_usage[k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("design", kb.CLASS_SCAN_DESIGNS)
+@pytest.mark.parametrize("Z", [8, 40])
+def test_spread_zone_ids_clamp_in_both_designs(cuda, design, Z):
+    """Random zone ids with zone 0 (no label), negative ids and ids past
+    Z (the reference's gather clamps them), and zinit counts; Z = 40 is
+    past the shared step's shuffle table of 32 zones."""
+    node_cfg, usage, pb = _state(24, N=1024, P=512, Z=Z)
+    rng = np.random.default_rng(24)
+    pb["spread_zone"] = rng.integers(-3, Z + 4, 1024).astype(np.int32)
+    pb["spread_zinit"] = rng.integers(0, 30, Z).astype(np.float32)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    _hold_k2(_k2_run(tc, tu, tpb, None, design),
+             _k2_plain(tc, tu, tpb, None))
+
+
+def _tie_seq(row):
+    """A seq whose tie hash is 0 at `row`: (row * 2654435769 + seq *
+    40503) mod 2^16 == 0."""
+    return (-row * 2654435769 * pow(40503, -1, 1 << 16)) % (1 << 16)
+
+
+def _tie_hash(row, seq):
+    return ((row * 2654435769 + seq * 40503) & 0xFFFFFFFF) & 0xFFFF
+
+
+@pytest.mark.parametrize("design", kb.CLASS_SCAN_DESIGNS)
+@pytest.mark.parametrize("rows", [(300, 700), (700, 300)])
+def test_scan_signed_zero_ties_go_to_the_lower_row(cuda, design, rows):
+    """Penalized scores of +0.0 at row A and -0.0 at row B (resource
+    weights -0.0, a static score of -0.0 where the tie hash is 0, and
+    exactly the hash's penalty at A) tie; the lower row wins."""
+    a_row, b_row = rows
+    N, R, P = 1024, 2, 4
+    f32 = np.float32
+    seq0 = _tie_seq(b_row)
+    stat = np.full((1, N), -0.0, f32)
+    stat[0, a_row] = f32(_tie_hash(a_row, seq0) * 2.0 ** -17)
+    mask = np.zeros((1, N), bool)
+    mask[0, [a_row, b_row]] = True
+    node_cfg = {"alloc": np.full((N, R), 8000, f32),
+                "max_pods": np.full(N, 110, f32),
+                "node_ok": np.ones(N, bool),
+                "mem_pressure": np.zeros(N, bool),
+                "valid": np.ones(N, bool)}
+    usage = {"used": np.zeros((N, R), f32),
+             "nonzero_used": np.zeros((N, 2), f32),
+             "pod_count": np.zeros(N, f32)}
+    req = np.full((1, R), 100, f32)
+    pb = {"class_req": req, "class_nz": req.copy(),
+          "class_blocked": np.zeros(1, bool),
+          "class_mask_idx": np.zeros(1, np.int32),
+          "class_score_idx": np.zeros(1, np.int32),
+          "unique_masks": mask, "unique_scores": stat,
+          "resource_weights": np.full(2, -0.0, f32),
+          "class_idx": np.zeros(P, np.int32),
+          "seq": np.array([seq0, 1, 2, 3], np.int32),
+          "active": np.ones(P, bool)}
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    got = _k2_run(tc, tu, tpb, None, design)
+    _hold_k2(got, _k2_plain(tc, tu, tpb, None))
+    assert int(got[0][0, 0]) == min(rows)
+
+
+# ------------------------------------------------------------ K9 designs
+
+
+def _gang_hold(c, u, p, g, n, design, mates=False):
+    """K9's `design` against gang_schedule_plain on fresh carries: packed
+    results and committed usage bit for bit; returns (packed, carry)."""
+    from kubernetes_tpu_torch.scheduler.kernels import gang as gk
+    carry, _ = kb._carry_setup(u, p)
+    name = gk.gang_instance("need" in g, p.get("soft_dom") is not None,
+                            n is not None)
+    before = gk.DESIGN_LAUNCHES[f"{name}:{design}"]
+    packed = gk._gang_scan_cuda(c, p, g, carry, n, mates, design=design)
+    assert gk.DESIGN_LAUNCHES[f"{name}:{design}"] == before + 1
+    ref_carry, _ = kb._carry_setup(u, p)
+    ref = gk.gang_schedule_plain(c, p, g, ref_carry, n, mates)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, ref)
+    assert set(carry) == set(ref_carry)
+    for k in ref_carry:
+        assert torch.equal(carry[k].view(torch.int32),
+                           ref_carry[k].view(torch.int32)), k
+    return packed, carry
+
+
+def _gang_tensors(nc, us, pb, gt, nm, cuda):
+    from kubernetes_tpu_torch.convert import gang_table_from_numpy
+    c, u, p = tables_from_numpy(nc, us, pb, cuda)
+    return c, u, p, gang_table_from_numpy(gt, cuda), nom_from_numpy(nm,
+                                                                    cuda)
+
+
+GANG_DESIGNS = ("cluster", "block")
+
+
+@pytest.mark.parametrize("design", GANG_DESIGNS)
+@pytest.mark.parametrize("N", [100, 1000])
+@pytest.mark.parametrize("cap", [False, True])
+@pytest.mark.parametrize("soft", [False, True])
+@pytest.mark.parametrize("nom", [False, True])
+def test_gang_scan_designs_match_plain(cuda, design, N, cap, soft, nom):
+    """Every K9 instance in both designs, at 100 rows (7 a CTA: fewer
+    than the cluster's threads, the last CTA without a row) and 1,000
+    (not a multiple of the cluster's CTAs of threads), against
+    gang_schedule_plain."""
+    args = _gang_instance(30 + int(cap) + 2 * soft + 4 * nom, cap, soft,
+                          nom, N=N)
+    packed, _ = _gang_hold(*_gang_tensors(*args, cuda), design)
+    assert (packed[0] >= 0).any() and (packed[0] < 0).any()
+
+
+@pytest.mark.parametrize("design", GANG_DESIGNS)
+@pytest.mark.parametrize("cap", [False, True])
+def test_gang_scan_designs_exempt_mates(cuda, design, cap):
+    """The own-gang exemption in both designs: gang members' reservations
+    on rows of several CTAs, several on one row."""
+    nc, us, pb, gt, nm = _gang_instance(41 + int(cap), cap, True, True,
+                                        N=1000)
+    rng = np.random.default_rng(4)
+    multi = ~(gt["start"] & gt["end"])
+    pb["nom_row"][gt["pod_idx"][multi]] = rng.integers(0, 1000,
+                                                       multi.sum())
+    pb["nom_row"][gt["pod_idx"][multi][::3]] = 7   # several on row 7
+    _gang_hold(*_gang_tensors(nc, us, pb, gt, nm, cuda), design,
+               mates=True)
+
+
+def _flat_cluster(N, R, P, rng_seed=0):
+    """Identical roomy nodes with zero usage, resource weights -0.0 (every
+    resource score is -0.0) and one static score row a pod, so the
+    penalized score of a row is what its static score makes it."""
+    f32 = np.float32
+    node_cfg = {"alloc": np.full((N, R), 8000, f32),
+                "max_pods": np.full(N, 110, f32),
+                "node_ok": np.ones(N, bool),
+                "mem_pressure": np.zeros(N, bool),
+                "valid": np.ones(N, bool)}
+    usage = {"used": np.zeros((N, R), f32),
+             "nonzero_used": np.zeros((N, 2), f32),
+             "pod_count": np.zeros(N, f32)}
+    pb = {"req": np.full((P, R), 100, f32),
+          "nonzero_req": np.full((P, 2), 100, f32),
+          "mem_pressure_blocked": np.zeros(P, bool),
+          "active": np.ones(P, bool),
+          "seq": np.arange(P, dtype=np.int32),
+          "mask_idx": np.zeros(P, np.int32),
+          "score_idx": np.arange(P, dtype=np.int32),
+          "nom_row": np.full(P, -1, np.int32),
+          "unique_masks": np.ones((1, N), bool),
+          "unique_scores": np.zeros((P, N), f32),
+          "resource_weights": np.full(2, -0.0, f32)}
+    return node_cfg, usage, pb
+
+
+def _singletons(P, N, pods=None):
+    pods = list(range(P)) if pods is None else pods
+    T = len(pods)
+    return {"pod_idx": np.asarray(pods, np.int32),
+            "start": np.ones(T, bool), "end": np.ones(T, bool),
+            "gang_id": np.arange(T, dtype=np.int32),
+            "entry_dom_idx": np.full(T, -1, np.int32),
+            "pin_dom": np.full(T, -1, np.int32),
+            "dom_tab": np.full((1, N), -1, np.int32)}
+
+
+@pytest.mark.parametrize("design", GANG_DESIGNS)
+def test_gang_scan_equal_scores_across_ctas_go_to_the_lowest_row(cuda,
+                                                                  design):
+    """Every feasible row ties exactly (a pod's static score at a row is
+    the tie hash's penalty there, so every penalized score is the same
+    constant); the first 256 rows (whole CTAs of the cluster) are masked
+    off and a row takes one pod, so the pods fill rows 256, 257, ...
+    across CTA boundaries, each to the lowest free row."""
+    N, R, P = 1024, 3, 300
+    node_cfg, usage, pb = _flat_cluster(N, R, P)
+    node_cfg["max_pods"][:] = 1.0
+    for p in range(P):
+        pb["unique_scores"][p] = np.float32(1.0) + np.array(
+            [_tie_hash(r, p) for r in range(N)], np.float32) * 2.0 ** -17
+    pb["unique_masks"][0, :256] = False
+    gt = _singletons(P, N)
+    packed, _ = _gang_hold(*_gang_tensors(node_cfg, usage, pb, gt, None,
+                                          cuda), design)
+    assert packed[0].tolist() == list(range(256, 256 + P))
+
+
+@pytest.mark.parametrize("design", GANG_DESIGNS)
+@pytest.mark.parametrize("rows", [(300, 700), (700, 300)])
+def test_gang_scan_signed_zero_ties_go_to_the_lower_row(cuda, design, rows):
+    """+0.0 at row A and -0.0 at row B, in different CTAs, tie; the lower
+    row wins."""
+    a_row, b_row = rows
+    N, R, P = 1024, 3, 1
+    node_cfg, usage, pb = _flat_cluster(N, R, P)
+    seq0 = _tie_seq(b_row)
+    pb["seq"][0] = seq0
+    pb["unique_scores"][0, :] = -0.0
+    pb["unique_scores"][0, a_row] = np.float32(_tie_hash(a_row, seq0)
+                                               * 2.0 ** -17)
+    pb["unique_masks"][0, :] = False
+    pb["unique_masks"][0, [a_row, b_row]] = True
+    gt = _singletons(P, N)
+    packed, _ = _gang_hold(*_gang_tensors(node_cfg, usage, pb, gt, None,
+                                          cuda), design)
+    assert int(packed[0, 0]) == min(rows)
+
+
+@pytest.mark.parametrize("design", GANG_DESIGNS)
+def test_gang_scan_rejected_gang_across_ctas_restores_the_bits(cuda,
+                                                               design):
+    """A gang of 4 whose first three members place on rows of three CTAs
+    (10, 300, 700) and whose last fits nowhere: every placement is undone
+    and the committed usage at those rows keeps its input bits; a
+    singleton after it places as the plain version does."""
+    N, R, P = 1024, 3, 5
+    rng = np.random.default_rng(9)
+    node_cfg, usage, pb = _flat_cluster(N, R, P)
+    usage["used"] = rng.uniform(0, 3000, (N, R)).astype(np.float32)
+    usage["nonzero_used"] = rng.uniform(0, 3000, (N, 2)).astype(np.float32)
+    usage["pod_count"] = rng.integers(0, 8, N).astype(np.float32)
+    pb["resource_weights"] = np.ones(2, np.float32)
+    pb["unique_scores"] = rng.integers(0, 3, (P, N)).astype(np.float32)
+    masks = np.zeros((5, N), bool)
+    for k, r in enumerate((10, 300, 700)):
+        masks[k, r] = True
+    masks[4] = True                 # the singleton: anywhere
+    pb["unique_masks"] = masks
+    pb["mask_idx"] = np.array([0, 1, 2, 3, 4], np.int32)
+    gt = {"pod_idx": np.arange(5, dtype=np.int32),
+          "start": np.array([1, 0, 0, 0, 1], bool),
+          "end": np.array([0, 0, 0, 1, 1], bool),
+          "gang_id": np.array([0, 0, 0, 0, 1], np.int32),
+          "entry_dom_idx": np.full(5, -1, np.int32),
+          "pin_dom": np.full(5, -1, np.int32),
+          "dom_tab": np.full((1, N), -1, np.int32)}
+    packed, carry = _gang_hold(*_gang_tensors(node_cfg, usage, pb, gt, None,
+                                              cuda), design)
+    assert packed[0, :4].tolist() == [-1] * 4 and int(packed[0, 4]) >= 0
+    used = carry["used"].cpu().numpy()
+    for r in (10, 300, 700):
+        if r != int(packed[0, 4]):
+            assert used[r].view(np.int32).tolist() == \
+                usage["used"][r].view(np.int32).tolist()
+
+
+@pytest.mark.parametrize("design", GANG_DESIGNS)
+def test_gang_scan_capacity_gate_with_domains_across_ctas(cuda, design):
+    """Gangs of 4 under the capacity gate on 1,000 rows whose 7 domains
+    (rows // 100 mod 7) each span CTA boundaries (63 rows a CTA), with a
+    few free rows a domain: a gang goes to a domain that holds it whole,
+    or places by the greedy pin when none does."""
+    N, R = 1000, 3
+    rng = np.random.default_rng(12)
+    n_gangs = 12
+    P = 4 * n_gangs
+    node_cfg, usage, pb = _flat_cluster(N, R, P)
+    node_cfg["max_pods"][:] = 1.0
+    usage["pod_count"][:] = 1.0
+    usage["pod_count"][rng.random(N) < 0.03] = 0.0
+    pb["resource_weights"] = np.ones(2, np.float32)
+    pb["unique_scores"] = rng.integers(0, 3, (P, N)).astype(np.float32)
+    dom = ((np.arange(N) // 100) % 7).astype(np.int32)
+    gt = {"pod_idx": np.arange(P, dtype=np.int32),
+          "start": (np.arange(P) % 4) == 0, "end": (np.arange(P) % 4) == 3,
+          "gang_id": (np.arange(P) // 4).astype(np.int32),
+          "entry_dom_idx": np.zeros(P, np.int32),
+          "pin_dom": np.full(P, -1, np.int32),
+          "dom_tab": dom[None, :],
+          "need": np.full(P, 4.0, np.float32),
+          "greq": pb["req"].copy()}
+    packed, _ = _gang_hold(*_gang_tensors(node_cfg, usage, pb, gt, None,
+                                          cuda), design)
+    placed = packed[0].cpu().numpy()
+    assert (placed >= 0).any()
+    for g in range(n_gangs):
+        rows = placed[4 * g:4 * g + 4]
+        if (rows >= 0).all():
+            assert len(set(dom[rows].tolist())) == 1
