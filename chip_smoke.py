@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
 one process per source, all started together: K1-K15), fails if ptxas
-reports a spill in any instance of a library of SPILL_GATED (the scans
-K2 and K9 among them), then:
+reports a spill in any instance of a library of SPILL_GATED (every
+design of the scans K2, K7, K9 and K15 among them), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -123,10 +123,11 @@ K2 and K9 among them), then:
        route and the oracle on the BatchScheduler (gate forced open,
        spec_scan_spread), which must bind as `spread` did.
      - the sharded class scan (K15 shard_scan: a mesh of node shards on
-       the card, one thread-block cluster, a CTA a shard):
+       the card, one thread-block cluster, a CTA or a run of CTAs a
+       shard):
        `sharded-uniform` and `sharded-spread`, the uniform and spread
        stand-in drains on a mesh of 8 shards (capacity 8,192, 1,024 rows
-       a CTA), whose every batch must run K15 and whose binds must equal
+       a shard), whose every batch must run K15 and whose binds must equal
        the unsharded drains' pod for pod; `sharded-scheduler`, the
        nine-tenant scheduler loop through Scheduler(mesh=8) with the
        commit thread on (scheduler_sharded_batches_total equal to the
@@ -137,12 +138,15 @@ K2 and K9 among them), then:
        loops'; `sharded-pad`, 10,000 uniform pods on 3 shards (capacity 8,192
        padded to 8,193: one shard-pad row), whose binds must equal its
        KTPU_SHARD_MAP=0 control's (K2 over the padded mirror).
-     K2 and K9 each have two designs (kernels/batch.py
-     class_scan_design, kernels/gang.py gang_design) and count launches
-     per "instance:design" beside their instance counts; the `uniform`,
+     K2, K7, K9 and K15 each have two designs (kernels/batch.py
+     class_scan_design, pod_scan_design, shard_scan_design,
+     kernels/gang.py gang_design) and count launches per
+     "instance:design" beside their instance counts; the `uniform`,
      `spread` and `scheduler` paths must run K2 in its shared-table
      design alone, `gang` and `gang-preemption` K9 in its cluster design
-     alone (PATH_DESIGNS), and the script prints each path's designs.
+     alone, every `classic` path K7 in its cluster design alone and every
+     `sharded` path K15 in its shared design alone (PATH_DESIGNS), and
+     the script prints each path's designs.
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
@@ -179,7 +183,10 @@ K2 and K9 among them), then:
      Each K7 instance replays the batch of its K2 instance's path with the
      class tables dropped: its assign must equal K2's row for row, and
      on the batch's first 2,048 pods (POD_SCAN_PLAIN_PODS) its packed
-     results and post-batch usage its plain version's bit for bit. K8 runs on the uniform and spread batches against its plain
+     results and post-batch usage its plain version's bit for bit; it is
+     timed in its cluster and its block design, the other design held bit
+     for bit against the host's on the whole batch, and profiled on the
+     uniform and spread batches, as K2 is. K8 runs on the uniform and spread batches against its plain
      version (fits equal, score bits equal). Each K9 instance is held on
      the largest batch of its path (assign, the score bits of every pod,
      rejected gangs' members included, and the committed usage bits) in
@@ -205,8 +212,10 @@ K2 and K9 among them), then:
      its K2 instance's path on 8 shards: assign, active pods' score bits
      and usage finals equal to K2's, and on a prefix (2,048 pods; 256 of
      the spread and preferred batches) everything equal to the plain
-     sharded scan on the card; timed beside K2, and on the uniform batch
-     at 2, 4 and 8 shards. K13 runs the largest required_masks
+     sharded scan on the card; timed beside K2 in its shared and its
+     global design (the other design held bit for bit against the host's
+     on the whole batch; both profiled on the uniform and spread
+     batches), and on the uniform batch at 2, 4 and 8 shards. K13 runs the largest required_masks
      call of the service-anti-affinity path and K14 integer inputs of
      its shapes (weights in [-100, 100], counts in [0, 50]), each held
      bit for bit against its plain version on the card;
@@ -343,8 +352,9 @@ SVC_PATHS = {"service-anti-affinity": ("service-anti-affinity", N_NODES,
                                        N_PODS)}
 #: the seed of K14's integer inputs in the kernel phase
 SCORES_SEED = 0
-#: the sharded class scan (K15): node shards of the main paths' mesh (one
-#: thread-block cluster of 8 CTAs; capacity 8,192 gives 1,024 rows a CTA)
+#: the sharded class scan (K15): node shards of the main paths' mesh
+#: (capacity 8,192 gives 1,024 rows a shard: 2 CTAs of 512 rows in the
+#: shared design's cluster of 16, one CTA in the global design's of 8)
 MESH_SHARDS = 8
 #: the stand-in drains on that mesh: path -> (the unsharded path whose
 #: binds it must equal pod for pod, chained)
@@ -448,15 +458,29 @@ F32_OPS_PER_S = 67e12
 #: libraries whose build fails the script if ptxas reports a spill
 SPILL_GATED = ("drf_order", "affinity_scores", "affinity_masks",
                "apply_dirty", "class_scan", "class_scan_shared",
-               "gang_scan")
+               "gang_scan", "pod_scan", "pod_scan_cluster", "shard_scan",
+               "shard_scan_shared")
 #: the design each redesigned scan must run on a main path, as
-#: "instance:design" (kernels/batch.py class_scan_design, kernels/gang.py
-#: gang_design): the other design of that instance must not launch there
+#: "instance:design" (kernels/batch.py class_scan_design,
+#: pod_scan_design, shard_scan_design, kernels/gang.py gang_design): the
+#: other design of that instance must not launch there
 PATH_DESIGNS = {"uniform": ("class_scan:shared",),
                 "spread": ("class_scan_spread:shared",),
                 "scheduler": ("class_scan:shared",),
                 "gang": ("gang_scan_cap:cluster",),
-                "gang-preemption": ("gang_scan_cap_nom:cluster",)}
+                "gang-preemption": ("gang_scan_cap_nom:cluster",),
+                "classic": ("pod_scan:cluster",),
+                "classic-spread": ("pod_scan_spread:cluster",),
+                "classic-anti-affinity": ("pod_scan_topo:cluster",),
+                "classic-preferred": ("pod_scan_soft:cluster",),
+                "classic-nominated": ("pod_scan_nom:cluster",),
+                "sharded-uniform": ("shard_scan:shared",),
+                "sharded-spread": ("shard_scan_spread:shared",),
+                "sharded-scheduler": ("shard_scan:shared",),
+                "sharded-pad": ("shard_scan:shared",),
+                "sharded-anti-affinity": ("shard_scan_topo:global",),
+                "sharded-preferred": ("shard_scan_soft:shared",),
+                "sharded-nominated": ("shard_scan_nom:shared",)}
 #: library name -> ptxas_info of its build (filled by main)
 PTXAS = {}
 
@@ -566,8 +590,8 @@ class Port:
         return pod
 
     def launches(self):
-        """Launch counts by kernel instance, and K2's and K9's by
-        "instance:design" beside them."""
+        """Launch counts by kernel instance, and K2's, K7's, K9's and
+        K15's by "instance:design" beside them."""
         return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES,
                 **self.gk.LAUNCHES, **self.sk.LAUNCHES, **self.ak.LAUNCHES,
                 **self.kb.DESIGN_LAUNCHES, **self.gk.DESIGN_LAUNCHES}
@@ -1641,26 +1665,10 @@ def scan_row(port, rec, launches, name, path, line):
             design=design), carry)
     carry0, terms0 = kb._carry_setup(usage, pb)
     host = kb.scan_design_of(node_cfg, pb, cls, carry0, terms0)
-    designs = (host,) + tuple(d for d in kb.CLASS_SCAN_DESIGNS
-                              if d != host and d == "global")
-    ms_by, profile = {}, {}
-    for design in designs:
-        if design != host:
-            # the other design the batch can take, held on the same batch
-            packed_d, carry_d = scan_only(design)()
-            use_d = kb._usage_out(carry_d)
-            torch.cuda.synchronize()
-            if not torch.equal(packed_d, packed_k) or not all(
-                    bits_equal(torch, use_d[k], use_k[k]) for k in use_k):
-                fail(f"K2 {name} in its {design} design disagrees with "
-                     f"its plain version on the {path} batch")
-        runs = [time_cuda(torch, scan_only(design), reps=1, warm=0)
-                for _ in range(3)]
-        ms_by[design] = sum(runs[1:]) / 2   # the first pays the load
-        if name in ("class_scan", "class_scan_spread"):
-            profile[design] = step_profile(
-                torch, lambda prof, d=design: scan_only(d, prof),
-                pb["class_idx"].shape[0], f"class_scan:{design}")
+    ms_by, profile = design_times(
+        port, scan_only, host, kb.CLASS_SCAN_DESIGNS, packed_k, use_k,
+        f"K2 {name} on the {path} batch", pb["class_idx"].shape[0],
+        "class_scan", name in ("class_scan", "class_scan_spread"))
     ms = ms_by[host]
     c = scan_costs(kb, node_cfg, usage, pb, nom, packed_k, use_k)
     ops = c["P"] * (c["N"] * c["per_node"] + c["per_pod"]) + c["term_ops"]
@@ -1680,6 +1688,45 @@ def scan_row(port, rec, launches, name, path, line):
             "design": host, "ms_by_design": ms_by, "profile": profile,
             "bytes": c["bytes"], "ops": ops,
             "shape": c["shape"] + f" ({path} batch)"}
+
+
+def design_times(port, make, host, designs, packed_k, use_k, label, steps,
+                 kernel, profiled, new_fits=False):
+    """The designs of a redesigned scan that one batch can take: make(
+    design, prof=None) prepares fresh inputs and returns a call that
+    launches the design and returns (packed, carry). `designs` is (the
+    new design, the old one, which takes any batch): the host's design
+    runs first, then the old one where the host picked the new, or the
+    new one where the host kept the old on a batch the new takes
+    (`new_fits`). The other design is held bit for bit against the
+    host's results (packed_k, use_k); each is timed (three launches on
+    fresh inputs, the first paying the load) and, when `profiled`, run
+    once more as its profiling instance (step_profile over `steps`
+    steps, PROF_PHASES["kernel:design"]). Returns ({design: ms},
+    {design: profile})."""
+    torch, kb = port.torch, port.kb
+    new, old = designs
+    other = (old,) if host == new else (new,) if new_fits else ()
+    ms_by, profile = {}, {}
+    for design in (host,) + other:
+        if design != host:
+            packed_d, carry_d = make(design)()
+            use_d = kb._usage_out(carry_d)
+            torch.cuda.synchronize()
+            if not torch.equal(packed_d, packed_k) or set(use_d) != \
+                    set(use_k) or not all(bits_equal(torch, use_d[k],
+                                                     use_k[k])
+                                          for k in use_k):
+                fail(f"{label}: its {design} design disagrees with its "
+                     f"{host} design (and its plain version)")
+        runs = [time_cuda(torch, make(design), reps=1, warm=0)
+                for _ in range(3)]
+        ms_by[design] = sum(runs[1:]) / 2   # the first pays the load
+        if profiled:
+            profile[design] = step_profile(
+                torch, lambda prof, d=design: make(d, prof), steps,
+                f"{kernel}:{design}")
+    return ms_by, profile
 
 
 def scan_costs(kb, node_cfg, usage, pb, nom, packed, use_out):
@@ -1889,12 +1936,14 @@ def spec_row(port, rec, launches, name, path, k2_ms):
 
 def shard_row(port, rec, launches, name, path, line, k2_ms):
     """K15's instance on the recorded batch of its K2 instance's path, on
-    a mesh of MESH_SHARDS shards (one cluster of 8 CTAs): held against
-    K2's results on that batch (hold_on_k2), and on a prefix of the batch
-    (SHARD_PLAIN_PODS) bit for bit against the plain sharded scan on the
-    card; K15 alone timed on a fresh table and carry beside K2's time on
-    the same batch; on the uniform batch at the shard counts of
-    SHARD_WIDTHS too."""
+    a mesh of MESH_SHARDS shards: held against K2's results on that batch
+    (hold_on_k2), and on a prefix of the batch (SHARD_PLAIN_PODS) bit for
+    bit against the plain sharded scan on the card; K15 alone timed on a
+    fresh table and carry beside K2's time on the same batch, in the
+    design the host picks and in the other design, held bit for bit
+    against the first on the whole batch (on the uniform and spread
+    batches each design is profiled too); on the uniform batch at the
+    shard counts of SHARD_WIDTHS too."""
     torch, kb = port.torch, port.kb
     node_cfg, usage, pb, nom = rec.scan_inputs[path]
     spread, topo, dir2, soft = kb._scan_terms(pb)
@@ -1944,7 +1993,25 @@ def shard_row(port, rec, launches, name, path, line, k2_ms):
         runs = [time_cuda(torch, shard_only(), reps=1, warm=0)
                 for _ in range(3)]
         return sum(runs[1:]) / 2   # the first run pays the library load
-    ms = timed(D)
+
+    def shard_design(design, prof=None):
+        # a fresh table and carry for each run; only K15 is timed
+        _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb, nom)
+        return lambda: (kb._shard_scan_cuda(D, node_cfg, pb, cls, rw, ms0,
+                                            carry, terms, nom, prof=prof,
+                                            design=design), carry)
+    carry0, terms0 = kb._carry_setup(usage, pb)
+    host = kb.shard_design_of(D, node_cfg, pb, cls, carry0, terms0)
+    N, R = node_cfg["alloc"].shape
+    fits = kb.shard_shared_fits(
+        cls["class_req"].shape[0], N, R, D,
+        carry0["spread"].shape[0] if spread else 0,
+        pb["spread_zinit"].shape[0] if spread else 0, terms0)
+    ms_by, profile = design_times(
+        port, shard_design, host, kb.SHARD_SCAN_DESIGNS, packed, use,
+        f"K15 {name} on the {path} batch", P, "shard_scan",
+        name in ("shard_scan", "shard_scan_spread"), new_fits=fits)
+    ms = ms_by[host]
     widths = {}
     if path == "uniform":
         for d in SHARD_WIDTHS:
@@ -1962,7 +2029,8 @@ def shard_row(port, rec, launches, name, path, line, k2_ms):
     b = bound(c["bytes"], ops)
     return {"name": name, "route": "cuda",
             "source": "kubernetes_tpu_torch/csrc/shard_scan.cu"
-                      " + class_step.cuh"
+                      + (" + shard_scan_shared.cu + cluster_xchg.cuh"
+                         if host == "shared" else "") + " + class_step.cuh"
                       + (" + affinity.cuh" if topo or soft else ""),
             "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
             "launches": launches[name], "max_abs_err": err,
@@ -1973,6 +2041,7 @@ def shard_row(port, rec, launches, name, path, line, k2_ms):
             "equals_k2": "assign, active score bits, usage finals",
             "pad_score_bits_differ_from_k2": pads,
             "plain_prefix_pods": n,
+            "design": host, "ms_by_design": ms_by, "profile": profile,
             **({"widths": widths} if widths else {}),
             "bytes": c["bytes"], "ops": ops,
             "shape": c["shape"] + f" D={D} ({path} batch; plain on its "
@@ -2035,7 +2104,10 @@ def pod_scan_row(port, rec, launches, name, path, line):
     tables dropped: assign row for row equal to K2's on the same batch
     (and every active pod's score bits), packed results and post-batch
     usage bit for bit equal to the plain version on the card; K7 alone
-    timed on a fresh carry."""
+    timed on a fresh carry in the design the host picks and in the other
+    design, which is held bit for bit against the first on the whole
+    batch (on the uniform and spread batches each design is profiled
+    too)."""
     torch, kb = port.torch, port.kb
     if path not in rec.scan_inputs:
         fail(f"the {path} path never reached the scan")
@@ -2077,14 +2149,20 @@ def pod_scan_row(port, rec, launches, name, path, line):
                                      f"{path} classic, first {n_plain} pods",
                                      nom, kernel=f"K7 {name}")
 
-    def scan_only():
+    def scan_only(design, prof=None):
         # a fresh carry for each run; only the scan is timed
         carry, terms = kb._carry_setup(usage, cpb)
-        return lambda: kb._pod_scan_cuda(node_cfg, cpb, carry, terms, nom)
-    runs = [time_cuda(torch, scan_only(), reps=1, warm=0) for _ in range(3)]
-    ms = sum(runs[1:]) / 2   # the first run pays the library load
+        return lambda: (kb._pod_scan_cuda(node_cfg, cpb, carry, terms, nom,
+                                          prof=prof, design=design), carry)
     N, R = node_cfg["alloc"].shape
     P = cpb["seq"].shape[0]
+    carry0, terms0 = kb._carry_setup(usage, cpb)
+    host = kb.pod_design_of(node_cfg, cpb, carry0, terms0, nom)
+    ms_by, profile = design_times(
+        port, scan_only, host, kb.POD_SCAN_DESIGNS, packed_k, use_k,
+        f"K7 {name} on the {path} batch", P, "pod_scan",
+        name in ("pod_scan", "pod_scan_spread"))
+    ms = ms_by[host]
     bytes_ = nbytes(*node_cfg.values(), *usage.values(), cpb["req"],
                     cpb["nonzero_req"], cpb["mem_pressure_blocked"],
                     cpb["mask_idx"], cpb["score_idx"], cpb["seq"],
@@ -2109,7 +2187,9 @@ def pod_scan_row(port, rec, launches, name, path, line):
     ops = P * (N * per_node + per_pod) + term_ops
     b = bound(bytes_, ops)
     return {"name": name, "route": "cuda",
-            "source": "kubernetes_tpu_torch/csrc/pod_scan.cu + pod.cuh"
+            "source": "kubernetes_tpu_torch/csrc/pod_scan.cu"
+                      + (" + pod_scan_cluster.cu + cluster_xchg.cuh"
+                         if host == "cluster" else "") + " + pod.cuh"
                       + (" + affinity.cuh" if topo or soft else ""),
             "replaces": f"kubernetes_tpu/scheduler/kernels/{line}",
             "launches": launches[name], "max_abs_err": err,
@@ -2118,6 +2198,7 @@ def pod_scan_row(port, rec, launches, name, path, line):
             "library_ms": None, "match": True,
             "assign_equals_k2": True, "active_score_bits_equal_k2": True,
             "plain_pods": n_plain,
+            "design": host, "ms_by_design": ms_by, "profile": profile,
             # [pads whose score bits differ from K2's, first pad row, its
             # K7 bits, its K2 bits]
             "pad_score_bits_differ": pad_diff,
@@ -2338,6 +2419,31 @@ PROF_PHASES = {
                           ("table read + argmax", 3, 4),
                           ("argmax fold", 4, 5), ("winner update", 5, 6),
                           ("refresh", 6, 7)),
+    "pod_scan:block": (("pod scalars", 0, 1), ("zone init", 1, 2),
+                       ("pass 1 + reductions", 2, 3), ("argmax pass", 3, 4),
+                       ("argmax fold", 4, 5), ("winner update", 5, 6),
+                       ("end barrier", 6, 7)),
+    "pod_scan:cluster": (("pod scalars", 0, 1),
+                         ("fits + pass 1 + partials' publish", 1, 2),
+                         ("wait for the partials", 2, 3),
+                         ("argmax pass + warp fold", 3, 4),
+                         ("publish + next rows' loads", 4, 5),
+                         ("wait for the candidates", 5, 6),
+                         ("candidates' fold + update", 6, 7)),
+    "shard_scan:global": (("pod scalars + self row", 0, 1),
+                          ("pass 1 + CTA fold", 1, 2),
+                          ("B1 + partials' fold", 2, 3),
+                          ("argmax pass + CTA fold", 3, 4),
+                          ("B2 + election", 4, 5),
+                          ("owner's update + refresh", 5, 6),
+                          ("end barrier", 6, 7)),
+    "shard_scan:shared": (("pod scalars + self row", 0, 1),
+                          ("pass 1 + partials' publish", 1, 2),
+                          ("wait for the partials", 2, 3),
+                          ("argmax pass + warp fold", 3, 4),
+                          ("publish + candidate row's loads", 4, 5),
+                          ("wait for the candidates", 5, 6),
+                          ("fold + owner's update + refresh", 6, 7)),
     "gang_scan:block": (("entry scalars + gate", 0, 1), ("row pass", 1, 2),
                         ("fold", 2, 3), ("update", 3, 4),
                         ("end barrier", 4, 5)),
@@ -2577,26 +2683,10 @@ def gang_row(port, rec, launches, name, path):
                                            design=design), carry)
     N, R = node_cfg["alloc"].shape
     host = gk.gang_design(N, R)
-    designs = (host,) + tuple(d for d in gk.GANG_SCAN_DESIGNS
-                              if d != host and d == "block")
-    ms_by, profile = {}, {}
-    for design in designs:
-        if design != host:
-            # the other design, held on the same batch
-            packed_d, carry_d = scan_only(design)()
-            use_d = port.kb._usage_out(carry_d)
-            torch.cuda.synchronize()
-            if not torch.equal(packed_d, packed_k) or not all(
-                    bits_equal(torch, use_d[k], use_k[k]) for k in use_k):
-                fail(f"K9 {name} in its {design} design disagrees with its "
-                     f"plain version on the {path} batch")
-        runs = [time_cuda(torch, scan_only(design), reps=1, warm=0)
-                for _ in range(3)]
-        ms_by[design] = sum(runs[1:]) / 2   # the first pays the load
-        if name == "gang_scan_cap":
-            profile[design] = step_profile(
-                torch, lambda prof, d=design: scan_only(d, prof),
-                gt["pod_idx"].shape[0], f"gang_scan:{design}")
+    ms_by, profile = design_times(
+        port, scan_only, host, gk.GANG_SCAN_DESIGNS, packed_k, use_k,
+        f"K9 {name} on the {path} batch", gt["pod_idx"].shape[0],
+        "gang_scan", name == "gang_scan_cap")
     ms = ms_by[host]
     P = pb["seq"].shape[0]
     T = gt["pod_idx"].shape[0]
@@ -3592,8 +3682,9 @@ def main() -> None:
     # ---- the sharded class scan (K15): every batch through it, binds
     # equal to the unsharded paths' (the pad path's: its control's)
     def count(path, *prefixes):
+        # instance counts only (a design's count is "instance:design")
         return sum(v for k, v in per_path[path].items()
-                   if k.startswith(prefixes))
+                   if k.startswith(prefixes) and ":" not in k)
     unsharded = ("class_scan", "pod_scan", "spec_scan", "gang_scan")
     for path, (variant, _) in SHARD_DRAINS.items():
         sched, _, res, _ = drains[path]

@@ -62,7 +62,8 @@
 //     score rows and the domain row from L2, spread over 16 SMs, and
 //     those of the next member load while the cluster waits at the
 //     exchange.
-//     One exchange an entry: each warp folds its (penalized score, row,
+//     One exchange an entry (cluster_xchg.cuh, shared with K7's and
+//     K15's cluster designs): each warp folds its (penalized score, row,
 //     masked score, domain) with shuffles and its lane q stores the
 //     warp's candidate into CTA q's slot array (distributed shared
 //     memory; two arrays alternate by entry parity), then arrives at CTA
@@ -104,6 +105,7 @@
 #include "affinity.cuh"
 #include "pod.cuh"
 #include "prof.cuh"
+#include "cluster_xchg.cuh"
 
 // The host's parameter block: the pointer fields in the order of
 // kubernetes_tpu_torch/scheduler/kernels/gang.py _GANG_PTRS, then the ints
@@ -526,13 +528,6 @@ ktpu_gang_scan_kernel(KtpuGangScanParams a) {
 #define KTPU_ROW_MP 2u     // mem_pressure
 #define KTPU_ROW_ELIG 4u   // inside the open gang's capacity gate
 
-// one CTA's candidate for an entry, stored into every CTA of the cluster
-struct __align__(16) KtpuGangCand {
-  float pen;   // tie-penalized score
-  float val;   // masked score at its row
-  int row;     // global row
-  int dom;     // the row's domain in the entry's topology row
-};
 
 // an entry's scalars and its pod's, staged a chunk at a time
 struct KtpuGangEntry {
@@ -542,104 +537,6 @@ struct KtpuGangEntry {
   float nz0, nz1, need;
   int flags;   // 1 start, 2 end, 4 blocked, 8 active
 };
-
-__device__ __forceinline__ bool ktpu_cand_beats(float pen, int row,
-                                                float bpen, int brow) {
-  return pen > bpen || (pen == bpen && row < brow);
-}
-
-// the warp's first max of (pen, row), carrying val and dom; every lane
-// ends with it
-__device__ __forceinline__ void ktpu_warp_argmax(float& pen, int& row,
-                                                 float& val, int& dom) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float open = __shfl_xor_sync(0xffffffffu, pen, o);
-    const int orow = __shfl_xor_sync(0xffffffffu, row, o);
-    const float oval = __shfl_xor_sync(0xffffffffu, val, o);
-    const int odom = __shfl_xor_sync(0xffffffffu, dom, o);
-    if (ktpu_cand_beats(open, orow, pen, row)) {
-      pen = open;
-      row = orow;
-      val = oval;
-      dom = odom;
-    }
-  }
-}
-
-__device__ __forceinline__ void ktpu_cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-
-// The candidates' exchange: an mbarrier a slot array in every CTA. Each
-// warp of every CTA writes its 16-byte candidate into the array with
-// st.async, whose completion the hardware counts on the receiving CTA's
-// mbarrier in bytes; the receiver's thread 0 arrives once a phase,
-// expecting 16 bytes from each warp of the cluster, and its threads wait
-// on their own copy by phase parity (acquire: the data is visible). No
-// cluster barrier and no release fence: a CTA waits only for the
-// candidates it reads.
-__device__ __forceinline__ unsigned ktpu_smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void ktpu_mbar_init(uint64_t* bar,
-                                               unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   ktpu_smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-// the shared::cluster address of CTA `rank`'s copy of a shared variable
-__device__ __forceinline__ unsigned ktpu_mapa(const void* p,
-                                              unsigned rank) {
-  unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote)
-               : "r"(ktpu_smem_addr(p)), "r"(rank));
-  return remote;
-}
-// store 16 bytes into CTA `rank`'s copy of `dst`, counted as complete
-// transaction bytes on its copy of `bar`
-__device__ __forceinline__ void ktpu_st_async16(void* dst, uint64_t* bar,
-                                                unsigned rank, unsigned x,
-                                                unsigned y, unsigned z,
-                                                unsigned w) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-      "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(ktpu_mapa(dst, rank)),
-      "r"(x), "r"(y), "r"(z), "r"(w), "r"(ktpu_mapa(bar, rank))
-      : "memory");
-}
-// this CTA's one arrival of a phase, expecting `bytes` of st.async data
-__device__ __forceinline__ void ktpu_mbar_expect(uint64_t* bar,
-                                                 unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          ktpu_smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// wait until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void ktpu_mbar_wait(uint64_t* bar,
-                                               unsigned parity) {
-  const unsigned addr = ktpu_smem_addr(bar);
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void ktpu_cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-__device__ __forceinline__ void ktpu_cluster_sync() {
-  ktpu_cluster_arrive();
-  ktpu_cluster_wait();
-}
 
 // _pod_feasible at the local row i of the CTA's state (struct of arrays,
 // column j of row i at j * Nl + i): ktpu_pod_fits_ex's arithmetic, in its
@@ -686,7 +583,7 @@ ktpu_gang_cluster_kernel(KtpuGangScanParams a, int Nl) {
   float* s_cnt = s_nz + 2 * (size_t)Nl;
   float* s_maxp = s_cnt + Nl;
   uint8_t* s_fl = (uint8_t*)(s_maxp + Nl);
-  __shared__ __align__(16) KtpuGangCand s_cand[2][KTPU_GANG_CLUSTER * 16];
+  __shared__ __align__(16) KtpuCand s_cand[2][KTPU_GANG_CLUSTER * KTPU_XCHG_WARPS];
   __shared__ __align__(8) uint64_t s_mbar[2];   // a slot array's arrivals
   __shared__ float s_mm[2][KTPU_GANG_CLUSTER][2];
   static_assert(KTPU_GANG_CLUSTER <= 32, "a warp's lanes address the CTAs");
@@ -732,13 +629,9 @@ ktpu_gang_cluster_kernel(KtpuGangScanParams a, int Nl) {
   if (rank == 0)
     for (int t = tid; t < T; t += NT) a.ok_units[t] = 0;
   // one local arrival a phase (thread 0's, with the bytes it expects)
-  const unsigned cand_bytes =
-      KTPU_GANG_CLUSTER * (NT >> 5) * (unsigned)sizeof(KtpuGangCand);
-  if (tid == 0) {
-    ktpu_mbar_init(&s_mbar[0], 1);
-    ktpu_mbar_init(&s_mbar[1], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  const unsigned cand_bytes = ktpu_xchg_cand_bytes(KTPU_GANG_CLUSTER,
+                                                    NT >> 5);
+  if (tid == 0) ktpu_xchg_init(s_mbar, 2);
   // every CTA runs, its mbarriers ready, before any reaches another's
   // shared memory
   ktpu_cluster_sync();
@@ -1021,10 +914,8 @@ ktpu_gang_cluster_kernel(KtpuGangScanParams a, int Nl) {
       // (this CTA, this warp) of CTA q, counted on CTA q's mbarrier of that
       // slot array; thread 0 posts this CTA's expected bytes
       const int par = n_cand & 1;
-      if (lane < KTPU_GANG_CLUSTER)
-        ktpu_st_async16(&s_cand[par][rank * 16 + warp], &s_mbar[par], lane,
-                        __float_as_uint(bpen), __float_as_uint(bval),
-                        (unsigned)brow, (unsigned)bdom);
+      ktpu_xchg_publish(s_cand[par], &s_mbar[par], rank, warp, lane,
+                        KTPU_GANG_CLUSTER, bpen, bval, brow, bdom);
       if (tid == 0) ktpu_mbar_expect(&s_mbar[par], cand_bytes);
       // the next chunk's entries, then the exchange; the next entry's
       // rows load while the other CTAs arrive
@@ -1045,27 +936,17 @@ ktpu_gang_cluster_kernel(KtpuGangScanParams a, int Nl) {
       }
       if (PROF && rank == 0 && tid == 0)
         ktpu_prof_stamp(a.prof, a.prof_every, t, 6);
-      ktpu_mbar_wait(&s_mbar[par], (mph >> par) & 1u);
-      mph ^= 1u << par;
+      ktpu_xchg_wait(&s_mbar[par], par, mph);
       __syncwarp();
       if (PROF && rank == 0 && tid == 0)
         ktpu_prof_stamp(a.prof, a.prof_every, t, 7);
       ++n_cand;
       // every warp folds the cluster's candidates: 16 a CTA, a warp
       // with no rows (fewer than 16 warps) left at its empty slot
-      float epen = -inf, eval = KTPU_NEG;
-      int erow = 0x7fffffff, edom = -1;
-      for (int q = lane; q < KTPU_GANG_CLUSTER * 16; q += 32) {
-        if ((q & 15) >= nwarps) continue;
-        const KtpuGangCand c = s_cand[par][q];
-        if (ktpu_cand_beats(c.pen, c.row, epen, erow)) {
-          epen = c.pen;
-          eval = c.val;
-          erow = c.row;
-          edom = c.dom;
-        }
-      }
-      ktpu_warp_argmax(epen, erow, eval, edom);
+      const KtpuCand win = ktpu_xchg_fold(s_cand[par], KTPU_GANG_CLUSTER,
+                                          nwarps, lane);
+      const int erow = win.row, edom = win.aux;
+      const float eval = win.val;
       if (PROF && rank == 0 && tid == 0)
         ktpu_prof_stamp(a.prof, a.prof_every, t, 4, erow);
       const int best = erow;

@@ -7,9 +7,8 @@
 // class route.
 //
 // Each pod sees the usage every earlier pod's bind left behind, so the
-// pods run in order. One persistent block of 1024 threads walks them; each
-// thread owns node rows tid, tid + 1024, ... Per pod, in the order of
-// one_pod:
+// pods run in order, each over every row (the designs below split the
+// rows differently). Per pod, in the order of one_pod:
 //   1. feasibility at every row against the running usage (pod.cuh
 //      ktpu_pod_fits; with the nominated overlay (NOM) the reservations
 //      added and the pod's own nominated row exempt), then with topology
@@ -18,8 +17,8 @@
 //      min and max of the raw inter-pod score; with spread groups the max
 //      count, have_zones and the shared-memory zone sums (integer-valued
 //      f32, exact in any order below 2^24). Each thread keeps its rows'
-//      fits as bits for the second pass (N <= 32 * 1024; above that it
-//      recomputes them);
+//      fits as bits for the second pass (the block design's N <= 32 * 512;
+//      above that it recomputes them);
 //   3. score = base (pod.cuh ktpu_pod_base) + soft + (spread_w *
 //      use_spread) * spread, each a rounding of its own (without spread
 //      groups the reference's zero-weight spread term, + 0.0), the
@@ -33,104 +32,27 @@
 // winner-column refresh; every pod recomputes fits and score over all N
 // rows from the usage itself.
 //
+// Two designs of that walk (kernels/batch.py pod_scan_design picks one):
+//   cluster (pod_scan_cluster.cu, where the rows' state fits): the rows
+//     over one thread-block cluster of 16 CTAs, their state in shared
+//     memory, one exchange of candidates a pod (its notes);
+//   block (this file, any batch): one persistent block of 512 threads,
+//     thread t owning rows t, t + 512, ..., the state in global memory
+//     and the warp partials folded by every thread in turn. 512, not
+//     1,024: at 1,024 threads (64 registers) three instances spilled.
+//
 // Bound: the dependency chain from one pod to the next, as for K2. Each
 // pod reads the [N, R] usage and allocatable rows (from L2: 2 * N * R * 4
 // bytes, 512 KB at N = 8,192, R = 8) and does O(N * (R + K + Ks)) work;
-// three or four block barriers per pod set the time. One of the card's
-// SMs is busy; spreading a pod's rows over several SMs needs a grid-wide
-// barrier per pod and is left to later work.
-#include "score.cuh"
-#include "affinity.cuh"
+// in the block design three or four block barriers per pod and the rows
+// of one SM set the time.
 #include "pod.cuh"
+#include "pod_scan.cuh"
+#include "prof.cuh"
 
-// The host's parameter block: the pointer fields in the order of
-// kubernetes_tpu_torch/scheduler/kernels/batch.py _POD_SCAN_PTRS, then the
-// ints of _POD_SCAN_INTS (ctypes lays the Structure out as C does). A
-// term's pointers are null when the batch does not carry it.
-struct KtpuPodScanParams {
-  const float* alloc;
-  const float* max_pods;
-  const bool* node_ok;
-  const bool* mem_pressure;
-  const bool* valid;
-  const bool* unique_masks;
-  const float* unique_scores;
-  const float* rw;
-  float* used;
-  float* nz_used;
-  float* pod_count;
-  const float* req;
-  const float* nz_req;
-  const bool* blocked;
-  const int* mask_idx;
-  const int* score_idx;
-  const int* seq;
-  const bool* active;
-  const int* spread_gidx;
-  const float* spread_match;
-  float* spread;
-  const int* zone_of;
-  const float* zinit;
-  const float* spread_w;
-  const int* anti_dom;
-  float* topo_cnt;
-  float* topo_tot;
-  float* topo_carry;
-  const int* anti_tids;
-  const int* aff_tids;
-  const int* match_tids;
-  const int* cmatch_tids;
-  const int* canti_tids;
-  const int* soft_dom;
-  float* soft_cnt;
-  const float* soft_base;
-  const int* soft_base_idx;
-  const int* read_tids;
-  const float* read_w;
-  const int* write_tids;
-  const float* write_w;
-  const float* soft_w;
-  const float* nom_used;
-  const float* nom_count;
-  const int* nom_row;
-  int* packed;
-  int N, R, P, G, Z, T, D, K, Ts, Ds, Ks, Sb;
-  int has_spread, has_topo, has_dir2, has_soft, has_nom;
-};
+#define KTPU_POD_THREADS 512
 
-struct KtpuPodScanArgs {
-  KtpuNodeCfg cfg;
-  const bool* unique_masks;   // [M, N]
-  const float* unique_scores; // [S, N]
-  const float* rw;            // [2]
-  float* used;                // [N, R]   in/out (a copy of the input)
-  float* nz_used;             // [N, 2]   in/out
-  float* pod_count;           // [N]      in/out
-  const float* req;           // [P, R]
-  const float* nz_req;        // [P, 2]
-  const bool* blocked;        // [P]
-  const int* mask_idx;        // [P]
-  const int* score_idx;       // [P]
-  const int* seq;             // [P]
-  const bool* active;         // [P]
-  const int* spread_gidx;     // [P]      (spread only)
-  const float* spread_match;  // [P, G]
-  float* spread;              // [G, N]   in/out
-  const int* zone_of;         // [N]
-  const float* zinit;         // [Z]
-  const float* spread_w;      // scalar
-  KtpuTopo topo;              // (topology counters only)
-  KtpuSoft soft;              // (soft credits only)
-  const float* nom_used;      // [N, R]   (nominated overlay only)
-  const float* nom_count;     // [N]
-  const int* nom_row;         // [P]      the pod's own nominated row or -1
-  int N, R, P, G, Z;
-  int* packed;                // [2, P]
-};
-
-#define KTPU_POD_THREADS 1024
-
-template <bool SPREAD, bool TOPO, bool SOFT, bool NOM>
+template <bool SPREAD, bool TOPO, bool SOFT, bool NOM, bool PROF>
 __global__ void __launch_bounds__(KTPU_POD_THREADS, 1)
 ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
   extern __shared__ float zs[];  // [Z] zone sums
@@ -155,6 +77,7 @@ ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
   const bool keep_bits = (SPREAD || SOFT) && N <= 32 * nthreads;
 
   for (int p = 0; p < a.P; ++p) {
+    if (PROF && tid == 0) ktpu_prof_stamp(a.prof, a.prof_every, p, 0);
     KtpuPod pod;
     pod.req = a.req + (size_t)p * R;
     pod.nz0 = a.nz_req[2 * p];
@@ -165,6 +88,9 @@ ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
     const uint32_t seq_term = (uint32_t)a.seq[p] * 40503u;
     // rows never equal an out-of-range nominated row, as in the reference
     const int nr = NOM ? a.nom_row[p] : -1;
+    if (PROF && tid == 0)
+      ktpu_prof_stamp(a.prof, a.prof_every, p, 1,
+                      a.mask_idx[p] + a.score_idx[p] + (int)seq_term);
     auto fit_at = [&](int r) -> bool {
       bool f = ktpu_pod_fits(
           a.cfg, r, R, pod, mask[r], a.used + (size_t)r * R,
@@ -187,6 +113,7 @@ ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
       for (int z = tid; z < a.Z; z += nthreads) zs[z] = a.zinit[z];
       __syncthreads();
     }
+    if (PROF && tid == 0) ktpu_prof_stamp(a.prof, a.prof_every, p, 2);
     if (SOFT) soft_use = a.soft.base_idx[p] >= 0;
     if (SPREAD || SOFT) {
       float lmax = 0.0f, lmn = inf, lmx = -inf;
@@ -236,6 +163,8 @@ ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
       if (SPREAD)
         for (int z = 1; z < a.Z; ++z) maxz = fmaxf(maxz, zs[z]);
     }
+    if (PROF && tid == 0)
+      ktpu_prof_stamp(a.prof, a.prof_every, p, 3, __float_as_int(maxz));
 
     // ---- tie-penalized first-max argmax over this thread's rows
     float bpen = -inf, bval = KTPU_NEG;
@@ -280,6 +209,7 @@ ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
       w_val[warp] = bval;
     }
     __syncthreads();
+    if (PROF && tid == 0) ktpu_prof_stamp(a.prof, a.prof_every, p, 4);
     bpen = w_pen[0];
     brow = w_row[0];
     bval = w_val[0];
@@ -296,6 +226,8 @@ ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
     // far above the threshold; an infeasible one's is NEG
     const bool ok = chosen > KTPU_NEG_THRESHOLD && a.active[p];
     const float okf = ok ? 1.0f : 0.0f;
+    if (PROF && tid == 0)
+      ktpu_prof_stamp(a.prof, a.prof_every, p, 5, best + (ok ? 1 : 0));
 
     // ---- the winner's usage columns (added even when !ok, as 0 * req)
     const int n_upd = R + 3 + (SPREAD ? a.G : 0);
@@ -324,14 +256,16 @@ ktpu_pod_scan_kernel(KtpuPodScanArgs a) {
       a.packed[p] = ok ? best : -1;
       a.packed[a.P + p] = __float_as_int(chosen);
     }
+    if (PROF && tid == 0) ktpu_prof_stamp(a.prof, a.prof_every, p, 6);
     __syncthreads();
+    if (PROF && tid == 0) ktpu_prof_stamp(a.prof, a.prof_every, p, 7);
   }
 }
 
-template <bool SPREAD, bool TOPO, bool SOFT, bool NOM>
+template <bool SPREAD, bool TOPO, bool SOFT, bool NOM, bool PROF = false>
 static void ktpu_launch_pod_scan(const KtpuPodScanArgs& a, size_t smem,
                                  cudaStream_t stream) {
-  ktpu_pod_scan_kernel<SPREAD, TOPO, SOFT, NOM>
+  ktpu_pod_scan_kernel<SPREAD, TOPO, SOFT, NOM, PROF>
       <<<1, KTPU_POD_THREADS, smem, stream>>>(a);
 }
 
@@ -350,52 +284,23 @@ static void ktpu_launch_pod_terms(int terms, const KtpuPodScanArgs& a,
   }
 }
 
+// the block design (any batch); the profiling instances exist for the
+// uniform and spread batches only
 extern "C" int ktpu_pod_scan(const KtpuPodScanParams* h, void* stream) {
-  KtpuPodScanArgs a;
-  a.cfg = KtpuNodeCfg{h->alloc, h->max_pods, h->node_ok, h->mem_pressure,
-                      h->valid};
-  a.unique_masks = h->unique_masks;
-  a.unique_scores = h->unique_scores;
-  a.rw = h->rw;
-  a.used = h->used;
-  a.nz_used = h->nz_used;
-  a.pod_count = h->pod_count;
-  a.req = h->req;
-  a.nz_req = h->nz_req;
-  a.blocked = h->blocked;
-  a.mask_idx = h->mask_idx;
-  a.score_idx = h->score_idx;
-  a.seq = h->seq;
-  a.active = h->active;
-  a.spread_gidx = h->spread_gidx;
-  a.spread_match = h->spread_match;
-  a.spread = h->spread;
-  a.zone_of = h->zone_of;
-  a.zinit = h->zinit;
-  a.spread_w = h->spread_w;
-  a.topo = KtpuTopo{h->anti_dom, h->topo_cnt, h->topo_tot, h->topo_carry,
-                    h->anti_tids, h->aff_tids, h->match_tids,
-                    h->cmatch_tids, h->canti_tids, h->T, h->D, h->K,
-                    h->has_dir2};
-  a.soft = KtpuSoft{h->soft_dom, h->soft_cnt, h->soft_base,
-                    h->soft_base_idx, h->read_tids, h->read_w,
-                    h->write_tids, h->write_w, h->soft_w, h->Ds, h->Ks};
-  a.nom_used = h->nom_used;
-  a.nom_count = h->nom_count;
-  a.nom_row = h->nom_row;
-  a.N = h->N;
-  a.R = h->R;
-  a.P = h->P;
-  a.G = h->G;
-  a.Z = h->has_spread ? h->Z : 0;
-  a.packed = h->packed;
+  const KtpuPodScanArgs a = ktpu_pod_scan_args(h);
   const size_t smem = (size_t)a.Z * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  const int terms = (h->has_spread ? 4 : 0) | (h->has_topo ? 2 : 0) |
-                    (h->has_soft ? 1 : 0);
-  if (h->has_nom)
+  const int terms = ktpu_pod_terms(h);
+  if (h->prof != nullptr) {
+    if (!ktpu_pod_prof_ok(h)) return (int)cudaErrorInvalidValue;
+    if (terms == 4)
+      ktpu_launch_pod_scan<true, false, false, false, true>(a, smem, s);
+    else
+      ktpu_launch_pod_scan<false, false, false, false, true>(a, smem, s);
+  } else if (h->has_nom) {
     ktpu_launch_pod_terms<true>(terms, a, smem, s);
-  else
+  } else {
     ktpu_launch_pod_terms<false>(terms, a, smem, s);
+  }
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,15 @@
 // split over a 1-D "nodes" mesh of D shards (kubernetes_tpu_torch/
 // scheduler/sharding.py).
 //
-// On the card a shard is one CTA: the grid is ONE cluster of D CTAs
+// Two designs (kernels/batch.py shard_scan_design picks one): the shared
+// design (shard_scan_shared.cu, its notes), where each CTA's slice of the
+// table fits in its shared memory, and the global design below (any
+// batch of at most 8 shards).
+//
+// In the global design a shard is one CTA: the grid is ONE cluster of D CTAs
 // (2 <= D <= 8, cudaLaunchAttributeClusterDimension), and CTA r owns the
-// global rows [r * Nl, (r + 1) * Nl), Nl = N / D, one per thread at
-// N = 8,192 and D = 8 (min(1024, Nl rounded up to a warp) threads). The
+// global rows [r * Nl, (r + 1) * Nl), Nl = N / D, two a thread at
+// N = 8,192 and D = 8 (min(512, Nl rounded up to a warp) threads). The
 // reference's collectives become exchanges through distributed shared
 // memory (cooperative_groups::this_cluster, map_shared_rank) behind
 // cluster barriers. Per pod, in every CTA, in the reference's order:
@@ -53,19 +58,13 @@
 // the time.
 #include <cooperative_groups.h>
 
-#include "class_step.cuh"
+#include "shard_scan.cuh"
 
 namespace cg = cooperative_groups;
 
-#define KTPU_SHARD_THREADS 1024
-#define KTPU_MAX_SHARDS 8
-
-// K15's parameter block: K2's, then the shard count (kernels/batch.py
-// _ShardParams; ctypes lays the nested Structure out as C does)
-struct KtpuShardParams {
-  KtpuScanParams scan;
-  int D;
-};
+// threads a CTA of the global design at most: at 1,024 (64 registers)
+// eight instances spilled
+#define KTPU_SHARD_THREADS 512
 
 // one CTA's published values for one pod, read by every CTA of the
 // cluster through distributed shared memory
@@ -84,7 +83,7 @@ __device__ __forceinline__ bool ktpu_beats(float pen, int row, float bpen,
   return pen > bpen || (pen == bpen && row < brow);
 }
 
-template <bool SPREAD, bool TOPO, bool SOFT, bool NOM>
+template <bool SPREAD, bool TOPO, bool SOFT, bool NOM, bool PROF>
 __global__ void __launch_bounds__(KTPU_SHARD_THREADS, 1)
 ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -116,7 +115,9 @@ ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
   const float rw0 = kc.rw0, rw1 = kc.rw1;
   const float inf = __int_as_float(0x7f800000);
 
+  const bool stamp = PROF && rank == 0 && tid == 0;
   for (int p = 0; p < a.P; ++p) {
+    if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 0);
     KtpuShardSlot* my = &slot[p & 1];
     const int u = a.class_idx[p];
     const float* ms_u = a.ms + (size_t)u * N;
@@ -140,6 +141,8 @@ ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
             __fsub_rn(__fadd_rn(a.pod_count[nr], a.nom_count[nr]), 1.0f));
       }
     }
+
+    if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 1, u + (int)seq_term);
 
     // ---- 2. reductions over the feasible set, across the cluster
     float maxc = 0.0f, maxz = 0.0f, sw_use = 0.0f, mn = inf, mx = -inf;
@@ -206,6 +209,7 @@ ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
         my->mn = cmn;
         my->mx = cmx;
       }
+      if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 2);
       cluster.sync();  // B1: every CTA's partials are published
       // every warp folds the D partials (max, or, min: any order)
       float gmax = 0.0f, gmn = inf, gmx = -inf;
@@ -239,6 +243,10 @@ ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
         for (int z = 1; z < a.Z; ++z) maxz = fmaxf(maxz, zs[z]);
       }
     }
+    // (a step without the reductions spans two equal stamps)
+    if (stamp && !(SPREAD || SOFT))
+      ktpu_prof_stamp(a.prof, a.prof_every, p, 2);
+    if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 3, __float_as_int(maxz));
 
     // ---- 3. the CTA's tie-penalized first max, then the election
     float bpen = -inf, bval = KTPU_NEG;
@@ -292,6 +300,7 @@ ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
       my->row = crow;
       my->val = cval;
     }
+    if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 4);
     cluster.sync();  // B2: every CTA's candidate is published
     float epen = -inf, eval = KTPU_NEG;
     int erow = 0x7fffffff;
@@ -315,6 +324,7 @@ ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
     const float chosen = eval;
     const bool ok = chosen > KTPU_NEG_THRESHOLD && a.active[p];
     const float okf = ok ? 1.0f : 0.0f;
+    if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 5, best + (ok ? 1 : 0));
 
     // ---- 4. the owner's writes (a CTA-uniform branch)
     if (best >= r0 && best < r1) {
@@ -359,16 +369,18 @@ ktpu_shard_scan_kernel(KtpuScanArgs a, int D) {
         a.packed[a.P + p] = __float_as_int(chosen);
       }
     }
+    if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 6);
     if (TOPO || SOFT)
       cluster.sync();  // B3: the counter writes before the next pod reads
     else
       __syncthreads();  // the owner's column before its next reads
+    if (stamp) ktpu_prof_stamp(a.prof, a.prof_every, p, 7);
   }
   // no CTA leaves while another may still read its shared memory
   cluster.sync();
 }
 
-template <bool SPREAD, bool TOPO, bool SOFT, bool NOM>
+template <bool SPREAD, bool TOPO, bool SOFT, bool NOM, bool PROF = false>
 static cudaError_t ktpu_launch_shard(const KtpuScanArgs& a, int D,
                                      int threads, size_t smem,
                                      cudaStream_t stream) {
@@ -384,9 +396,8 @@ static cudaError_t ktpu_launch_shard(const KtpuScanArgs& a, int D,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg,
-                            ktpu_shard_scan_kernel<SPREAD, TOPO, SOFT, NOM>,
-                            a, D);
+  return cudaLaunchKernelEx(
+      &cfg, ktpu_shard_scan_kernel<SPREAD, TOPO, SOFT, NOM, PROF>, a, D);
 }
 
 template <bool NOM>
@@ -405,6 +416,8 @@ static cudaError_t ktpu_launch_shard_terms(int terms, const KtpuScanArgs& a,
   }
 }
 
+// the global design (any batch of 2 to 8 shards that divide the rows);
+// the profiling instances exist for the uniform and spread batches only
 extern "C" int ktpu_shard_scan(const KtpuShardParams* h, void* stream) {
   const KtpuScanParams* sp = &h->scan;
   const int D = h->D;
@@ -418,9 +431,19 @@ extern "C" int ktpu_shard_scan(const KtpuShardParams* h, void* stream) {
   const size_t smem = 2 * (size_t)a.Z * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   const int terms = ktpu_scan_terms(sp);
-  const cudaError_t err =
-      sp->has_nom ? ktpu_launch_shard_terms<true>(terms, a, D, threads, smem, s)
-                  : ktpu_launch_shard_terms<false>(terms, a, D, threads, smem, s);
+  cudaError_t err;
+  if (sp->prof != nullptr) {
+    if (!ktpu_shard_prof_ok(sp)) return (int)cudaErrorInvalidValue;
+    err = terms == 4
+        ? ktpu_launch_shard<true, false, false, false, true>(a, D, threads,
+                                                             smem, s)
+        : ktpu_launch_shard<false, false, false, false, true>(a, D, threads,
+                                                              smem, s);
+  } else {
+    err = sp->has_nom
+        ? ktpu_launch_shard_terms<true>(terms, a, D, threads, smem, s)
+        : ktpu_launch_shard_terms<false>(terms, a, D, threads, smem, s);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -23,20 +23,23 @@ hand-written CUDA kernel (csrc/):
                           refreshed with the reservations) is its NOM
                           instance
     schedule_batch -> K7  csrc/pod_scan.cu        the classic per-pod
-                          route (a batch without class tables,
-                          KTPU_CLASS_SCAN=0), one launch per batch: every
-                          pod's fits and score over all N rows
+                          (+ pod_scan_cluster.cu) route (a batch without
+                          class tables, KTPU_CLASS_SCAN=0), one launch
+                          per batch, in the design pod_scan_design picks:
+                          every pod's fits and score over all N rows
                           (csrc/pod.cuh, _pod_feasible / _pod_score), with
                           the same carried terms and overlay as K2
     schedule_batch_sharded
                    -> K15 csrc/shard_scan.cu      the class route on a
-                          mesh of D node shards (sharding.py), one launch
-                          per batch: one thread-block cluster of D CTAs,
-                          CTA r owning rows [r*N/D, (r+1)*N/D); per pod
-                          the shards' reductions and the (score, row)
-                          election cross the cluster through distributed
-                          shared memory; decisions equal to K2's where the
-                          capacities coincide
+                          (+ shard_scan_shared.cu) mesh of D node shards
+                          (sharding.py), one launch per batch of one
+                          thread-block cluster, in the design
+                          shard_scan_design picks; shard s owning rows
+                          [s*N/D, (s+1)*N/D); per pod the shards'
+                          reductions and the (score, row) election cross
+                          the cluster through distributed shared memory;
+                          decisions equal to K2's where the capacities
+                          coincide
     filter_score   -> K8  csrc/filter_score.cu    [P, N] fits and masked
                           scores against the frozen snapshot
     apply_dirty    -> K3  csrc/apply_dirty.cu     dirty-row scatter
@@ -85,7 +88,7 @@ COL_MEM = 1
 MAX_R = 64
 #: the most node shards the sharded scan takes: K15's thread-block
 #: cluster of up to 8 CTAs, the portable cluster size on Hopper
-#: (csrc/shard_scan.cu KTPU_MAX_SHARDS)
+#: (csrc/shard_scan.cuh KTPU_MAX_SHARDS)
 MAX_SHARDS = 8
 
 
@@ -158,10 +161,142 @@ _CLASS_KEYS = ("class_req", "class_nz", "class_blocked", "class_mask_idx",
 
 
 #: K2 launches by "instance:design" (class_scan_design), beside LAUNCHES
+#: (K7's and K15's are added below)
 DESIGN_LAUNCHES: Dict[str, int] = {
     f"{scan_instance(sp, tp, sf, nm)}:{d}": 0 for d in CLASS_SCAN_DESIGNS
     for nm in (False, True) for sp in (False, True) for tp in (False, True)
     for sf in (False, True)}
+
+
+#: K7's designs: "cluster" (csrc/pod_scan_cluster.cu), the rows over one
+#: thread-block cluster of POD_CLUSTER CTAs, each holding its rows' state
+#: in shared memory, and "block" (csrc/pod_scan.cu), one block of 512
+#: threads over the rows in global memory (any batch); the host picks one
+#: by the batch's sizes (pod_scan_design)
+POD_SCAN_DESIGNS = ("cluster", "block")
+#: the cluster design's bounds: CTAs, threads a CTA, rows a thread,
+#: dynamic shared memory a CTA (bytes) and zones (spread); the
+#: exchanges of K7's and K15's cluster designs (csrc/cluster_xchg.cuh)
+#: take 32 zones
+POD_CLUSTER = 16
+POD_CTHREADS = 512
+POD_RPT = 4
+POD_SMEM_LIMIT = 200 * 1024
+XCHG_ZONES = 32
+
+
+def pod_cluster_smem_bytes(rows: int, R: int, G: int = 0,
+                           nom: bool = False, hold_spread: bool = False
+                           ) -> int:
+    """A K7 cluster CTA's dynamic shared memory for `rows` rows of R
+    columns (csrc/pod_scan_cluster.cu ktpu_pod_cluster_smem_bytes):
+    alloc and used [R], nz [2], count and max pods (f32) a row, with the
+    overlay its reservations [R] and count, with held spread counts [G],
+    and a flag byte a row."""
+    words = rows * (2 * R + 4)
+    if nom:
+        words += rows * (R + 1)
+    if hold_spread:
+        words += rows * G
+    return words * 4 + ((rows + 15) & ~15)
+
+
+def _cluster_rows_fit(rows: int) -> bool:
+    """`rows` rows fit a cluster CTA's threads (up to 512, 4 rows each)."""
+    threads = min(POD_CTHREADS, -(-rows // 32) * 32)
+    return rows <= threads * POD_RPT
+
+
+def pod_scan_design(N: int, R: int, G: int = 0, Z: int = 0,
+                    terms=(False, False, False, False),
+                    nom: bool = False) -> str:
+    """The K7 design for a batch over N rows of R columns with the carried
+    `terms` (spread, topo, dir2, soft as _scan_terms gives them; with
+    spread: G groups, Z zones) and, with `nom`, the nominated overlay:
+    "cluster" where each CTA's N / 16 rows fit its threads and their
+    state its shared memory (the held spread counts need not fit) and
+    the zones the exchange, else "block"."""
+    rows = -(-N // POD_CLUSTER)
+    spread = bool(terms[0])
+    if N < 1 or not 2 <= R <= MAX_R or not _cluster_rows_fit(rows) or \
+            (spread and not 1 <= Z <= XCHG_ZONES) or \
+            pod_cluster_smem_bytes(rows, R, G, nom) > POD_SMEM_LIMIT:
+        return "block"
+    return "cluster"
+
+
+#: K15's designs: "shared" (csrc/shard_scan_shared.cu), one cluster of
+#: shard_ctas(D) CTAs a shard, each holding its slice of the [C, N]
+#: table, the class constants and its rows' usage in shared memory, and
+#: "global" (csrc/shard_scan.cu), one CTA a shard with every table in
+#: global memory (any batch); the host picks one (shard_scan_design)
+SHARD_SCAN_DESIGNS = ("shared", "global")
+#: the shared design's CTAs at most (a non-portable cluster), its dynamic
+#: shared memory a CTA (bytes) and the classes the host gives it: its
+#: winner's warp refreshes 32 classes a pass, and past one pass the
+#: refresh on the chain costs more than the design saves (512 classes:
+#: 131.0 ms against the global design's 79.0 on the anti-affinity batch,
+#: NVIDIA H100, PERF.md)
+SHARD_CLUSTER = 16
+SHARD_SMEM_LIMIT = 200 * 1024
+SHARD_SMEM_CLASSES = 32
+
+
+def shard_ctas(D: int) -> int:
+    """CTAs a shard of the shared design: the most that 16 hold for D
+    shards (16 CTAs in all at D = 2, 4, 8; 15 at D = 3)."""
+    return SHARD_CLUSTER // D
+
+
+def shard_smem_words(C: int, rows: int, R: int, G: int = 0,
+                     hold_spread: bool = False) -> int:
+    """A shared-design CTA's dynamic shared memory in 4-byte words for
+    `rows` rows (csrc/shard_scan_shared.cu ktpu_shard_smem_words): its
+    [C, rows] slice of the table, the class constants, its rows' used
+    [R], nz [2] and count, and the held spread counts [G]."""
+    w = C * rows + C * (R + 4) + (C + 3) // 4 + (R + 3) * rows
+    if hold_spread:
+        w += G * rows
+    return w
+
+
+def shard_shared_fits(C: int, N: int, R: int, D: int, G: int = 0,
+                      Z: int = 0, terms=(False, False, False, False)
+                      ) -> bool:
+    """Whether K15's shared design takes the batch (its C launcher's
+    conditions): a CTA's slice of N / D / shard_ctas(D) rows fits its
+    threads and, with the class constants and its rows' usage, 200 KB of
+    shared memory, and the zones fit the exchange."""
+    spread = bool(terms[0])
+    if not 2 <= D <= MAX_SHARDS or N < D or N % D or C < 1 or \
+            not 2 <= R <= MAX_R or (spread and not 1 <= Z <= XCHG_ZONES):
+        return False
+    rows = -(-(N // D) // shard_ctas(D))
+    return _cluster_rows_fit(rows) and \
+        shard_smem_words(C, rows, R, G) * 4 <= SHARD_SMEM_LIMIT
+
+
+def shard_scan_design(C: int, N: int, R: int, D: int, G: int = 0,
+                      Z: int = 0, terms=(False, False, False, False)
+                      ) -> str:
+    """The K15 design for a batch of C classes over N rows of R columns on
+    D shards (with spread: G groups, Z zones): "shared" where the design
+    takes the batch (shard_shared_fits) and its refresh takes the classes
+    in one pass (C <= 32), else "global"."""
+    if C <= SHARD_SMEM_CLASSES and \
+            shard_shared_fits(C, N, R, D, G, Z, terms):
+        return "shared"
+    return "global"
+
+
+#: K7 and K15 launches by "instance:design" (pod_scan_design,
+#: shard_scan_design), beside K2's
+DESIGN_LAUNCHES.update({
+    f"{scan_instance(sp, tp, sf, nm, kernel)}:{d}": 0
+    for kernel, designs in (("pod_scan", POD_SCAN_DESIGNS),
+                            ("shard_scan", SHARD_SCAN_DESIGNS))
+    for d in designs for nm in (False, True) for sp in (False, True)
+    for tp in (False, True) for sf in (False, True)})
 
 
 def reset_launches() -> None:
@@ -866,16 +1001,15 @@ _SCAN_PTRS = (
 _SCAN_INTS = ("N", "R", "C", "P", "G", "Z", "T", "D", "K", "Ts", "Ds", "Ks",
               "Sb", "has_spread", "has_topo", "has_dir2", "has_soft",
               "has_nom", "prof_every")
-#: K7's parameter block (KtpuPodScanParams in csrc/pod_scan.cu): the pod
+#: K7's parameter block (KtpuPodScanParams in csrc/pod_scan.cuh): the pod
 #: rows in place of the class tables, the same terms, the same ints
 #: without C
 _POD_SCAN_PTRS = (
     "alloc", "max_pods", "node_ok", "mem_pressure", "valid",
     "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
     "req", "nz_req", "blocked", "mask_idx", "score_idx", "seq",
-    "active") + _TERM_PTRS + ("packed",)
-_POD_SCAN_INTS = tuple(k for k in _SCAN_INTS
-                       if k not in ("C", "prof_every"))
+    "active") + _TERM_PTRS + ("packed", "prof")
+_POD_SCAN_INTS = tuple(k for k in _SCAN_INTS if k != "C")
 
 
 class _ScanParams(ctypes.Structure):
@@ -1123,12 +1257,30 @@ def _pod_rows(pod_batch: dict) -> dict:
             "score_idx": (pod_batch["score_idx"], torch.int32)}
 
 
-def _pod_scan_cuda(node_cfg, pod_batch, carry, terms, nom=None):
+def pod_design_of(node_cfg: dict, pod_batch: dict, carry: dict, terms,
+                  nom=None) -> str:
+    """pod_scan_design for a batch of the classic route: its rows, usage
+    columns, carried terms, overlay and, with spread groups, groups and
+    zones."""
+    N, R = node_cfg["alloc"].shape
+    spread = terms[0]
+    return pod_scan_design(
+        N, R, carry["spread"].shape[0] if spread else 0,
+        pod_batch["spread_zinit"].shape[0] if spread else 0, terms,
+        nom is not None)
+
+
+def _pod_scan_cuda(node_cfg, pod_batch, carry, terms, nom=None, prof=None,
+                   design=None):
     """Kernel K7: the classic per-pod scan of the whole batch in one
     launch of the instance for its carried terms (and the nominated
     overlay with `nom`); returns the [2, P] packed results and mutates the
     `carry` copies. Index values (mask and score rows, term ids, domains,
-    nominated rows) come from tensorize and core."""
+    nominated rows) come from tensorize and core. The design is
+    pod_scan_design's for the batch's sizes; `design` names one of
+    POD_SCAN_DESIGNS instead and `prof` launches the profiling instance
+    of the uniform or spread batch with its stamp buffer (chip_smoke.py's
+    kernel phase and tools/scan_probe.py, which compare the designs)."""
     alloc = node_cfg["alloc"]
     N, R = alloc.shape
     P = _check_pod_rows(node_cfg, carry, pod_batch)
@@ -1144,12 +1296,20 @@ def _pod_scan_cuda(node_cfg, pod_batch, carry, terms, nom=None):
     ptrs.update(seq=(pod_batch["seq"], torch.int32),
                 active=(pod_batch["active"], torch.bool),
                 packed=(packed, torch.int32))
+    if prof is not None:
+        ptrs["prof"] = (prof[0], torch.int64)
+        dims["prof_every"] = int(prof[1])
     has_spread, has_topo, _, has_soft = terms
+    if design is None:
+        design = pod_design_of(node_cfg, pod_batch, carry, terms, nom)
     name = scan_instance(has_spread, has_topo, has_soft, nom is not None,
                          "pod_scan")
-    _launch("pod_scan", "ktpu_pod_scan", _PodScanParams, _POD_SCAN_INTS,
-            dims, ptrs, name)
+    lib, entry = {"cluster": ("pod_scan_cluster", "ktpu_pod_scan_cluster"),
+                  "block": ("pod_scan", "ktpu_pod_scan")}[design]
+    _launch(lib, entry, _PodScanParams, _POD_SCAN_INTS, dims, ptrs,
+            f"{name}:{design}")
     LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[f"{name}:{design}"] += 1
     return packed
 
 
@@ -1356,29 +1516,53 @@ def _shard_scan_plain(D: int, node_cfg, pod_batch, cls, rw, ms, carry,
 
 
 class _ShardParams(ctypes.Structure):
-    """K15's parameter block (KtpuShardParams in csrc/shard_scan.cu): K2's,
-    then the shard count."""
+    """K15's parameter block (KtpuShardParams in csrc/shard_scan.cuh):
+    K2's, then the shard count."""
     _fields_ = [("scan", _ScanParams), ("D", ctypes.c_int)]
 
 
+def shard_design_of(D: int, node_cfg: dict, pod_batch: dict, cls: dict,
+                    carry: dict, terms) -> str:
+    """shard_scan_design for a batch of the class route on D shards: its
+    classes, rows, usage columns, terms and, with spread groups, groups
+    and zones."""
+    N, R = node_cfg["alloc"].shape
+    spread = terms[0]
+    return shard_scan_design(
+        cls["class_req"].shape[0], N, R, D,
+        carry["spread"].shape[0] if spread else 0,
+        pod_batch["spread_zinit"].shape[0] if spread else 0, terms)
+
+
 def _shard_scan_cuda(D: int, node_cfg, pod_batch, cls, rw, ms, carry,
-                     terms, nom=None):
+                     terms, nom=None, prof=None, design=None):
     """Kernel K15: the whole batch in one launch of the instance for its
-    carried terms (and the nominated overlay with `nom`), one cluster of
-    D CTAs; returns the [2, P] packed results and mutates `ms` and the
-    `carry` copies. A build or launch failure raises."""
+    carried terms (and the nominated overlay with `nom`), one thread-block
+    cluster; returns the [2, P] packed results and mutates `ms` and the
+    `carry` copies. A build or launch failure raises. The design is
+    shard_scan_design's for the batch's sizes; `design` names one of
+    SHARD_SCAN_DESIGNS instead and `prof` launches the profiling
+    instance of the uniform or spread batch with its stamp buffer
+    (chip_smoke.py's kernel phase and tools/scan_probe.py)."""
     scan, packed = _class_scan_params(node_cfg, pod_batch, cls, rw, ms,
                                       carry, terms, nom)
+    if prof is not None:
+        _set_prof(scan, prof)
     has_spread, has_topo, _, has_soft = terms
-    if has_spread and scan.Z * 8 > 48 * 1024:
+    if design is None:
+        design = shard_design_of(D, node_cfg, pod_batch, cls, carry, terms)
+    if design == "global" and has_spread and scan.Z * 8 > 48 * 1024:
         raise ValueError(f"shard_scan: {scan.Z} zones exceed the kernel's "
                          "48 KB of partial and reduced zone sums in shared "
                          "memory")
     prm = _ShardParams(scan=scan, D=D)
     name = scan_instance(has_spread, has_topo, has_soft, nom is not None,
                          "shard_scan")
-    _call("shard_scan", "ktpu_shard_scan", prm, node_cfg["alloc"], name)
+    lib, entry = {"shared": ("shard_scan_shared", "ktpu_shard_scan_shared"),
+                  "global": ("shard_scan", "ktpu_shard_scan")}[design]
+    _call(lib, entry, prm, node_cfg["alloc"], f"{name}:{design}")
     LAUNCHES[name] += 1
+    DESIGN_LAUNCHES[f"{name}:{design}"] += 1
     return packed
 
 

@@ -34,6 +34,7 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "drf_order": "drf_order.cu",
            "price_nodes": "price_nodes.cu",
            "pod_scan": "pod_scan.cu",
+           "pod_scan_cluster": "pod_scan_cluster.cu",
            "filter_score": "filter_score.cu",
            "gang_scan": "gang_scan.cu",
            "gang_feasible": "gang_feasible.cu",
@@ -41,7 +42,8 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "spec_scan": "spec_scan.cu",
            "affinity_masks": "affinity_masks.cu",
            "affinity_scores": "affinity_scores.cu",
-           "shard_scan": "shard_scan.cu"}
+           "shard_scan": "shard_scan.cu",
+           "shard_scan_shared": "shard_scan_shared.cu"}
 
 #: sm_90a (Hopper); -fmad=false keeps every multiply and add separately
 #: rounded, as the f32 reference computes them

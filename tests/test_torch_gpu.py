@@ -1522,3 +1522,347 @@ def test_gang_scan_capacity_gate_with_domains_across_ctas(cuda, design):
         rows = placed[4 * g:4 * g + 4]
         if (rows >= 0).all():
             assert len(set(dom[rows].tolist())) == 1
+
+
+# ------------------------------------------------------ K7 and K15 designs
+
+
+def _k7_hold(tc, tu, tpb, tnom, design):
+    """K7's `design` against _pod_scan_plain on fresh carries: packed
+    results and every post-batch usage table bit for bit; returns the
+    packed results."""
+    carry, terms = kb._carry_setup(tu, tpb)
+    name = kb.scan_instance(terms[0], terms[1], terms[3], tnom is not None,
+                            "pod_scan")
+    before = kb.DESIGN_LAUNCHES[f"{name}:{design}"]
+    packed = kb._pod_scan_cuda(tc, tpb, carry, terms, tnom, design=design)
+    assert kb.DESIGN_LAUNCHES[f"{name}:{design}"] == before + 1
+    ref_carry, _ = kb._carry_setup(tu, tpb)
+    ref = kb._pod_scan_plain(tc, tpb, ref_carry, terms, tnom)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, ref)
+    use, ref_use = kb._usage_out(carry), kb._usage_out(ref_carry)
+    assert set(use) == set(ref_use)
+    for k in ref_use:
+        assert torch.equal(use[k].view(torch.int32),
+                           ref_use[k].view(torch.int32)), k
+    return packed
+
+
+def _k15_run(D, tc, tu, tpb, tnom, design):
+    """One K15 design on the batch: (packed, post-batch usage, the final
+    [C, N] table)."""
+    pb = kb._shard_setup(D, tc, tpb, tnom)
+    cls, rw, ms, carry, terms = kb._scan_setup(tc, tu, pb, tnom)
+    name = kb.scan_instance(terms[0], terms[1], terms[3], tnom is not None,
+                            "shard_scan")
+    before = kb.DESIGN_LAUNCHES[f"{name}:{design}"]
+    packed = kb._shard_scan_cuda(D, tc, pb, cls, rw, ms, carry, terms, tnom,
+                                 design=design)
+    assert kb.DESIGN_LAUNCHES[f"{name}:{design}"] == before + 1
+    return packed, kb._usage_out(carry), ms
+
+
+def _k15_hold(D, tc, tu, tpb, tnom, plain=True):
+    """K15's two designs on one batch: bit for bit equal to each other
+    (packed, usage, table), to the plain sharded scan (with `plain`), and
+    in assign, active score bits and usage to K2; returns the packed
+    results."""
+    got = {d: _k15_run(D, tc, tu, tpb, tnom, d)
+           for d in kb.SHARD_SCAN_DESIGNS}
+    serial, serial_use = kb.schedule_batch_packed(tc, tu, tpb, tnom)
+    ref = kb.schedule_batch_sharded_plain(D, tc, tu, tpb, tnom) if plain \
+        else None
+    torch.cuda.synchronize()
+    (packed, use, ms), (gp, gu, gms) = got["shared"], got["global"]
+    assert torch.equal(packed, gp)
+    assert set(use) == set(gu) == set(serial_use)
+    for k in use:
+        for other in (gu, serial_use):
+            assert torch.equal(use[k].view(torch.int32),
+                               other[k].view(torch.int32)), k
+    assert torch.equal(ms.view(torch.int32), gms.view(torch.int32))
+    if ref is not None:
+        assert torch.equal(packed, kb.pack_results(ref[0], ref[1]))
+    active = tpb["active"]
+    assert torch.equal(packed[0], serial[0])
+    assert torch.equal(packed[1][active], serial[1][active])
+    return packed
+
+
+@pytest.mark.parametrize("design", kb.POD_SCAN_DESIGNS)
+@pytest.mark.parametrize("nom", [False, True])
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+def test_pod_scan_designs_match_plain(cuda, design, spread, topo, dir2,
+                                      soft, nom):
+    """Every K7 instance in both designs against its plain version on a
+    batch of 1,000 rows (63 a CTA of the cluster: not a multiple of its
+    threads, the last CTA short)."""
+    node_cfg, usage, pb = _state(51, N=1000, P=512)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, 51, topo, dir2, soft)
+    tnom = nom_from_numpy(_nom(node_cfg, usage, pb, 51), cuda) if nom \
+        else None
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    packed = _k7_hold(tc, tu, tpb, tnom, design)
+    assert (packed[0] >= 0).sum() > 200
+
+
+@pytest.mark.parametrize("design", kb.POD_SCAN_DESIGNS)
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("N", [37, 8192])
+def test_pod_scan_designs_at_row_edges(cuda, design, spread, N):
+    """Fewer rows than CTAs have warps (37: 3 rows a CTA, the last CTAs
+    without a row), and the main paths' 8,192 (512 rows a CTA)."""
+    node_cfg, usage, pb = _state(52, N=N, P=256)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    _k7_hold(tc, tu, tpb, None, design)
+
+
+@pytest.mark.parametrize("Z", [8, 32])
+@pytest.mark.parametrize("design", kb.POD_SCAN_DESIGNS)
+def test_pod_scan_spread_zone_ids_clamp_in_both_designs(cuda, design, Z):
+    """Random zone ids with zone 0, negative ids and ids past Z, and zinit
+    counts, up to the exchange's 32 zones; past them the host takes the
+    block design."""
+    node_cfg, usage, pb = _state(53, N=1024, P=512, Z=Z)
+    rng = np.random.default_rng(53)
+    pb["spread_zone"] = rng.integers(-3, Z + 4, 1024).astype(np.int32)
+    pb["spread_zinit"] = rng.integers(0, 30, Z).astype(np.float32)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    _k7_hold(tc, tu, tpb, None, design)
+    assert kb.pod_scan_design(1024, 8, 2, 33, (True, False, False,
+                                               False)) == "block"
+
+
+def _flat_classes(N, R, P):
+    """_flat_cluster as a class batch: one class a pod (its own static
+    score row), so the same batch runs the class route (K2, K15) and,
+    through _classic, the classic route (K7)."""
+    node_cfg, usage, cp = _flat_cluster(N, R, P)
+    pb = {"class_req": cp["req"], "class_nz": cp["nonzero_req"],
+          "class_blocked": np.zeros(P, bool),
+          "class_mask_idx": np.zeros(P, np.int32),
+          "class_score_idx": np.arange(P, dtype=np.int32),
+          "unique_masks": cp["unique_masks"],
+          "unique_scores": cp["unique_scores"],
+          "resource_weights": cp["resource_weights"],
+          "class_idx": np.arange(P, dtype=np.int32),
+          "seq": cp["seq"], "active": cp["active"]}
+    return node_cfg, usage, pb
+
+
+def _equal_score_batch(N, P, masked):
+    """Every feasible row ties exactly (a pod's static score at a row is
+    the tie hash's penalty there); the first `masked` rows are masked
+    off and a row takes one pod, so the pods fill rows masked, masked +
+    1, ... each to the lowest free row, across CTA boundaries."""
+    node_cfg, usage, pb = _flat_classes(N, 3, P)
+    node_cfg["max_pods"][:] = 1.0
+    for p in range(P):
+        pb["unique_scores"][p] = np.float32(1.0) + np.array(
+            [_tie_hash(r, p) for r in range(N)], np.float32) * 2.0 ** -17
+    pb["unique_masks"][0, :masked] = False
+    return node_cfg, usage, pb
+
+
+def _signed_zero_batch(N, a_row, b_row):
+    """+0.0 at row A and -0.0 at row B (resource weights -0.0, a static
+    score of -0.0 where the tie hash is 0, exactly the hash's penalty at
+    A): the two penalized scores tie and only those rows are feasible."""
+    node_cfg, usage, pb = _flat_classes(N, 3, 1)
+    seq0 = _tie_seq(b_row)
+    pb["seq"][0] = seq0
+    pb["unique_scores"][0, :] = -0.0
+    pb["unique_scores"][0, a_row] = np.float32(_tie_hash(a_row, seq0)
+                                               * 2.0 ** -17)
+    pb["unique_masks"][0, :] = False
+    pb["unique_masks"][0, [a_row, b_row]] = True
+    return node_cfg, usage, pb
+
+
+@pytest.mark.parametrize("design", kb.POD_SCAN_DESIGNS)
+def test_pod_scan_equal_scores_across_ctas_go_to_the_lowest_row(cuda,
+                                                                design):
+    """Exact ties over 1,024 rows (64 a CTA), 4 CTAs masked off: the pods
+    fill rows 256, 257, ... each to the lowest free row."""
+    node_cfg, usage, pb = _equal_score_batch(1024, 300, 256)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    packed = _k7_hold(tc, tu, tpb, None, design)
+    assert packed[0].tolist() == list(range(256, 556))
+
+
+@pytest.mark.parametrize("design", kb.POD_SCAN_DESIGNS)
+@pytest.mark.parametrize("rows", [(300, 700), (700, 300), (63, 64),
+                                  (64, 63)])
+def test_pod_scan_signed_zero_ties_go_to_the_lower_row(cuda, design, rows):
+    """+0.0 and -0.0 tie, in CTAs far apart and on either side of a CTA
+    edge (rows 63 and 64); the lower row wins."""
+    node_cfg, usage, pb = _signed_zero_batch(1024, *rows)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    packed = _k7_hold(tc, tu, tpb, None, design)
+    assert int(packed[0, 0]) == min(rows)
+
+
+def _counter_batch(N=1024, P=64, seed=60):
+    """Topology counters and soft credits on one term whose domains are
+    rows // 100 (each spans a CTA edge at 64 rows a CTA): every pod
+    matches the term and carries it as required anti-affinity, so a bind
+    closes its 100 rows to the later pods, and writes and reads credits
+    on it (positive read weights: later pods lean to the domains earlier
+    ones took, where the anti term lets them). Each pod reads the counts
+    the owner of the last winner's row wrote, in another CTA."""
+    node_cfg, usage, pb = _state(seed, N=N, P=P)
+    pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    rng = np.random.default_rng(seed)
+    dom = (np.arange(N) // 100).astype(np.int32)[None, :]
+    zero = np.zeros((P, 1), np.int32)
+    pb.update({"anti_dom": dom, "anti_cnt0": np.zeros((1, 16), np.float32),
+               "anti_tids": np.where(rng.random((P, 1)) < 0.7, 0, -1)
+               .astype(np.int32),
+               "aff_tids": np.full((P, 1), -1, np.int32),
+               "match_tids": zero,
+               "soft_dom": dom, "soft_cnt0": np.zeros((1, 16), np.float32),
+               "soft_base": rng.integers(-20, 21, (2, N)).astype(
+                   np.float32),
+               "soft_base_idx": rng.integers(0, 2, P).astype(np.int32),
+               "soft_read_tids": zero, "soft_read_w": np.full(
+                   (P, 1), 10.0, np.float32),
+               "soft_write_tids": zero, "soft_write_w": np.full(
+                   (P, 1), 10.0, np.float32),
+               "soft_weight": np.float32(2.0)})
+    return node_cfg, usage, pb
+
+
+def _nominee_batch(N=1024):
+    """Four pods, rows 5 (CTA 0) and 700 (CTA 10): pods 0 and 1 are
+    nominated to row 5, which their two reservations fill. Pod 0 may
+    take rows 5 or 700 and scores higher at 700: its own row (exempt
+    from its own reservation) lies in another CTA than its winner. Pod 1
+    may take only row 5 (it fits there by its exemption), pod 2, not
+    nominated, only row 5 (reserved: it fails), pod 3 only row 700."""
+    R, P = 2, 4
+    f32 = np.float32
+    node_cfg, usage, pb = _flat_classes(N, R, P)
+    pb["resource_weights"] = np.ones(2, f32)
+    req = pb["class_req"][0]
+    node_cfg["alloc"][5] = 2 * req
+    masks = np.zeros((3, N), bool)
+    masks[0, [5, 700]] = True
+    masks[1, 5] = True
+    masks[2, 700] = True
+    pb["unique_masks"] = masks
+    pb["class_mask_idx"] = np.array([0, 1, 1, 2], np.int32)
+    pb["unique_scores"][0, 700] = 5.0
+    pb["nom_row"] = np.array([5, 5, -1, -1], np.int32)
+    nom = {"used": np.zeros((N, R), f32), "count": np.zeros(N, f32)}
+    nom["used"][5] = 2 * req
+    nom["count"][5] = 2.0
+    return node_cfg, usage, pb, nom
+
+
+@pytest.mark.parametrize("design", kb.POD_SCAN_DESIGNS)
+def test_pod_scan_counters_cross_ctas(cuda, design):
+    """Topology counts and soft credits written for the winner's row by
+    its owner and read by every CTA on the next pod: equal to the plain
+    version, and no two placed pods in one domain."""
+    node_cfg, usage, pb = _counter_batch()
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    packed = _k7_hold(tc, tu, tpb, None, design)
+    rows = packed[0].cpu().numpy()
+    anti = pb["anti_tids"][:, 0] >= 0
+    placed = rows[(rows >= 0) & anti]
+    assert len(placed) > 3
+    assert len(set((placed // 100).tolist())) == len(placed)
+
+
+@pytest.mark.parametrize("design", kb.POD_SCAN_DESIGNS)
+def test_pod_scan_nominee_exempt_in_another_cta(cuda, design):
+    """The nominee's own row (CTA 0) is exempt from its own reservation
+    while its winner lies in CTA 10."""
+    node_cfg, usage, pb, nom = _nominee_batch()
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _classic(pb), cuda)
+    packed = _k7_hold(tc, tu, tpb, nom_from_numpy(nom, cuda), design)
+    assert packed[0].tolist() == [700, 5, -1, 700]
+
+
+@pytest.mark.parametrize("nom", [False, True])
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+@pytest.mark.parametrize("D,N", [(3, 1023), (8, 1000)])
+def test_shard_scan_designs_agree(cuda, D, N, spread, topo, dir2, soft,
+                                  nom):
+    """Every K15 instance in its shared and its global design on one
+    batch, bit for bit (packed, usage, table) and equal to K2: 3 shards
+    of 341 rows over 15 CTAs of 69 (the last 65), and 8 of 125 rows over
+    16 CTAs of 63 (the second of each shard 62)."""
+    args = _shard_case(cuda, 61, N, spread, topo, dir2, soft, nom)
+    packed = _k15_hold(D, *args, plain=False)
+    assert (packed[0] >= 0).sum() > 128
+
+
+@pytest.mark.parametrize("D,N", [(3, 1023), (8, 1024)])
+def test_shard_scan_designs_with_a_shard_of_pads(cuda, D, N):
+    """The last shard holds only pad rows: both designs equal the plain
+    sharded scan and K2, and no pod lands on a pad."""
+    args = _shard_case(cuda, 62, N, True, True, True, True, True,
+                       pad_from=N - N // D)
+    packed = _k15_hold(D, *args)
+    assert int(packed[0].max()) < N - N // D
+
+
+@pytest.mark.parametrize("Z", [8, 32])
+def test_shard_scan_spread_zone_ids_clamp_in_both_designs(cuda, Z):
+    """Clamped zone ids (zone 0, negative, past Z) and zinit counts."""
+    node_cfg, usage, pb = _state(63, N=1024, P=256, Z=Z)
+    rng = np.random.default_rng(63)
+    pb["spread_zone"] = rng.integers(-3, Z + 4, 1024).astype(np.int32)
+    pb["spread_zinit"] = rng.integers(0, 30, Z).astype(np.float32)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    _k15_hold(8, tc, tu, tpb, None)
+
+
+def test_shard_scan_equal_scores_across_ctas_go_to_the_lowest_row(cuda):
+    """Exact ties over 1,024 rows on 8 shards (64 rows a CTA), the first
+    four CTAs masked off: the pods fill rows 256, 257, ... in both
+    designs."""
+    node_cfg, usage, pb = _equal_score_batch(1024, 300, 256)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    packed = _k15_hold(8, tc, tu, tpb, None, plain=False)
+    assert packed[0].tolist() == list(range(256, 556))
+
+
+@pytest.mark.parametrize("rows", [(300, 700), (700, 300), (63, 64),
+                                  (127, 128)])
+def test_shard_scan_signed_zero_ties_go_to_the_lower_row(cuda, rows):
+    """+0.0 and -0.0 tie across shards, across the two CTAs of a shard
+    (63, 64) and across a shard edge (127, 128); the lower row wins in
+    both designs."""
+    node_cfg, usage, pb = _signed_zero_batch(1024, *rows)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    packed = _k15_hold(8, tc, tu, tpb, None)
+    assert int(packed[0, 0]) == min(rows)
+
+
+def test_shard_scan_counters_cross_ctas(cuda):
+    """Topology counts and soft credits written by the winning warp's
+    CTA and read by every CTA on the next pod, in both designs."""
+    node_cfg, usage, pb = _counter_batch()
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    packed = _k15_hold(8, tc, tu, tpb, None)
+    rows = packed[0].cpu().numpy()
+    anti = pb["anti_tids"][:, 0] >= 0
+    placed = rows[(rows >= 0) & anti]
+    assert len(placed) > 3
+    assert len(set((placed // 100).tolist())) == len(placed)
+
+
+def test_shard_scan_nominee_exempt_in_another_cta(cuda):
+    """The nominee's own row (shard 0) exempt while its winner lies in
+    shard 5, in both designs."""
+    node_cfg, usage, pb, nom = _nominee_batch()
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    packed = _k15_hold(8, tc, tu, tpb, nom_from_numpy(nom, cuda))
+    assert packed[0].tolist() == [700, 5, -1, 700]

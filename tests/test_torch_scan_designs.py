@@ -1,12 +1,16 @@
-"""The host's choice of K2 and K9 designs, on the CPU.
+"""The host's choice of K2, K7, K9 and K15 designs, on the CPU.
 
 K2 runs its "shared" design (csrc/class_scan_shared.cu), the [C, N]
 table and the class constants in shared memory, where they fit beside
 the step's scratch, and its "global" design (csrc/class_scan.cu)
-otherwise; K9 (csrc/gang_scan.cu) runs its "cluster" design, each of 16
-CTAs holding its rows' state in shared memory, where that fits, and its
-single-block "block" design otherwise. The choice is pure Python over
-the batch's sizes (kernels/batch.py class_scan_design, kernels/gang.py
+otherwise; K7 (csrc/pod_scan_cluster.cu) and K9 (csrc/gang_scan.cu) run
+their "cluster" designs, each of 16 CTAs holding its rows' state in
+shared memory, where that fits, and their single-block "block" designs
+otherwise; K15 runs its "shared" design (csrc/shard_scan_shared.cu), each
+CTA of a cluster of up to 16 holding its slice of the table, where the
+slice fits, and its "global" design (csrc/shard_scan.cu) otherwise. The
+choice is pure Python over the batch's sizes (kernels/batch.py
+class_scan_design, pod_scan_design, shard_scan_design, kernels/gang.py
 gang_design), mirrored by the C launchers, which refuse a batch their
 design does not take. These tests pin the choice at the main paths'
 sizes and at the edges, the per-design launch counts, and the ctypes
@@ -125,3 +129,144 @@ def test_gang_design_choice():
     assert not any(gk.DESIGN_LAUNCHES.values())
     assert _c_fields(CSRC / "gang_scan.cu", "KtpuGangScanParams") == \
         [f for f, _ in gk._GangParams._fields_]
+
+
+SPREAD = (True, False, False, False)
+TOPO = (False, True, True, False)
+SOFT = (False, False, False, True)
+NONE = (False, False, False, False)
+
+#: (N, R, G, Z, terms, nom, design) for K7
+K7_CASES = [
+    # the classic, classic-spread and classic-nominated batches
+    (8192, 8, 0, 0, NONE, False, "cluster"),
+    (8192, 8, 1, 17, SPREAD, False, "cluster"),
+    (8192, 8, 0, 0, NONE, True, "cluster"),
+    # classic-anti-affinity and classic-preferred: 64 rows a CTA
+    (1024, 8, 0, 0, TOPO, False, "cluster"),
+    (1024, 8, 0, 0, SOFT, False, "cluster"),
+    # zones: the exchange's lanes hold 32
+    (8192, 8, 1, 32, SPREAD, False, "cluster"),
+    (8192, 8, 1, 33, SPREAD, False, "block"),
+    (8192, 8, 1, 0, SPREAD, False, "block"),
+    # zones do not count without spread groups
+    (8192, 8, 0, 40, NONE, False, "cluster"),
+    # rows: 16 x 512 threads x 4 rows, and one more
+    (16 * 512 * 4, 8, 0, 0, NONE, False, "cluster"),
+    (16 * 512 * 4 + 1, 8, 0, 0, NONE, False, "block"),
+    (5, 8, 0, 0, NONE, False, "cluster"),
+    # shared memory at 512 rows a CTA: 47 columns fit, 48 do not; with
+    # the overlay's reservations 31 and 32
+    (8192, 47, 0, 0, NONE, False, "cluster"),
+    (8192, 48, 0, 0, NONE, False, "block"),
+    (8192, 31, 0, 0, NONE, True, "cluster"),
+    (8192, 32, 0, 0, NONE, True, "block"),
+    # held spread counts need not fit
+    (8192, 8, 64, 17, SPREAD, False, "cluster"),
+    # usage rows the resource score cannot read, or wider than the
+    # kernels' scratch
+    (8192, 1, 0, 0, NONE, False, "block"),
+    (1024, 65, 0, 0, NONE, False, "block"),
+]
+
+#: (C, N, R, D, G, Z, terms, design) for K15
+K15_CASES = [
+    # the sharded-uniform / -scheduler / -nominated batches at 8 shards,
+    # and the SHARD_WIDTHS sweep
+    (4, 8192, 8, 8, 0, 0, NONE, "shared"),
+    (4, 8192, 8, 4, 0, 0, NONE, "shared"),
+    (4, 8192, 8, 2, 0, 0, NONE, "shared"),
+    # sharded-spread
+    (4, 8192, 8, 8, 1, 17, SPREAD, "shared"),
+    # sharded-anti-affinity: 512 classes, 64 rows a CTA (155 KB: the
+    # design takes it, but its refresh of 16 passes costs more than it
+    # saves); 32 classes take one pass
+    (512, 1024, 8, 8, 0, 0, TOPO, "global"),
+    (32, 1024, 8, 8, 0, 0, TOPO, "shared"),
+    (33, 1024, 8, 8, 0, 0, TOPO, "global"),
+    # sharded-preferred
+    (4, 1024, 8, 8, 0, 0, SOFT, "shared"),
+    # sharded-pad: 3 shards of 2,731 rows over 15 CTAs
+    (4, 8193, 8, 3, 0, 0, NONE, "shared"),
+    # zones
+    (4, 8192, 8, 8, 1, 32, SPREAD, "shared"),
+    (4, 8192, 8, 8, 1, 33, SPREAD, "global"),
+    # rows: 2,048 a CTA (512 threads x 4), and one more
+    (4, 32768, 8, 8, 0, 0, NONE, "shared"),
+    (4, 32776, 8, 8, 0, 0, NONE, "global"),
+    # the service batch's ~1,000 classes over 8,192 rows
+    (1000, 8192, 8, 8, 0, 0, NONE, "global"),
+    # a slice of exactly 200 KB (51,200 words: 31 classes, 1,210 rows a
+    # CTA), and one of a word past it (SLICE_PAST)
+    (31, 19360, 8, 8, 0, 0, NONE, "shared"),
+    # shard counts the mesh does not take, or that do not divide N
+    (4, 8192, 8, 9, 0, 0, NONE, "global"),
+    (4, 8192, 8, 1, 0, 0, NONE, "global"),
+    (4, 8192, 8, 3, 0, 0, NONE, "global"),
+]
+
+
+def test_pod_scan_design_choice():
+    for N, R, G, Z, terms, nom, want in K7_CASES:
+        assert kb.pod_scan_design(N, R, G, Z, terms, nom) == want, \
+            (N, R, G, Z, terms, nom)
+    # the same edge from the byte count: the widest usage row that fits
+    # 512 rows a CTA takes the cluster design, one column more the block
+    rows = 8192 // kb.POD_CLUSTER
+    for nom in (False, True):
+        R_max = max(R for R in range(2, 65)
+                    if kb.pod_cluster_smem_bytes(rows, R, 0, nom)
+                    <= kb.POD_SMEM_LIMIT)
+        assert kb.pod_scan_design(8192, R_max, nom=nom) == "cluster"
+        assert kb.pod_scan_design(8192, R_max + 1, nom=nom) == "block"
+    # a launch count for every instance in each design, reset with the
+    # instance counts
+    for name in kb.LAUNCHES:
+        if name.startswith("pod_scan"):
+            for d in kb.POD_SCAN_DESIGNS:
+                assert f"{name}:{d}" in kb.DESIGN_LAUNCHES, (name, d)
+    kb.DESIGN_LAUNCHES["pod_scan_spread:cluster"] = 3
+    kb.reset_launches()
+    assert not any(kb.DESIGN_LAUNCHES.values())
+    # the ctypes block lists KtpuPodScanParams's fields in order
+    assert _c_fields(CSRC / "pod_scan.cuh", "KtpuPodScanParams") == \
+        [f for f, _ in kb._PodScanParams._fields_]
+
+
+#: (C, N, R, D): a slice one word past 200 KB (51,201 words: 20 classes
+#: of 5 columns, 1,822 rows a CTA), which the shared design refuses
+SLICE_PAST = (20, 29144, 5, 8)
+
+
+def test_shard_scan_design_choice():
+    for C, N, R, D, G, Z, terms, want in K15_CASES:
+        assert kb.shard_scan_design(C, N, R, D, G, Z, terms) == want, \
+            (C, N, R, D, G, Z, terms)
+    # the design takes 512 classes; the host gives it 32 at most
+    assert kb.shard_shared_fits(512, 1024, 8, 8, 0, 0, TOPO)
+    assert not kb.shard_shared_fits(*SLICE_PAST)
+    assert kb.shard_scan_design(*SLICE_PAST) == "global"
+    # the cluster: 16 CTAs at 2, 4 and 8 shards, 15 at 3
+    assert [kb.shard_ctas(D) * D for D in (2, 3, 4, 8)] == [16, 15, 16, 16]
+    # the 200 KB edge of the two slices above, from the byte count
+    assert kb.shard_smem_words(31, 1210, 8) * 4 == kb.SHARD_SMEM_LIMIT
+    C, N, R, D = SLICE_PAST
+    rows = -(-(N // D) // kb.shard_ctas(D))
+    assert kb.shard_smem_words(C, rows, R) * 4 == kb.SHARD_SMEM_LIMIT + 4
+    # held spread counts need not fit
+    assert kb.shard_scan_design(31, 19360, 8, 8, 4, 17, SPREAD) == "shared"
+    assert kb.shard_smem_words(31, 1210, 8, 4, True) * 4 > \
+        kb.SHARD_SMEM_LIMIT
+    for name in kb.LAUNCHES:
+        if name.startswith("shard_scan"):
+            for d in kb.SHARD_SCAN_DESIGNS:
+                assert f"{name}:{d}" in kb.DESIGN_LAUNCHES, (name, d)
+    kb.DESIGN_LAUNCHES["shard_scan_topo:shared"] = 2
+    kb.reset_launches()
+    assert not any(kb.DESIGN_LAUNCHES.values())
+    # the ctypes blocks list KtpuShardParams's and KtpuScanParams's
+    # fields in order
+    assert _c_fields(CSRC / "shard_scan.cuh", "KtpuShardParams") == \
+        [f for f, _ in kb._ShardParams._fields_]
+    assert _c_fields(CSRC / "class_step.cuh", "KtpuScanParams") == \
+        [f for f, _ in kb._ShardParams._fields_[0][1]._fields_]

@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
-"""Where the serial scans K2 and K9 spend their time, on one GPU.
+"""Where the serial scans K2, K7, K9 and K15 spend their time, on one GPU.
 
-    python3 tools/scan_probe.py [--gang-pods N]
+    python3 tools/scan_probe.py [--kernels k2,k7,k9,k15] [--gang-pods N]
 
 It builds the port's kernels, drains the first batch of the `uniform` and
 `spread` paths (16,384 pods onto 5,000 nodes, as chip_smoke.py drives
-them) and BASELINE.json config 5's gang drain (chip_smoke.py's `gang`
-path, --gang-pods pods, 50,000 by default), keeps each path's first
-(largest) batch, and on those batches runs every design of K2
-`class_scan` / `class_scan_spread` and K9 `gang_scan_cap`:
+them) and, with K9, BASELINE.json config 5's gang drain (chip_smoke.py's
+`gang` path, --gang-pods pods, 50,000 by default), keeps each path's
+first (largest) batch, and on those batches runs every design of
 
-- the profiling instance (csrc/prof.cuh: clock stamps of thread 0 at
+- K2 `class_scan` / `class_scan_spread` (the class batches);
+- K7 `pod_scan` / `pod_scan_spread` (the same batches with their class
+  tables dropped: chip_smoke.classic_batch);
+- K9 `gang_scan_cap` (the gang batch);
+- K15 `shard_scan` / `shard_scan_spread` (the class batches on
+  chip_smoke.MESH_SHARDS shards);
+
+each as
+
+- the profiling instance (csrc/prof.cuh: clock stamps of one thread at
   the phase boundaries of every 64th pod or entry), giving each phase's
   mean SM cycles and share of a step (chip_smoke.step_profile);
-- the plain instance, three launches on fresh copies, by CUDA events.
+- the plain instance, three launches on fresh copies, by CUDA events
+  (the mean of the last two: the first pays the library load).
 
-Every launch is held bit for bit against the first design's result. It
-prints the card's name and power limit and one JSON object. It needs a
-CUDA device.
+The old design is held bit for bit against the new one. It
+prints each library's registers and spills, the card's name and power
+limit and one JSON object. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,11 +38,39 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+#: library names of each kernel's designs, for the ptxas lines
+LIBS = {"k2": ("class_scan", "class_scan_shared"),
+        "k7": ("pod_scan", "pod_scan_cluster"),
+        "k9": ("gang_scan",),
+        "k15": ("shard_scan", "shard_scan_shared")}
+
+
+def probe(port, cs, make_of, designs, steps, kernel, label, card, out):
+    """Both designs of one scan on one batch (chip_smoke.design_times):
+    make_of(design, prof=None) prepares fresh inputs and returns a call that
+    launches it and returns (packed, carry); the old design is held bit
+    for bit against the new, each is timed and profiled."""
+    packed, carry = make_of(designs[0])()
+    ms_by, profile = cs.design_times(
+        port, make_of, designs[0], designs, packed,
+        port.kb._usage_out(carry), f"{kernel} on the {label} batch", steps,
+        kernel, True)
+    for design in designs:
+        out[f"{kernel}:{label}:{design}"] = {"ms": ms_by[design],
+                                             "profile": profile[design]}
+        print(f"{kernel} {label} batch, {design}: {ms_by[design]} ms; per "
+              f"step {profile[design]} {card}")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", default="k2,k7,k9,k15",
+                    help="comma-separated subset of k2, k7, k9, k15")
     ap.add_argument("--gang-pods", type=int, default=50_000)
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    if not kernels or set(kernels) - set(LIBS):
+        sys.exit(f"scan_probe: --kernels takes {', '.join(LIBS)}")
     import torch
     if not torch.cuda.is_available():
         sys.exit("scan_probe: no CUDA device")
@@ -43,9 +80,10 @@ def main() -> None:
     card = cs.card_line()
     print(card)
     built = build.build_all(verbose=True)
-    for lib in ("class_scan", "gang_scan"):
-        for fn, d in cs.ptxas_info(built[lib]["log"]).items():
-            print(f"ptxas {lib}: {fn}: {d}")
+    for k in kernels:
+        for lib in LIBS[k]:
+            for fn, d in cs.ptxas_info(built[lib]["log"]).items():
+                print(f"ptxas {lib}: {fn}: {d}")
     port = cs.Port()
     kb, gk = port.kb, port.gk
     dev = torch.device("cuda")
@@ -55,62 +93,62 @@ def main() -> None:
             rec.variant = variant
             cs.run_drain(port, variant, dev, cs.N_NODES, cs.BATCH,
                          cs.BATCH, False)
-        rec.variant = "gang"
-        cs.run_gang_drain(port, dev, cs.GANG_NODES, args.gang_pods,
-                          cs.GANG_SLICE_GANGS * args.gang_pods
-                          // cs.GANG_PODS,
-                          cs.GANG_PLAIN_GANGS * args.gang_pods
-                          // cs.GANG_PODS, cs.BATCH)
+        if "k9" in kernels:
+            rec.variant = "gang"
+            cs.run_gang_drain(port, dev, cs.GANG_NODES, args.gang_pods,
+                              cs.GANG_SLICE_GANGS * args.gang_pods
+                              // cs.GANG_PODS,
+                              cs.GANG_PLAIN_GANGS * args.gang_pods
+                              // cs.GANG_PODS, cs.BATCH)
     out = {}
     for path in ("uniform", "spread"):
         node_cfg, usage, pb, nom = rec.scan_inputs[path]
         cls = {k: pb[k] for k in kb._CLASS_KEYS}
         rw = pb["resource_weights"]
         P = pb["class_idx"].shape[0]
-        ref = None
-        for design in kb.CLASS_SCAN_DESIGNS:
-            def make(prof=None, design=design):
-                # fresh table and carry; only the launch is timed
-                _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage,
-                                                         pb, nom)
-                return lambda: (kb._class_scan_cuda(
-                    node_cfg, pb, cls, rw, ms0, carry, terms, nom,
-                    prof=prof, design=design), carry)
-            packed, carry = make()()
-            if ref is None:
-                ref = (packed, carry)
-            elif not torch.equal(packed, ref[0]) or not all(
-                    cs.bits_equal(torch, carry[k], ref[1][k]) for k in carry):
-                sys.exit(f"scan_probe: K2 {design} differs on {path}")
-            runs = [cs.time_cuda(torch, make(), reps=1, warm=0)
-                    for _ in range(3)]
-            prof = cs.step_profile(torch, make, P, f"class_scan:{design}")
-            out[f"{path}:{design}"] = {"ms": runs, "profile": prof}
-            print(f"K2 {path} batch, {design}: {runs} ms; per step "
-                  f"{prof} {card}")
-    node_cfg, usage, pb, gt, nom, mates = rec.gang_inputs[("gang",
-                                                          "gang_scan_cap")]
-    T = gt["pod_idx"].shape[0]
-    ref = None
-    for design in gk.GANG_SCAN_DESIGNS:
-        def make(prof=None, design=design):
+        cpb = cs.classic_batch(kb, pb)
+        D = cs.MESH_SHARDS
+
+        def k2(design, prof=None):
+            # fresh table and carry; only the launch is timed
+            _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb,
+                                                     nom)
+            return lambda: (kb._class_scan_cuda(
+                node_cfg, pb, cls, rw, ms0, carry, terms, nom, prof=prof,
+                design=design), carry)
+
+        def k7(design, prof=None):
+            carry, terms = kb._carry_setup(usage, cpb)
+            return lambda: (kb._pod_scan_cuda(
+                node_cfg, cpb, carry, terms, nom, prof=prof,
+                design=design), carry)
+
+        def k15(design, prof=None):
+            _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb,
+                                                     nom)
+            return lambda: (kb._shard_scan_cuda(
+                D, node_cfg, pb, cls, rw, ms0, carry, terms, nom,
+                prof=prof, design=design), carry)
+        for k, make_of, designs, kernel in (
+                ("k2", k2, kb.CLASS_SCAN_DESIGNS, "class_scan"),
+                ("k7", k7, kb.POD_SCAN_DESIGNS, "pod_scan"),
+                ("k15", k15, kb.SHARD_SCAN_DESIGNS, "shard_scan")):
+            if k in kernels:
+                probe(port, cs, make_of, designs, P, kernel, path, card,
+                      out)
+    if "k9" in kernels:
+        node_cfg, usage, pb, gt, nom, mates = rec.gang_inputs[
+            ("gang", "gang_scan_cap")]
+
+        def k9(design, prof=None):
             carry, _ = kb._carry_setup(usage, pb)
             return lambda: (gk._gang_scan_cuda(
                 node_cfg, pb, gt, carry, nom, mates, prof=prof,
                 design=design), carry)
-        packed, carry = make()()
-        if ref is None:
-            ref = (packed, carry)
-        elif not torch.equal(packed, ref[0]) or not all(
-                cs.bits_equal(torch, carry[k], ref[1][k]) for k in carry):
-            sys.exit(f"scan_probe: K9 {design} differs on the gang batch")
-        runs = [cs.time_cuda(torch, make(), reps=1, warm=0)
-                for _ in range(3)]
-        prof = cs.step_profile(torch, make, T, f"gang_scan:{design}")
-        out[f"gang:{design}"] = {"ms": runs, "profile": prof,
-                                 "entries": int((gt["pod_idx"] >= 0).sum())}
-        print(f"K9 gang batch ({T} entries), {design}: {runs} ms; per step "
-              f"{prof} {card}")
+        T = gt["pod_idx"].shape[0]
+        probe(port, cs, k9, gk.GANG_SCAN_DESIGNS, T, "gang_scan", "gang",
+              card, out)
+        out["gang_scan:gang:entries"] = int((gt["pod_idx"] >= 0).sum())
     print(card)
     print(json.dumps(out))
 
