@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels from kubernetes_tpu_torch/csrc (nvcc,
 one process per source, all started together: K1-K15), fails if ptxas
 reports a spill in any instance of a library of SPILL_GATED (every
-design of the scans K2, K7, K9 and K15 among them), then:
+design of the scans K2, K7, K9, K12 and K15, and K6's two instances,
+among them), then:
 
   1. main paths, each with the kernel launch counts zeroed just before
      and read just after it; every kernel of the path must have launched:
@@ -138,15 +139,16 @@ design of the scans K2, K7, K9 and K15 among them), then:
        loops'; `sharded-pad`, 10,000 uniform pods on 3 shards (capacity 8,192
        padded to 8,193: one shard-pad row), whose binds must equal its
        KTPU_SHARD_MAP=0 control's (K2 over the padded mirror).
-     K2, K7, K9 and K15 each have two designs (kernels/batch.py
-     class_scan_design, pod_scan_design, shard_scan_design,
-     kernels/gang.py gang_design) and count launches per
-     "instance:design" beside their instance counts; the `uniform`,
-     `spread` and `scheduler` paths must run K2 in its shared-table
-     design alone, `gang` and `gang-preemption` K9 in its cluster design
-     alone, every `classic` path K7 in its cluster design alone and every
-     `sharded` path K15 in its shared design alone (PATH_DESIGNS), and
-     the script prints each path's designs.
+     K2, K7, K9, K12 and K15 each have two designs (kernels/batch.py
+     class_scan_design, pod_scan_design, spec_scan_design,
+     shard_scan_design, kernels/gang.py gang_design) and count launches
+     per "instance:design" beside their instance counts; each path must
+     run the design PATH_DESIGNS names for it and no other (K2's shared
+     table on `uniform`, `spread` and `scheduler`, K9's cluster on the
+     gang paths, K7's cluster on every `classic` path, K15's shared on
+     the `sharded` paths but anti-affinity, K12's as the host picks it on
+     the `speculative` paths), and the script prints each path's
+     designs.
      Every pod must bind (in the store, for the scheduler loops), no
      node's usage recomputed from the binds (the ghost reservations
      counted on `nominated`) may exceed its allocatable, on
@@ -205,14 +207,19 @@ design of the scans K2, K7, K9 and K15 among them), then:
      bits and usage finals must equal K2's (a padding pod's score is its
      frozen pick's, as in the JAX speculative kernel), and on a prefix of
      the batch (2,048 pods of the uniform and anti-affinity batches, 256
-     of the others) everything, the cohort stats included, its plain
-     version's; it is timed beside K2 on the same batch, with its
+     of the others) everything, the cohort stats included, its
+     plain version's; it is timed beside K2 on the same batch in the design the
+     host picks and, where the batch fits its cluster design, in both
+     (the other held bit for bit, stats included; both profiled on the
+     uniform and spread batches, every 8th cohort), with its
      accepted-cohort and repaired-pod shares, and on the uniform batch at
-     cohort widths 8, 16 and 32. Each K15 instance replays the batch of
-     its K2 instance's path on 8 shards: assign, active pods' score bits
-     and usage finals equal to K2's, and on a prefix (2,048 pods; 256 of
-     the spread and preferred batches) everything equal to the plain
-     sharded scan on the card; timed beside K2 in its shared and its
+     cohort widths 8, 16 and 32. K6 is timed on the storm's last
+     decision, by CUDA events and by device time. Each K15 instance
+     replays the batch of its K2 instance's path on 8 shards: assign,
+     active pods' score bits and usage finals equal to K2's, and on a
+     prefix (2,048 pods; 256 of the spread and preferred batches)
+     everything equal to the plain sharded scan on the card; timed
+     beside K2 in its shared and its
      global design (the other design held bit for bit against the host's
      on the whole batch; both profiled on the uniform and spread
      batches), and on the uniform batch at 2, 4 and 8 shards. K13 runs the largest required_masks
@@ -333,7 +340,7 @@ SPEC_ROWS = (("spec_scan", "uniform"), ("spec_scan_spread", "spread"),
              ("spec_scan_topo", "anti-affinity"),
              ("spec_scan_soft", "preferred"), ("spec_scan_nom", "nominated"))
 #: pods of the prefix on which K12 is held against its plain version (the
-#: plain version takes about 1.6 ms a pod on the card): 2,048 of the
+#: plain version takes 1.1-3.6 ms a pod on the card): 2,048 of the
 #: uniform batch (mostly clean cohorts) and of the anti-affinity batch
 #: (every cohort repaired), SPEC_PLAIN_OTHER of the others
 SPEC_PLAIN_PODS = {"uniform": 2048, "anti-affinity": 2048}
@@ -459,11 +466,13 @@ F32_OPS_PER_S = 67e12
 SPILL_GATED = ("drf_order", "affinity_scores", "affinity_masks",
                "apply_dirty", "class_scan", "class_scan_shared",
                "gang_scan", "pod_scan", "pod_scan_cluster", "shard_scan",
-               "shard_scan_shared")
-#: the design each redesigned scan must run on a main path, as
+               "shard_scan_shared", "spec_scan", "spec_scan_cluster",
+               "price_nodes")
+#: the design each redesigned kernel must run on a main path, as
 #: "instance:design" (kernels/batch.py class_scan_design,
-#: pod_scan_design, shard_scan_design, kernels/gang.py gang_design): the
-#: other design of that instance must not launch there
+#: pod_scan_design, spec_scan_design, shard_scan_design, kernels/gang.py
+#: gang_design): the other design of
+#: that instance must not launch there
 PATH_DESIGNS = {"uniform": ("class_scan:shared",),
                 "spread": ("class_scan_spread:shared",),
                 "scheduler": ("class_scan:shared",),
@@ -480,7 +489,12 @@ PATH_DESIGNS = {"uniform": ("class_scan:shared",),
                 "sharded-pad": ("shard_scan:shared",),
                 "sharded-anti-affinity": ("shard_scan_topo:global",),
                 "sharded-preferred": ("shard_scan_soft:shared",),
-                "sharded-nominated": ("shard_scan_nom:shared",)}
+                "sharded-nominated": ("shard_scan_nom:shared",),
+                "speculative": ("spec_scan:cluster",),
+                "speculative-anti-affinity": ("spec_scan_topo:block",),
+                "speculative-preferred": ("spec_scan_soft:cluster",),
+                "speculative-nominated": ("spec_scan_nom:cluster",),
+                "speculative-spread": ("spec_scan_spread:cluster",)}
 #: library name -> ptxas_info of its build (filled by main)
 PTXAS = {}
 
@@ -590,8 +604,8 @@ class Port:
         return pod
 
     def launches(self):
-        """Launch counts by kernel instance, and K2's, K7's, K9's and
-        K15's by "instance:design" beside them."""
+        """Launch counts by kernel instance, and K2's, K7's, K9's, K12's
+        and K15's by "instance:design" beside them."""
         return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES,
                 **self.gk.LAUNCHES, **self.sk.LAUNCHES, **self.ak.LAUNCHES,
                 **self.kb.DESIGN_LAUNCHES, **self.gk.DESIGN_LAUNCHES}
@@ -1691,7 +1705,7 @@ def scan_row(port, rec, launches, name, path, line):
 
 
 def design_times(port, make, host, designs, packed_k, use_k, label, steps,
-                 kernel, profiled, new_fits=False):
+                 kernel, profiled, new_fits=False, every=None):
     """The designs of a redesigned scan that one batch can take: make(
     design, prof=None) prepares fresh inputs and returns a call that
     launches the design and returns (packed, carry). `designs` is (the
@@ -1725,7 +1739,7 @@ def design_times(port, make, host, designs, packed_k, use_k, label, steps,
         if profiled:
             profile[design] = step_profile(
                 torch, lambda prof, d=design: make(d, prof), steps,
-                f"{kernel}:{design}")
+                f"{kernel}:{design}", every or PROF_EVERY)
     return ms_by, profile
 
 
@@ -1871,18 +1885,43 @@ def spec_row(port, rec, launches, name, path, k2_ms):
     prefix_acc, prefix_rep = spec_stats(st_pk, W, n)
     cls = {k: pb[k] for k in kb._CLASS_KEYS}
     rw = pb["resource_weights"]
+    carry0, terms0 = kb._carry_setup(usage, pb)
+    host = kb.spec_design_of(node_cfg, pb, cls, carry0, terms0, nom, W)
+    N, R = node_cfg["alloc"].shape
+    C = cls["class_req"].shape[0]
+    G = carry0["spread"].shape[0] if spread else 0
+    Z = pb["spread_zinit"].shape[0] if spread else 0
 
-    def spec_only(batch, width):
+    def spec_only(design, prof=None, batch=pb, width=W):
         # a fresh table and carry for each run; only K12 is timed
         _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, batch, nom)
-        return lambda: sk._spec_scan_cuda(node_cfg, batch, cls, rw, ms0,
-                                          carry, terms, nom, width)
+        return lambda: (sk._spec_scan_cuda(
+            node_cfg, batch, cls, rw, ms0, carry, terms, nom, width,
+            prof=prof, design=design)[0], carry)
 
     def timed(batch, width):
-        runs = [time_cuda(torch, spec_only(batch, width), reps=1, warm=0)
-                for _ in range(3)]
+        runs = [time_cuda(torch, spec_only(host, None, batch, width),
+                          reps=1, warm=0) for _ in range(3)]
         return sum(runs[1:]) / 2   # the first run pays the library load
-    ms = timed(pb, W)
+    # both designs where the batch fits the cluster's (the block design
+    # takes any), held bit for bit against each other, stats included
+    ms_by, profile = design_times(
+        port, spec_only, host, kb.SPEC_SCAN_DESIGNS, packed, use,
+        f"K12 {name} on {label}", P // W, "spec_scan",
+        name in ("spec_scan", "spec_scan_spread"),
+        new_fits=kb.spec_cluster_fits(C, N, R, G, Z, terms0, W),
+        every=SPEC_PROF_EVERY)
+    for design in ms_by:
+        _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, pb, nom)
+        _, st_d = sk._spec_scan_cuda(node_cfg, pb, cls, rw, ms0, carry,
+                                     terms, nom, W, design=design)
+        torch.cuda.synchronize()
+        if not torch.equal(st_d, st):
+            fail(f"K12 {name}: its {design} design's stats differ from "
+                 f"its {host} design's on {label}")
+    print(f"K12 {name} on {label}: design {host}, ms by design {ms_by}, "
+          f"accepted-cohort share {acc}, repaired-pod share {rep}")
+    ms = ms_by[host]
     prefix_ms = timed(pp, W)
     widths = {}
     if path == "uniform":
@@ -1898,31 +1937,38 @@ def spec_row(port, rec, launches, name, path, k2_ms):
                               "accepted_cohort_share": wa,
                               "repaired_pod_share": wr, "equals_k2": True}
     c = scan_costs(kb, node_cfg, usage, pb, nom, packed, use)
-    N, R, C = c["N"], c["R"], c["C"]
     cohorts = P // W
     repaired = rep * P
-    # every pod's election (as K2's per (pod, node) base work), each
-    # cohort's W winner rows and W x C columns and W^2 checks; a repaired
-    # pod's serial step as K2 counts it (its share of the term ops)
-    ops = int(P * N * 5 + cohorts * W * (C * (2 * R + 28) + R + 3)
-              + cohorts * W * W * 4
+    # the data's work: each cohort elects its members before the fence
+    # (f), each over N rows, with their post-write rows and f^2 checks; a
+    # clean cohort's W x C columns; a repaired pod's serial step as K2
+    # counts it (its share of the term ops)
+    fenced = (~pb["spec_plain"] & pb["active"]).view(cohorts, W)
+    idx = torch.arange(W, device=fenced.device).expand(cohorts, W)
+    f = torch.where(fenced, idx, W).amin(dim=1)
+    elected = int(f.sum())
+    clean = int(st[:, 0].sum())
+    ops = int(elected * (N * 5 + R + 3) + int((f * f).sum()) * 4
+              + clean * W * C * (2 * R + 28)
               + repaired * (N * c["per_node"] + c["per_pod"])
               + c["term_ops"] * repaired / P)
     bytes_ = c["bytes"] + nbytes(pb["spec_plain"], st)
     b = bound(bytes_, ops)
+    source = ("kubernetes_tpu_torch/csrc/spec_scan_cluster.cu + "
+              "shard_step.cuh + cluster_xchg.cuh" if host == "cluster" else
+              "kubernetes_tpu_torch/csrc/spec_scan.cu + class_step.cuh")
     return {"name": name, "route": "cuda",
-            "source": "kubernetes_tpu_torch/csrc/spec_scan.cu"
-                      " + class_step.cuh"
-                      + (" + affinity.cuh" if topo or soft else ""),
+            "source": source + (" + affinity.cuh" if topo or soft else ""),
             "replaces": "kubernetes_tpu/scheduler/kernels/"
                         "speculative.py:229",
             "launches": launches[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1],
             "library_ms": None, "match": True,
+            "design": host, "ms_by_design": ms_by, "profile": profile,
             "k2_ms": k2_ms, "k2_over_k12": k2_ms / ms,
             "cohort_width": W, "accepted_cohort_share": acc,
-            "repaired_pod_share": rep,
+            "repaired_pod_share": rep, "elected_members": elected,
             "equals_k2": "assign, active score bits, usage finals",
             "pad_score_bits_differ_from_k2": pads,
             "plain_prefix_pods": n, "prefix_ms": prefix_ms,
@@ -2410,6 +2456,13 @@ def order_timings(torch, tk, prio, shares, tidx, pos):
 #: as (phase, from slot, to slot); a phase a step skips (the zone sums of
 #: a batch without spread groups) spans two equal stamps
 PROF_PHASES = {
+    "spec_scan:block": (("fence", 0, 1), ("election", 1, 2),
+                        ("post-write rows + check columns", 2, 3),
+                        ("checks", 3, 4), ("apply or repair", 4, 5)),
+    "spec_scan:cluster": (("scalars + fence", 0, 1),
+                          ("election + exchange", 1, 2),
+                          ("owners' checks + exchange", 2, 3),
+                          ("apply or repair", 3, 4)),
     "class_scan:global": (("pod scalars", 0, 1), ("zone init", 1, 2),
                           ("zone sums", 2, 3), ("table read + argmax", 3, 4),
                           ("argmax fold", 4, 5), ("winner update", 5, 6),
@@ -2457,6 +2510,8 @@ PROF_PHASES = {
 }
 #: sampled steps of a profiling launch: every PROF_EVERY-th pod or entry
 PROF_EVERY = 64
+#: K12's: every SPEC_PROF_EVERY-th cohort
+SPEC_PROF_EVERY = 8
 
 
 def step_profile(torch, make, steps, design, every=PROF_EVERY):
@@ -2562,8 +2617,10 @@ def decisions_equal(torch, got, ref):
 
 
 def price_row(port, rec, launches):
-    """K6 on the storm's last decision's inputs: timed beside the plain
-    version and the one-expression yardstick."""
+    """K6 on the storm's last decision's inputs: held against the plain
+    version and timed by CUDA events (the enqueue included) and by the
+    profiler's device time, beside the plain version and the
+    one-expression yardstick."""
     torch, pk = port.torch, port.pk
     if not rec.storm_price:
         fail("the storm never reached price_nodes (K6)")
@@ -2573,25 +2630,29 @@ def price_row(port, rec, launches):
     torch.cuda.synchronize()
     if not decisions_equal(torch, got, ref):
         fail("K6 price_nodes disagrees with its plain version")
+    N, V, R = args[4].shape
     ms = time_cuda(torch, lambda: pk.price_nodes(*args), reps=200, warm=5)
+    dev_ms = device_ms(torch, lambda: pk.price_nodes(*args), reps=50)
+    # what the storm's caller sees: the call and the winner read back
+    read_ms = time_cuda(torch, lambda: pk.price_nodes(*args)[0].item(),
+                        reps=200, warm=5)
     plain_ms, _ = time_host(torch, lambda: pk.price_nodes_plain(*args))
     lib_ms = time_cuda(torch, lambda: price_vectorized(torch, args),
                        reps=50, warm=3)
-    dev_ms = device_ms(torch, lambda: pk.price_nodes(*args), reps=50)
     lib_dev_ms = device_ms(torch, lambda: price_vectorized(torch, args),
                            reps=20)
-    N, V, R = args[4].shape
     any_elig = price_vectorized(torch, args)[4]
     # pass 1 walks each row's units until the first fitting one (all V
     # where none fits), each unit R + 1 adds, R + 1 adds of the free
     # space and R + 1 compares; then one pass over V for the costs and
-    # five narrowing passes over the rows
+    # one fold over the rows
     walked = int(torch.where(any_elig, got[2], V).sum())
     ops = walked * 3 * (R + 1) + N * V * 6 + 6 * N
     bytes_ = nbytes(*args, *got)
     b = bound(bytes_, ops)
     return {"name": "price_nodes", "route": "cuda",
-            "source": "kubernetes_tpu_torch/csrc/price_nodes.cu",
+            "source": "kubernetes_tpu_torch/csrc/price_nodes.cu + "
+                      "price.cuh + cluster_xchg.cuh",
             "replaces": "kubernetes_tpu/scheduler/kernels/preempt.py:359",
             "launches": launches["price_nodes"], "max_abs_err": 0.0,
             "ms": ms, "plain_ms": plain_ms,
@@ -2600,7 +2661,8 @@ def price_row(port, rec, launches):
             "library_call": "the plain expression with torch.cumsum and "
                             "whole-tensor reductions (no one library call "
                             "prices victims)",
-            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+            "device_ms": dev_ms, "read_ms": read_ms,
+            "library_device_ms": lib_dev_ms,
             "bytes": bytes_, "ops": ops,
             "shape": f"N={N} V={V} R={R} ({int(args[12].sum())} candidate "
                      "rows, storm's last decision)"}
@@ -3979,6 +4041,9 @@ def main() -> None:
         if "device_ms" in r and r["name"] != "drf_order":
             print(f"    {r['name']} device {r['device_ms']} ms (library "
                   f"{r.get('library_device_ms')} ms) {tag}")
+        if "read_ms" in r:
+            print(f"    {r['name']} call and the winner read back "
+                  f"{r['read_ms']} ms by events {tag}")
         if r["name"] == "apply_dirty":
             print(f"    K3 scatter from the host arrays through the mirror "
                   f"({r['scatter_rows']} rows): {r['scatter_ms']} ms; one "

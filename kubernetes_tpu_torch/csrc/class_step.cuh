@@ -180,6 +180,14 @@ static int ktpu_scan_terms(const KtpuScanParams* h) {
          (h->has_soft ? 1 : 0);
 }
 
+// a profiling launch of K12 or K15 takes the uniform or the spread
+// batch's instance (terms 0 or 4, no overlay) with a stride of at least
+// one
+static bool ktpu_scan_prof_ok(const KtpuScanParams* h) {
+  const int terms = ktpu_scan_terms(h);
+  return !h->has_nom && (terms == 0 || terms == 4) && h->prof_every >= 1;
+}
+
 // the step's loop invariants, read once per launch
 struct KtpuStepConst {
   float rw0, rw1;           // resource weights

@@ -1,7 +1,8 @@
 // Shared device helpers of the victim-pricing kernels: the blocked prefix
 // sum and the chunked sum over the unit axis in the reference's order,
 // the block-wide minimisations, and the lexicographic narrowing to a
-// winner row. Included by price_nodes.cu (K6) and price_domains.cu (K11).
+// winner row. Included by price_nodes.cu (K6, which narrows its rows in
+// one fold of its own) and price_domains.cu (K11, the narrowing below).
 //
 // Replaces the reductions of kubernetes_tpu/scheduler/kernels/preempt.py
 // _prefix_costs (:347) and _lexi_winner (:331), and the jnp.cumsum of

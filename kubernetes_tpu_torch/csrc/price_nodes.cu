@@ -8,46 +8,66 @@
 // the chosen units, and prices the prefix (PDB violations, top victim
 // priority, priority sum, victims charged, latest start among the
 // top-priority victims). The winner is pickOneNodeForPreemption's
-// narrowing: five block-wide minimisations (nviol, topv, psumv, cntv,
-// -startv), each over the rows still tied, then the lowest remaining row.
+// narrowing: the rows at the least nviol, among them the least topv,
+// psumv, cntv, -startv in turn, then the lowest row.
 //
-// One block of 1024 threads, in one of two instances the host picks:
+// The narrowing is ONE lexicographic fold of (nviol, topv, psumv, cntv,
+// -startv, row) over the feasible rows, inside a warp, then across the
+// CTA (and the cluster): the minimum of that order is the row the five
+// narrowing passes keep. psumv compares as floats (+0.0 and -0.0 tie and
+// go on to cntv). The hazard is NaN: the reference's masked min returns
+// NaN when a row still tied on (nviol, topv) has a NaN psumv, no row then
+// equals it, and the winner is -1. So each candidate carries a flag, "a
+// row with the same (nviol, topv) had a NaN psumv"; two candidates tied
+// on that pair OR their flags, and a final candidate with the flag set
+// gives -1. Among the rows of the least pair the order is total when none
+// is NaN, so the fold's order does not change its result.
+//
+// Two instances, picked by the table's sizes:
 //   - narrow (V <= 1,024 units, R <= 16 resources, every path the repo
-//     drives today): each thread owns rows tid, tid + 1024, ... and keeps
-//     the R + 1 running sums in registers, three prefix levels and two
-//     sum levels (price.cuh);
-//   - wide (up to KTPU_PRICE_MAX_V = 2^24 units and KTPU_PRICE_MAX_R = 64
-//     resources; bench.py's 1,200-pod make_wide_node buckets to 2,048
-//     units): each warp owns rows warp, warp + 32, ...; lane l keeps the
-//     running sums of lanes l, l + 32 and l + 64 of the R + 1 at K11's
-//     depth (six prefix levels, five sum levels), and the warp votes on
-//     the fit of each unit. Lane 0 then prices the row as a narrow thread
-//     does.
+//     drives today): one cluster of 16 CTAs, CTA q the rows [q * Nc, (q +
+//     1) * Nc), Nc = ceil(N / 16), one row a thread at N = 8,192 (up to
+//     512 threads); each thread keeps the R + 1 running sums in
+//     registers, three prefix levels and two sum levels (price.cuh), then
+//     the fold: a warp's by shuffles, the CTA's in warp 0, and one
+//     st.async exchange of the CTAs' candidates (cluster_xchg.cuh) that
+//     every CTA folds; CTA 0 writes the winner. A split cluster barrier
+//     (arrive before the rows, wait after) makes the exchange's mbarrier
+//     visible while the rows are priced.
+//   - wide (up to KTPU_PRICE_MAX_V = 2^24 units and KTPU_PRICE_MAX_R =
+//     64 resources; bench.py's 1,200-pod make_wide_node buckets to 2,048
+//     units): one block of 1024 threads; each warp owns rows warp, warp +
+//     32, ...; lane l keeps the running sums of lanes l, l + 32 and l +
+//     64 of the R + 1 at K11's depth (six prefix levels, five sum
+//     levels), the warp votes on the fit of each unit, and lane 0 prices
+//     the row. Then the same fold over the block's warps.
 // Each running sum adds in the reference's order (__fadd_rn, built with
 // -fmad=false), as the plain version does (kernels/preempt.py
 // PREFIX_BLOCK, SUM_CHUNK): the prefix sums of the freed resources and pod
 // slots through price.cuh's KtpuBlockedPrefix, the priority sum through
-// KtpuChunkedSum. The per-row costs go to a scratch buffer; each narrowing
-// pass of price.cuh's ktpu_lexi_winner re-reads them and ends in one block
-// reduction.
+// KtpuChunkedSum.
 //
-// Bound: launch latency and the six block barriers at the storm's sizes
-// (N = 8,192 rows, V = 4 units, R = 2); the bytes (the [N, V, R] table
-// read once) take under a microsecond at the card's memory rate. A wide
-// row of V units is one warp's sequential walk, then lane 0's.
+// Bound: launch latency at the storm's sizes (N = 8,192 rows, V = 4
+// units, R = 2); the bytes (the [N, V, R] table read once) take under a
+// microsecond at the card's memory rate. A wide row of V units is one
+// warp's sequential walk, then lane 0's.
 #include "price.cuh"
+#include "cluster_xchg.cuh"
 
 #define KTPU_PRICE_THREADS 1024
+// the narrow instance's cluster: CTAs and threads a CTA at most
+#define KTPU_PRICE_CLUSTER 16
+#define KTPU_PRICE_CTHREADS 512
 // kubernetes_tpu_torch/scheduler/kernels/preempt.py MAX_R and MAX_U
 #define KTPU_PRICE_MAX_R 64
 #define KTPU_PRICE_MAX_V (1 << 24)
-// the narrow instance: resources and units it covers, its prefix lanes
+// the narrow rows: resources and units they cover, their prefix lanes
 // (R resources, then the pod slots) and levels (16^3 >= 1,024 units; two
 // sum levels: 32^2)
 #define KTPU_PRICE_NARROW_R 16
 #define KTPU_PRICE_NARROW_V 1024
 #define KTPU_PRICE_LANES (KTPU_PRICE_NARROW_R + 1)
-// the wide instance: lanes a thread keeps (32 * 3 >= 64 + 1) and K11's
+// the wide rows: lanes a thread keeps (32 * 3 >= 64 + 1) and K11's
 // levels (price_domains.cu: 16^6 = 2^24 units, 32^5 >= 2^24)
 #define KTPU_PRICE_WIDE_LANES 3
 #define KTPU_PRICE_WIDE_PREFIX_LEVELS 6
@@ -71,17 +91,87 @@ struct KtpuPriceArgs {
   bool* chosen;           // [N, V]
   int* k;                 // [N]
   int* nviol;             // [N]
-  int* iscratch;          // [4, N]: topv, cntv, -startv, narrowing mask
-  float* fscratch;        // [N]: psumv
   int N, V, R;
 };
 
+// a feasible row's place in pickOneNodeForPreemption's order, or none
+// (row INT_MAX); nan: a row of the same (nviol, topv) had a NaN psumv
+struct KtpuLexi {
+  int nviol, topv;
+  float psum;
+  int cnt, nstart, row, nan;
+};
+
+__device__ __forceinline__ KtpuLexi ktpu_lexi_none() {
+  return KtpuLexi{INT_MAX, INT_MAX, 0.0f, 0, 0, INT_MAX, 0};
+}
+
+// the lesser of two candidates in the order, the NaN flags of a tied
+// (nviol, topv) merged
+__device__ __forceinline__ KtpuLexi ktpu_lexi_min(const KtpuLexi& a,
+                                                  const KtpuLexi& b) {
+  if (b.row == INT_MAX) return a;
+  if (a.row == INT_MAX) return b;
+  if (a.nviol != b.nviol) return a.nviol < b.nviol ? a : b;
+  if (a.topv != b.topv) return a.topv < b.topv ? a : b;
+  bool take_a;
+  if (a.psum < b.psum)
+    take_a = true;
+  else if (b.psum < a.psum)
+    take_a = false;
+  else if (a.cnt != b.cnt)
+    take_a = a.cnt < b.cnt;
+  else if (a.nstart != b.nstart)
+    take_a = a.nstart < b.nstart;
+  else
+    take_a = a.row < b.row;
+  KtpuLexi c = take_a ? a : b;
+  c.nan = a.nan | b.nan;
+  return c;
+}
+
+// the warp's fold; every lane ends with it
+__device__ __forceinline__ KtpuLexi ktpu_lexi_warp(KtpuLexi c) {
+  for (int o = 16; o > 0; o >>= 1) {
+    KtpuLexi d;
+    d.nviol = __shfl_xor_sync(0xffffffffu, c.nviol, o);
+    d.topv = __shfl_xor_sync(0xffffffffu, c.topv, o);
+    d.psum = __shfl_xor_sync(0xffffffffu, c.psum, o);
+    d.cnt = __shfl_xor_sync(0xffffffffu, c.cnt, o);
+    d.nstart = __shfl_xor_sync(0xffffffffu, c.nstart, o);
+    d.row = __shfl_xor_sync(0xffffffffu, c.row, o);
+    d.nan = __shfl_xor_sync(0xffffffffu, c.nan, o);
+    c = ktpu_lexi_min(c, d);
+  }
+  return c;
+}
+
+// the block's fold in warp 0 (every lane of it ends with it); sh holds a
+// candidate a warp
+__device__ __forceinline__ KtpuLexi ktpu_lexi_block(KtpuLexi c,
+                                                    KtpuLexi* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  c = ktpu_lexi_warp(c);
+  if (lane == 0) sh[warp] = c;
+  __syncthreads();
+  if (warp == 0) {
+    c = lane < (int)(blockDim.x >> 5) ? sh[lane] : ktpu_lexi_none();
+    c = ktpu_lexi_warp(c);
+  }
+  return c;
+}
+
+__device__ __forceinline__ int ktpu_lexi_winner_row(const KtpuLexi& c) {
+  return (c.row == INT_MAX || c.nan) ? -1 : c.row;
+}
+
 // Row i's chosen units (the first fitting prefix kidx, -1 when none) and
-// their cost vector, into the outputs and the scratch rows
+// k and nviol into the outputs; returns its cost vector
 template <int SUM_LEVELS>
-__device__ __forceinline__ void ktpu_price_row(const KtpuPriceArgs& a, int i,
-                                               int kidx, bool fit0) {
-  const int N = a.N, V = a.V;
+__device__ __forceinline__ KtpuLexi ktpu_price_row(const KtpuPriceArgs& a,
+                                                   int i, int kidx,
+                                                   bool fit0) {
+  const int V = a.V;
   // a node the preemptor already fits is not a preemption candidate
   const bool feas = kidx >= 0 && !fit0 && a.row_valid[i];
   const int kk = kidx >= 0 ? kidx : 0;
@@ -104,114 +194,189 @@ __device__ __forceinline__ void ktpu_price_row(const KtpuPriceArgs& a, int i,
   }
   a.k[i] = kk + 1;
   a.nviol[i] = nv;
-  a.iscratch[i] = tv;
-  a.fscratch[i] = ps.total(V);
-  a.iscratch[N + i] = cv;
-  a.iscratch[2 * N + i] = -sv;  // sv >= -1: no overflow
-  a.iscratch[3 * N + i] = feas ? 1 : 0;
+  if (!feas) return ktpu_lexi_none();
+  const float psum = ps.total(V);
+  // sv >= -1: -sv does not overflow
+  return KtpuLexi{nv, tv, psum, cv, -sv, i, isnan(psum) ? 1 : 0};
 }
 
-template <bool WIDE>
+// a narrow row (V <= 1,024, R <= 16) on one thread: its first fitting
+// prefix, then its costs
+__device__ __forceinline__ KtpuLexi ktpu_price_narrow(const KtpuPriceArgs& a,
+                                                      int i,
+                                                      float need_cnt) {
+  const int V = a.V, R = a.R;
+  const int L = R + 1;
+  const float* f0 = a.free0 + (size_t)i * R;
+  const float cf0 = a.cfree0[i];
+  bool fit0 = cf0 >= need_cnt;
+  for (int r = 0; r < R; ++r) fit0 = fit0 && f0[r] >= a.need[r];
+  KtpuBlockedPrefix<KTPU_PRICE_LANES, 3> pre;
+  int kidx = -1;
+  for (int v = 0; v < V; ++v) {
+    const float* fr = a.freed + ((size_t)i * V + v) * R;
+    bool fit = true;
+    for (int l = 0; l < L; ++l) {
+      const float x = l < R ? fr[l] : a.fcnt[(size_t)i * V + v];
+      const float cum = pre.add(l, x, v);
+      fit = fit && (l < R ? __fadd_rn(f0[l], cum) >= a.need[l]
+                          : __fadd_rn(cf0, cum) >= need_cnt);
+    }
+    if (fit && a.valid[(size_t)i * V + v]) {  // the FIRST fitting unit
+      kidx = v;
+      break;
+    }
+    pre.end_unit(v, L);
+  }
+  return ktpu_price_row<2>(a, i, kidx, fit0);
+}
+
+// ------------------------------------------------------- the wide walk
+
 __global__ void __launch_bounds__(KTPU_PRICE_THREADS, 1)
-ktpu_price_nodes_kernel(KtpuPriceArgs a) {
-  __shared__ int sh_i[32];
-  __shared__ float sh_f[32];
+ktpu_price_wide_kernel(KtpuPriceArgs a) {
+  __shared__ KtpuLexi sh[32];
+  // a warp's running candidate on its lane 0 (none on the others), kept
+  // in shared memory: the rows' prefix state holds the registers
+  __shared__ KtpuLexi s_run[KTPU_PRICE_THREADS];
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int nthreads = blockDim.x;
   const int N = a.N, V = a.V, R = a.R;
   const float need_cnt = a.need_cnt[0];
-
-  // ---- pass 1: each row's first fitting prefix and its cost vector
-  const int L = R + 1;
-  if (!WIDE) {
-    for (int i = tid; i < N; i += nthreads) {
-      const float* f0 = a.free0 + (size_t)i * R;
-      const float cf0 = a.cfree0[i];
+  s_run[tid] = ktpu_lexi_none();
+  for (int i = tid >> 5; i < N; i += nthreads >> 5) {
+    const float* f0 = a.free0 + (size_t)i * R;
+    const float cf0 = a.cfree0[i];
+    KtpuBlockedPrefix<KTPU_PRICE_WIDE_LANES, KTPU_PRICE_WIDE_PREFIX_LEVELS>
+        pre;
+    int kidx = -1;
+    for (int v = 0; v < V; ++v) {
+      const size_t iv = (size_t)i * V + v;
+      const float* fr = a.freed + iv * R;
+      bool fit = true;
+      // lane j of this thread is lane l = lane + 32 j of the row; one
+      // past the pod slots it adds zeros that nothing reads
+      for (int j = 0; j < KTPU_PRICE_WIDE_LANES; ++j) {
+        const int l = lane + 32 * j;
+        const float x = l < R ? fr[l] : l == R ? a.fcnt[iv] : 0.0f;
+        const float cum = pre.add(j, x, v);
+        if (l < R)
+          fit = fit && __fadd_rn(f0[l], cum) >= a.need[l];
+        else if (l == R)
+          fit = fit && __fadd_rn(cf0, cum) >= need_cnt;
+      }
+      if (__all_sync(0xffffffffu, fit) && a.valid[iv]) {
+        kidx = v;  // the warp agrees: the FIRST fitting unit
+        break;
+      }
+      pre.end_unit(v, KTPU_PRICE_WIDE_LANES);
+    }
+    if (lane == 0) {
       bool fit0 = cf0 >= need_cnt;
       for (int r = 0; r < R; ++r) fit0 = fit0 && f0[r] >= a.need[r];
-      KtpuBlockedPrefix<KTPU_PRICE_LANES, 3> pre;
-      int kidx = -1;
-      for (int v = 0; v < V; ++v) {
-        const float* fr = a.freed + ((size_t)i * V + v) * R;
-        bool fit = true;
-        for (int l = 0; l < L; ++l) {
-          const float x = l < R ? fr[l] : a.fcnt[(size_t)i * V + v];
-          const float cum = pre.add(l, x, v);
-          fit = fit && (l < R ? __fadd_rn(f0[l], cum) >= a.need[l]
-                              : __fadd_rn(cf0, cum) >= need_cnt);
-        }
-        if (fit && a.valid[(size_t)i * V + v]) {  // the FIRST fitting unit
-          kidx = v;
-          break;
-        }
-        pre.end_unit(v, L);
-      }
-      ktpu_price_row<2>(a, i, kidx, fit0);
+      s_run[tid] = ktpu_lexi_min(
+          s_run[tid], ktpu_price_row<KTPU_PRICE_WIDE_SUM_LEVELS>(
+                          a, i, kidx, fit0));
     }
-  } else {
-    const int lane = tid & 31;
-    for (int i = tid >> 5; i < N; i += nthreads >> 5) {
-      const float* f0 = a.free0 + (size_t)i * R;
-      const float cf0 = a.cfree0[i];
-      KtpuBlockedPrefix<KTPU_PRICE_WIDE_LANES, KTPU_PRICE_WIDE_PREFIX_LEVELS>
-          pre;
-      int kidx = -1;
-      for (int v = 0; v < V; ++v) {
-        const size_t iv = (size_t)i * V + v;
-        const float* fr = a.freed + iv * R;
-        bool fit = true;
-        // lane j of this thread is lane l = lane + 32 j of the row; one
-        // past the pod slots it adds zeros that nothing reads
-        for (int j = 0; j < KTPU_PRICE_WIDE_LANES; ++j) {
-          const int l = lane + 32 * j;
-          const float x = l < R ? fr[l] : l == R ? a.fcnt[iv] : 0.0f;
-          const float cum = pre.add(j, x, v);
-          if (l < R)
-            fit = fit && __fadd_rn(f0[l], cum) >= a.need[l];
-          else if (l == R)
-            fit = fit && __fadd_rn(cf0, cum) >= need_cnt;
-        }
-        if (__all_sync(0xffffffffu, fit) && a.valid[iv]) {
-          kidx = v;  // the warp agrees: the FIRST fitting unit
-          break;
-        }
-        pre.end_unit(v, KTPU_PRICE_WIDE_LANES);
-      }
-      if (lane == 0) {
-        bool fit0 = cf0 >= need_cnt;
-        for (int r = 0; r < R; ++r) fit0 = fit0 && f0[r] >= a.need[r];
-        ktpu_price_row<KTPU_PRICE_WIDE_SUM_LEVELS>(a, i, kidx, fit0);
-      }
-    }
-    // a row's costs were written by lane 0 of its warp; the narrowing
-    // reads row i on thread i % 1024
-    __syncthreads();
   }
-
-  // ---- lexicographic narrowing, then the first remaining row or -1
-  const int first = ktpu_lexi_winner(a.nviol, a.iscratch, a.fscratch,
-                                     a.iscratch + N, a.iscratch + 2 * N,
-                                     a.iscratch + 3 * N, N, sh_i, sh_f);
-  if (tid == 0) a.winner[0] = first;
+  const KtpuLexi best = ktpu_lexi_block(s_run[tid], sh);
+  if (tid == 0) a.winner[0] = ktpu_lexi_winner_row(best);
 }
 
+// ------------------------------------------------ the narrow cluster
+
+__global__ void __launch_bounds__(KTPU_PRICE_CTHREADS, 1)
+ktpu_price_cluster_kernel(KtpuPriceArgs a, int Nc) {
+  __shared__ KtpuLexi sh[32];
+  __shared__ __align__(8) uint64_t bar;
+  // CTA q's candidate in two 16-byte halves
+  __shared__ __align__(16) uint4 slots[KTPU_PRICE_CLUSTER][2];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int nthreads = blockDim.x;
+  unsigned rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  if (tid == 0) ktpu_xchg_init(&bar, 1);
+  // the mbarrier's init reaches the cluster while the rows are priced
+  ktpu_cluster_arrive();
+  const float need_cnt = a.need_cnt[0];
+  const int r0 = (int)rank * Nc;
+  const int r1 = min(a.N, r0 + Nc);
+  KtpuLexi best = ktpu_lexi_none();
+  for (int i = r0 + tid; i < r1; i += nthreads)
+    best = ktpu_lexi_min(best, ktpu_price_narrow(a, i, need_cnt));
+  best = ktpu_lexi_block(best, sh);
+  ktpu_cluster_wait();
+  if (tid >= 32) return;
+  // warp 0: the CTA's candidate into slot `rank` of every CTA, then the
+  // fold of the cluster's 16
+  if (lane < KTPU_PRICE_CLUSTER) {
+    ktpu_st_async16(&slots[rank][0], &bar, lane, (unsigned)best.nviol,
+                    (unsigned)best.topv, __float_as_uint(best.psum),
+                    (unsigned)best.cnt);
+    ktpu_st_async16(&slots[rank][1], &bar, lane, (unsigned)best.nstart,
+                    (unsigned)best.row, (unsigned)best.nan, 0u);
+  }
+  if (lane == 0)
+    ktpu_mbar_expect(&bar, KTPU_PRICE_CLUSTER * 2 * sizeof(uint4));
+  ktpu_mbar_wait(&bar, 0);
+  KtpuLexi c = ktpu_lexi_none();
+  if (lane < KTPU_PRICE_CLUSTER) {
+    const uint4 x = slots[lane][0], y = slots[lane][1];
+    c = KtpuLexi{(int)x.x, (int)x.y, __uint_as_float(x.z), (int)x.w,
+                 (int)y.x, (int)y.y, (int)y.z};
+  }
+  c = ktpu_lexi_warp(c);
+  if (rank == 0 && lane == 0) a.winner[0] = ktpu_lexi_winner_row(c);
+}
+
+// The host's call: the cluster at the narrow sizes, the wide walk past
+// them
 extern "C" int ktpu_price_nodes(
     const float* free0, const float* cfree0, const float* need,
     const float* need_cnt, const float* freed, const float* fcnt,
     const bool* valid, const bool* pdb, const int* top, const float* psum,
     const int* gcnt, const int* startr, const bool* row_valid, int* winner,
-    bool* chosen, int* k, int* nviol, int* iscratch, float* fscratch,
-    int N, int V, int R, void* stream) {
+    bool* chosen, int* k, int* nviol, int N, int V, int R, void* stream) {
+  const bool narrow = V <= KTPU_PRICE_NARROW_V && R <= KTPU_PRICE_NARROW_R;
   if (N < 1 || V < 1 || V > KTPU_PRICE_MAX_V || R < 0 ||
       R > KTPU_PRICE_MAX_R)
     return (int)cudaErrorInvalidValue;
   KtpuPriceArgs a{free0, cfree0, need, need_cnt, freed, fcnt, valid, pdb,
                   top, psum, gcnt, startr, row_valid, winner, chosen, k,
-                  nviol, iscratch, fscratch, N, V, R};
+                  nviol, N, V, R};
   cudaStream_t s = (cudaStream_t)stream;
-  if (V <= KTPU_PRICE_NARROW_V && R <= KTPU_PRICE_NARROW_R)
-    ktpu_price_nodes_kernel<false><<<1, KTPU_PRICE_THREADS, 0, s>>>(a);
-  else
-    ktpu_price_nodes_kernel<true><<<1, KTPU_PRICE_THREADS, 0, s>>>(a);
+  if (narrow) {
+    const int Nc = (N + KTPU_PRICE_CLUSTER - 1) / KTPU_PRICE_CLUSTER;
+    int threads = (Nc + 31) / 32 * 32;
+    if (threads > KTPU_PRICE_CTHREADS) threads = KTPU_PRICE_CTHREADS;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(KTPU_PRICE_CLUSTER, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = KTPU_PRICE_CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // a 16-CTA cluster is past the portable size: allowed once
+    static bool allowed = false;
+    if (!allowed) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          ktpu_price_cluster_kernel,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return (int)err;
+      allowed = true;
+    }
+    const cudaError_t err =
+        cudaLaunchKernelEx(&cfg, ktpu_price_cluster_kernel, a, Nc);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    ktpu_price_wide_kernel<<<1, KTPU_PRICE_THREADS, 0, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }

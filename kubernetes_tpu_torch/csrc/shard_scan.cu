@@ -433,7 +433,7 @@ extern "C" int ktpu_shard_scan(const KtpuShardParams* h, void* stream) {
   const int terms = ktpu_scan_terms(sp);
   cudaError_t err;
   if (sp->prof != nullptr) {
-    if (!ktpu_shard_prof_ok(sp)) return (int)cudaErrorInvalidValue;
+    if (!ktpu_scan_prof_ok(sp)) return (int)cudaErrorInvalidValue;
     err = terms == 4
         ? ktpu_launch_shard<true, false, false, false, true>(a, D, threads,
                                                              smem, s)

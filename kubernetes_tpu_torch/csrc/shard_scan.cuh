@@ -14,10 +14,3 @@ struct KtpuShardParams {
   KtpuScanParams scan;
   int D;
 };
-
-// a profiling launch takes the uniform or the spread batch's instance
-// (terms 0 or 4, no overlay) with a stride of at least one
-static bool ktpu_shard_prof_ok(const KtpuScanParams* h) {
-  const int terms = ktpu_scan_terms(h);
-  return !h->has_nom && (terms == 0 || terms == 4) && h->prof_every >= 1;
-}

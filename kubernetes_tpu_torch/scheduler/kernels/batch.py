@@ -289,11 +289,62 @@ def shard_scan_design(C: int, N: int, R: int, D: int, G: int = 0,
     return "global"
 
 
-#: K7 and K15 launches by "instance:design" (pod_scan_design,
-#: shard_scan_design), beside K2's
+#: K12's designs: "cluster" (csrc/spec_scan_cluster.cu), one cluster of
+#: SHARD_CLUSTER CTAs each holding N / 16 rows' slice of the table, the
+#: class constants and its rows' usage in shared memory (K15's shared
+#: design with one shard, whose step repairs a dirty cohort), and "block"
+#: (csrc/spec_scan.cu), one block over the tables in global memory (any
+#: batch); the host picks one (spec_scan_design)
+SPEC_SCAN_DESIGNS = ("cluster", "block")
+#: the cluster design's dynamic shared memory a CTA (bytes; its cohort's
+#: exchange takes static shared memory beside it) and the cohort widths
+#: it takes (a lane a member)
+SPEC_SMEM_LIMIT = 160 * 1024
+SPEC_CLUSTER_WIDTH = 32
+
+
+def spec_cluster_fits(C: int, N: int, R: int, G: int = 0, Z: int = 0,
+                      terms=(False, False, False, False),
+                      width: int = 16) -> bool:
+    """Whether K12's cluster design takes the batch (its C launcher's
+    conditions): a CTA's N / 16 rows fit its threads and, with the class
+    constants and their usage, SPEC_SMEM_LIMIT of shared memory, the
+    zones fit the exchange and a cohort fits a warp."""
+    spread = bool(terms[0])
+    if N < 1 or C < 1 or not 2 <= R <= MAX_R or \
+            not 1 <= width <= SPEC_CLUSTER_WIDTH or \
+            (spread and not 1 <= Z <= XCHG_ZONES):
+        return False
+    rows = -(-N // SHARD_CLUSTER)
+    return _cluster_rows_fit(rows) and \
+        shard_smem_words(C, rows, R, G) * 4 <= SPEC_SMEM_LIMIT
+
+
+def spec_scan_design(C: int, N: int, R: int, G: int = 0, Z: int = 0,
+                     terms=(False, False, False, False), nom: bool = False,
+                     width: int = 16) -> str:
+    """The K12 design for a batch of C classes over N rows of R columns
+    with the carried `terms` (spread, topo, dir2, soft as _scan_terms
+    gives them; with spread: G groups, Z zones), the nominated overlay
+    with `nom`, in cohorts of `width`: "cluster" where the design takes
+    the batch (spec_cluster_fits) and its refresh takes the classes in
+    one pass (C <= 32, K15's rule), else "block". The overlay changes no
+    fit (its reservations stay in global memory). On the card the
+    cluster design beat the block design on every batch of the main
+    paths it takes, and lost on the 512 classes it is not given
+    (PERF.md)."""
+    if C <= SHARD_SMEM_CLASSES and \
+            spec_cluster_fits(C, N, R, G, Z, terms, width):
+        return "cluster"
+    return "block"
+
+
+#: K7, K12 and K15 launches by "instance:design" (pod_scan_design,
+#: spec_scan_design, shard_scan_design), beside K2's
 DESIGN_LAUNCHES.update({
     f"{scan_instance(sp, tp, sf, nm, kernel)}:{d}": 0
     for kernel, designs in (("pod_scan", POD_SCAN_DESIGNS),
+                            ("spec_scan", SPEC_SCAN_DESIGNS),
                             ("shard_scan", SHARD_SCAN_DESIGNS))
     for d in designs for nm in (False, True) for sp in (False, True)
     for tp in (False, True) for sf in (False, True)})
@@ -1532,6 +1583,20 @@ def shard_design_of(D: int, node_cfg: dict, pod_batch: dict, cls: dict,
         cls["class_req"].shape[0], N, R, D,
         carry["spread"].shape[0] if spread else 0,
         pod_batch["spread_zinit"].shape[0] if spread else 0, terms)
+
+
+def spec_design_of(node_cfg: dict, pod_batch: dict, cls: dict,
+                   carry: dict, terms, nom=None, width: int = 16) -> str:
+    """spec_scan_design for a batch of the class route in cohorts of
+    `width`: its classes, rows, usage columns, terms, overlay and, with
+    spread groups, groups and zones."""
+    N, R = node_cfg["alloc"].shape
+    spread = terms[0]
+    return spec_scan_design(
+        cls["class_req"].shape[0], N, R,
+        carry["spread"].shape[0] if spread else 0,
+        pod_batch["spread_zinit"].shape[0] if spread else 0, terms,
+        nom is not None, width)
 
 
 def _shard_scan_cuda(D: int, node_cfg, pod_batch, cls, rw, ms, carry,

@@ -40,6 +40,7 @@ SOURCES = {"class_ms_init": "class_ms_init.cu",
            "gang_feasible": "gang_feasible.cu",
            "price_domains": "price_domains.cu",
            "spec_scan": "spec_scan.cu",
+           "spec_scan_cluster": "spec_scan_cluster.cu",
            "affinity_masks": "affinity_masks.cu",
            "affinity_scores": "affinity_scores.cu",
            "shard_scan": "shard_scan.cu",

@@ -21,13 +21,15 @@ The device programs price them:
     price_nodes   -> K6   csrc/price_nodes.cu    first fitting victim
                           prefix per row, its cost vector, and the
                           lexicographic winner (pickOneNodeForPreemption's
-                          narrowing)
+                          narrowing, one fold of the rows' costs; a
+                          cluster of 16 CTAs at the narrow sizes, one
+                          block's wide walk past them)
     price_domains -> K11  csrc/price_domains.cu  the same over the domain
                           rows, the fit counted in member slots
 
-Both share csrc/price.cuh (the blocked prefix, the chunked sum and the
-narrowing). `price_nodes_plain` / `price_domains_plain` are the plain
-PyTorch versions in the JAX op order, with the prefix sums and the
+Both share csrc/price.cuh (the blocked prefix and the chunked sum; K11
+narrows with its passes). `price_nodes_plain` / `price_domains_plain` are
+the plain PyTorch versions in the JAX op order, with the prefix sums and the
 priority sum written as explicit loops over the unit axis (the order the
 kernels add in), and `price_nodes_reference` the numpy oracle of the
 reference. Dispatch is by tensor device, as in kernels/batch.py: a CPU
@@ -486,17 +488,53 @@ def _check_price_inputs(free0, cfree0, need, need_cnt, freed, fcnt, valid,
     if N < 1 or not 1 <= V <= MAX_U or R > MAX_R:
         raise ValueError(f"price_nodes: N={N} V={V} R={R}; the port prices "
                          f"N >= 1, 1 <= V <= {MAX_U} and R <= {MAX_R}")
-    want = {"free0": (N, R), "cfree0": (N,), "need": (R,), "need_cnt": (),
-            "fcnt": (N, V), "valid": (N, V), "pdb": (N, V), "top": (N, V),
-            "psum": (N, V), "gcnt": (N, V), "startr": (N, V),
-            "row_valid": (N,)}
-    have = dict(free0=free0, cfree0=cfree0, need=need, need_cnt=need_cnt,
-                fcnt=fcnt, valid=valid, pdb=pdb, top=top, psum=psum,
-                gcnt=gcnt, startr=startr, row_valid=row_valid)
-    for k, shape in want.items():
-        if tuple(have[k].shape) != shape:
-            raise ValueError(f"price_nodes: {k} has shape "
-                             f"{tuple(have[k].shape)}, K6 needs {shape}")
+    # in PRICE_KEYS order
+    want = ((N, R), (N,), (R,), (), (N, V, R)) + ((N, V),) * 7 + ((N,),)
+    have = (free0.shape, cfree0.shape, need.shape, need_cnt.shape,
+            freed.shape, fcnt.shape, valid.shape, pdb.shape, top.shape,
+            psum.shape, gcnt.shape, startr.shape, row_valid.shape)
+    if have == want:
+        return
+    for k, h, w in zip(PRICE_KEYS, have, want):
+        if tuple(h) != w:
+            raise ValueError(f"price_nodes: {k} has shape {tuple(h)}, K6 "
+                             f"needs {w}")
+
+
+#: price_nodes' input dtypes, in PRICE_KEYS order
+_PRICE_TYPES = (torch.float32, torch.float32, torch.float32, torch.float32,
+                torch.float32, torch.float32, torch.bool, torch.bool,
+                torch.int32, torch.float32, torch.int32, torch.int32,
+                torch.bool)
+
+
+def _price_nodes_cuda(*args):
+    """Kernel K6 on checked inputs (price_nodes): the outputs alone are
+    allocated (the fold needs no scratch); the C call takes the narrow
+    instance (a cluster of 16 CTAs) or the wide walk by the table's
+    sizes."""
+    from .build import check
+    freed = args[4]
+    N, V, R = freed.shape
+    ptrs = []
+    for t, dt, name in zip(args, _PRICE_TYPES, PRICE_KEYS):
+        if t.device.type != "cuda" or t.dtype != dt or \
+                not t.is_contiguous():
+            _ptr(t, dt, name)   # raises, naming what is wrong
+        ptrs.append(t.data_ptr())
+    # one allocation an output: on the card's host four allocations cost
+    # less than one allocation and the seven view ops that split it
+    dev = freed.device
+    outs = (torch.empty((), dtype=torch.int32, device=dev),
+            torch.empty((N, V), dtype=torch.bool, device=dev),
+            torch.empty((N,), dtype=torch.int32, device=dev),
+            torch.empty((N,), dtype=torch.int32, device=dev))
+    ptrs += [o.data_ptr() for o in outs]
+    rc = _fn("price_nodes", "ktpu_price_nodes",
+             [_P] * 17 + [_I] * 3 + [_P])(*ptrs, N, V, R, _stream(freed))
+    check(rc, "price_nodes")
+    LAUNCHES["price_nodes"] += 1
+    return outs
 
 
 def price_nodes(free0, cfree0, need, need_cnt, freed, fcnt, valid, pdb,
@@ -510,29 +548,7 @@ def price_nodes(free0, cfree0, need, need_cnt, freed, fcnt, valid, pdb,
     _check_price_inputs(*args)
     if not _on_cuda(freed):
         return price_nodes_plain(*args)
-    from .build import check
-    N, V, R = freed.shape
-    dev = freed.device
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    winner = torch.empty((), dtype=i32, device=dev)
-    chosen = torch.empty((N, V), dtype=b8, device=dev)
-    k = torch.empty((N,), dtype=i32, device=dev)
-    nviol = torch.empty((N,), dtype=i32, device=dev)
-    # per-row cost vectors and the narrowing mask, between the passes
-    iscratch = torch.empty((4, N), dtype=i32, device=dev)
-    fscratch = torch.empty((N,), dtype=f32, device=dev)
-    types = (f32, f32, f32, f32, f32, f32, b8, b8, i32, f32, i32, i32, b8)
-    ptrs = [_ptr(t, dt, name) for t, dt, name in zip(args, types,
-                                                    PRICE_KEYS)]
-    ptrs += [_ptr(winner, i32, "winner"), _ptr(chosen, b8, "chosen"),
-             _ptr(k, i32, "k"), _ptr(nviol, i32, "nviol"),
-             _ptr(iscratch, i32, "iscratch"),
-             _ptr(fscratch, f32, "fscratch")]
-    rc = _fn("price_nodes", "ktpu_price_nodes",
-             [_P] * 19 + [_I] * 3 + [_P])(*ptrs, N, V, R, _stream(freed))
-    check(rc, "price_nodes")
-    LAUNCHES["price_nodes"] += 1
-    return winner, chosen, k, nviol
+    return _price_nodes_cuda(*args)
 
 
 

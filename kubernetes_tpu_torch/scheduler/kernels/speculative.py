@@ -25,15 +25,24 @@ scheduler_speculative_* counters (core._account_speculative), and the
 oracle (`speculative_reference`, `divergence_report`) replays the serial
 scan on the same inputs.
 
-    schedule_batch_speculative -> K12  csrc/spec_scan.cu  the whole batch
-                                       in one launch, an instance per set
-                                       of carried terms and the overlay,
-                                       as K2's (scan_instance(...,
-                                       "spec_scan"))
+    schedule_batch_speculative -> K12  the whole batch in one launch, an
+                                       instance per set of carried terms
+                                       and the overlay, as K2's
+                                       (scan_instance(..., "spec_scan"))
+
+K12 has two designs, picked by batch.spec_scan_design from the batch's
+sizes: "cluster" (csrc/spec_scan_cluster.cu, 16 CTAs each holding N / 16
+rows' state in shared memory, a dirty cohort repaired through K15's
+shared step, csrc/shard_step.cuh) and "block" (csrc/spec_scan.cu, one
+block over the tables in global memory, any batch). Both check the fence
+first: with f the cohort's first active pod that reads carried terms, the
+first collider is at most f, so only the members before f are elected
+and checked (none when f = 0). That changes no decision and no stat.
 
 Dispatch is by tensor device, as in kernels/batch.py: a CPU tensor takes
 the plain version, a CUDA tensor launches K12 (a build or launch failure
-raises). LAUNCHES counts K12's launches per instance. The reference's
+raises). LAUNCHES counts K12's launches per instance (and
+batch.DESIGN_LAUNCHES per "instance:design"). The reference's
 KTPU_SPEC_GROUP (cohorts unrolled per scan step) changes no decision and
 no stat: both versions walk the cohorts one by one.
 """
@@ -207,8 +216,8 @@ def _spec_scan_plain(node_cfg, pod_batch, cls, rw, ms, carry, terms,
 
 
 class _SpecParams(ctypes.Structure):
-    """KtpuSpecParams in csrc/spec_scan.cu: K2's block, then the cohort
-    fields."""
+    """KtpuSpecParams in csrc/spec_scan.cuh: K2's block, then the cohort
+    fields (the scratch is the block design's)."""
     _fields_ = [("scan", kb._ScanParams),
                 ("spec_plain", ctypes.c_void_p), ("stats", ctypes.c_void_p),
                 ("fscratch", ctypes.c_void_p), ("iscratch", ctypes.c_void_p),
@@ -217,38 +226,52 @@ class _SpecParams(ctypes.Structure):
 
 
 def _spec_scan_cuda(node_cfg, pod_batch, cls, rw, ms, carry, terms,
-                    nom=None, width: int = 16):
+                    nom=None, width: int = 16, prof=None, design=None):
     """Kernel K12: the whole batch in one launch of the instance for its
     carried terms (and the nominated overlay with `nom`); returns ([2, P]
-    packed, stats [P/K, 2]) and mutates `ms` and the `carry` copies."""
+    packed, stats [P/K, 2]) and mutates `ms` and the `carry` copies. The
+    design is spec_scan_design's for the batch's sizes; `design` names one
+    of SPEC_SCAN_DESIGNS instead and `prof` launches the profiling
+    instance of the uniform or spread batch with its stamp buffer
+    (chip_smoke.py's kernel phase and tools/scan_probe.py)."""
     P = pod_batch["class_idx"].shape[0]
     K = _width(P, width)
     scan, packed = kb._class_scan_params(node_cfg, pod_batch, cls, rw, ms,
                                          carry, terms, nom)
     kb._need(pod_batch["spec_plain"], (P,), "spec_plain")
+    if prof is not None:
+        kb._set_prof(scan, prof)
+    if design is None:
+        design = kb.spec_design_of(node_cfg, pod_batch, cls, carry, terms,
+                                   nom, K)
     N, R = node_cfg["alloc"].shape
     C = cls["class_req"].shape[0]
     dev = node_cfg["alloc"].device
     stats = torch.empty((P // K, 2), dtype=torch.int32, device=dev)
-    # per member: frozen max, chosen, the post-write row (and with the
-    # overlay), nonzero row, count (and with the overlay), the C columns;
-    # winner row and bound flag
-    fscratch = torch.empty((K * (2 * R + 5 + C),), dtype=torch.float32,
-                           device=dev)
-    iscratch = torch.empty((2 * K,), dtype=torch.int32, device=dev)
     prm = _SpecParams(
         scan=scan,
         spec_plain=kb._ptr(pod_batch["spec_plain"], torch.bool,
                            "spec_plain").value,
-        stats=kb._ptr(stats, torch.int32, "stats").value,
-        fscratch=kb._ptr(fscratch, torch.float32, "fscratch").value,
-        iscratch=kb._ptr(iscratch, torch.int32, "iscratch").value,
-        W=K, fscratch_len=fscratch.numel(), iscratch_len=iscratch.numel())
+        stats=kb._ptr(stats, torch.int32, "stats").value, W=K)
+    if design == "block":
+        # per member: frozen max, chosen, the post-write row (and with the
+        # overlay), nonzero row, count (and with the overlay), the C
+        # columns; winner row and bound flag
+        fscratch = torch.empty((K * (2 * R + 5 + C),), dtype=torch.float32,
+                               device=dev)
+        iscratch = torch.empty((2 * K,), dtype=torch.int32, device=dev)
+        prm.fscratch = kb._ptr(fscratch, torch.float32, "fscratch").value
+        prm.iscratch = kb._ptr(iscratch, torch.int32, "iscratch").value
+        prm.fscratch_len = fscratch.numel()
+        prm.iscratch_len = iscratch.numel()
     has_spread, has_topo, _, has_soft = terms
     name = kb.scan_instance(has_spread, has_topo, has_soft, nom is not None,
                             "spec_scan")
-    kb._call("spec_scan", "ktpu_spec_scan", prm, node_cfg["alloc"], name)
+    lib, entry = {"cluster": ("spec_scan_cluster", "ktpu_spec_scan_cluster"),
+                  "block": ("spec_scan", "ktpu_spec_scan")}[design]
+    kb._call(lib, entry, prm, node_cfg["alloc"], f"{name}:{design}")
     LAUNCHES[name] += 1
+    kb.DESIGN_LAUNCHES[f"{name}:{design}"] += 1
     return packed, stats
 
 

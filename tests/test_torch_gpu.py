@@ -1866,3 +1866,280 @@ def test_shard_scan_nominee_exempt_in_another_cta(cuda):
     tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
     packed = _k15_hold(8, tc, tu, tpb, nom_from_numpy(nom, cuda))
     assert packed[0].tolist() == [700, 5, -1, 700]
+
+
+# ------------------------------------------------------------ K12 designs
+
+
+def _k12_run(tc, tu, tpb, tnom, design, width):
+    """One K12 design on the batch: (packed, post-batch usage, the final
+    [C, N] table, stats)."""
+    pb = sk._with_nom_row(tpb, tnom)
+    cls, rw, ms, carry, terms = kb._scan_setup(tc, tu, pb, tnom)
+    name = kb.scan_instance(terms[0], terms[1], terms[3], tnom is not None,
+                            "spec_scan")
+    before = kb.DESIGN_LAUNCHES[f"{name}:{design}"]
+    packed, stats = sk._spec_scan_cuda(tc, pb, cls, rw, ms, carry, terms,
+                                       tnom, width, design=design)
+    assert kb.DESIGN_LAUNCHES[f"{name}:{design}"] == before + 1
+    return packed, kb._usage_out(carry), ms, stats
+
+
+def _k12_hold(tc, tu, tpb, tnom, width):
+    """K12's two designs on one batch: bit for bit equal to each other
+    (packed, usage, table, stats) and to the plain version (packed,
+    usage, stats), and in assign, active score bits and usage to K2;
+    returns (packed, stats)."""
+    got = {d: _k12_run(tc, tu, tpb, tnom, d, width)
+           for d in kb.SPEC_SCAN_DESIGNS}
+    serial, serial_use = kb.schedule_batch_packed(tc, tu, tpb, tnom)
+    a, sc, p_use, p_stats = sk.schedule_batch_speculative_plain(
+        tc, tu, tpb, tnom, width=width)
+    torch.cuda.synchronize()
+    (packed, use, ms, stats), (bp, bu, bms, bst) = got["cluster"], \
+        got["block"]
+    assert torch.equal(packed, bp)
+    assert torch.equal(stats, bst)
+    assert torch.equal(ms.view(torch.int32), bms.view(torch.int32))
+    assert torch.equal(packed, kb.pack_results(a, sc))
+    assert torch.equal(stats, p_stats)
+    assert set(use) == set(bu) == set(serial_use) == set(p_use)
+    for k in use:
+        for other in (bu, serial_use, p_use):
+            assert torch.equal(use[k].view(torch.int32),
+                               other[k].view(torch.int32)), k
+    active = tpb["active"]
+    assert torch.equal(packed[0], serial[0])
+    assert torch.equal(packed[1][active], serial[1][active])
+    return packed, stats
+
+
+@pytest.mark.parametrize("nom", [False, True])
+@pytest.mark.parametrize("spread,topo,dir2,soft", INSTANCES)
+def test_spec_scan_designs_match_plain_and_k2(cuda, spread, topo, dir2,
+                                              soft, nom):
+    """Every K12 instance in both designs on a mixed batch of 1,000 rows
+    (63 a CTA of the cluster, the last CTA short; winners in every CTA),
+    cohorts of 8 with carried-term reads on a few pods, pads at the end:
+    equal to each other, to the plain version and to K2."""
+    node_cfg, usage, pb = _state(71, N=1000)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    pb = _affinity(pb, 71, topo, dir2, soft)
+    tnom = nom_from_numpy(_nom(node_cfg, usage, pb, 71), cuda) if nom \
+        else None
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _speculative(pb), cuda)
+    packed, stats = _k12_hold(tc, tu, tpb, tnom, 8)
+    assert (packed[0] >= 0).sum() > 1000
+    assert not bool(stats[:, 0].all())
+
+
+@pytest.mark.parametrize("width", [8, 16, 32])
+def test_spec_scan_designs_more_classes_than_members(cuda, width):
+    """20 classes against cohorts of 8, 16 and 32: a winner's check
+    columns are those of its later members' classes, the rest of its
+    columns computed once the cohort is clean."""
+    node_cfg, usage, pb = _state(72, N=1024, C=20)
+    pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    node_cfg["node_ok"][:] = True
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, _speculative(pb), cuda)
+    _, stats = _k12_hold(tc, tu, tpb, None, width)
+    assert bool(stats[:, 0].any())
+
+
+@pytest.mark.parametrize("width", [8, 16])
+def test_spec_scan_designs_fence_positions(cuda, width):
+    """A batch with no carried term, its fence marks moved: each cohort's
+    fence at member 0, in the middle, last, or none. The first collider
+    the stats record is the exact one (the plain version checks every
+    member) and the decisions are K2's."""
+    node_cfg, usage, pb = _state(73, N=1024)
+    pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    P = pb["class_idx"].shape[0]
+    plain = np.ones(P, bool)
+    for c in range(P // width):
+        at = (0, width // 2, width - 1, width)[c % 4]
+        if at < width:
+            plain[c * width + at] = False
+    pb["spec_plain"] = plain
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    _, stats = _k12_hold(tc, tu, tpb, None, width)
+    st = stats.cpu().numpy()
+    fenced_at_0 = st[0::4]
+    assert (fenced_at_0[:, 1] == 0).all()
+    assert (st[2::4, 1] <= width - 1).all()
+
+
+def test_spec_scan_designs_equal_scores_across_ctas(cuda):
+    """Exact ties over 1,024 rows (64 a CTA), 4 CTAs masked off: the pods
+    fill rows 256, 257, ... each to the lowest free row (every cohort
+    collides on its first row and repairs)."""
+    node_cfg, usage, pb = _equal_score_batch(1024, 304, 256)
+    pb["spec_plain"] = np.ones(304, bool)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    packed, _ = _k12_hold(tc, tu, tpb, None, 16)
+    assert packed[0].tolist() == list(range(256, 560))
+
+
+@pytest.mark.parametrize("rows", [(300, 700), (700, 300), (63, 64),
+                                  (64, 63)])
+def test_spec_scan_designs_signed_zero_ties_go_to_the_lower_row(cuda, rows):
+    """+0.0 and -0.0 tie in the election, in CTAs far apart and on either
+    side of a CTA edge; the lower row wins in both designs."""
+    node_cfg, usage, pb = _signed_zero_batch(1024, *rows)
+    pb["spec_plain"] = np.ones(1, bool)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    packed, stats = _k12_hold(tc, tu, tpb, None, 1)
+    assert int(packed[0, 0]) == min(rows)
+    assert stats.tolist() == [[1, 1]]
+
+
+def test_spec_scan_designs_counters_cross_ctas(cuda):
+    """Topology counts and soft credits written by a clean cohort (CTA 0
+    in pod order in the cluster design) and read, in other CTAs, by a
+    later cohort's repaired pods: pods 5, 21, ... read their term (each
+    cohort of 8 fenced at 5 every other cohort), every pod writes it."""
+    node_cfg, usage, pb = _counter_batch(P=128)
+    reads = np.arange(128) % 16 == 5
+    pb["anti_tids"] = np.where(reads[:, None], 0, -1).astype(np.int32)
+    pb["soft_base_idx"] = np.where(reads, pb["soft_base_idx"], -1).astype(
+        np.int32)
+    pb["spec_plain"] = ~reads
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    _, stats = _k12_hold(tc, tu, tpb, None, 8)
+    assert (stats[0::2, 1] <= 5).all()
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_spec_scan_designs_nominee_exempt_in_another_cta(cuda, width):
+    """The nominees (fenced: a nomination of their own) repair through
+    the step whose owner of the nominee's row (CTA 0) is another CTA than
+    the winner's (CTA 10)."""
+    node_cfg, usage, pb, nom = _nominee_batch()
+    pb["spec_plain"] = pb["nom_row"] < 0
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    packed, _ = _k12_hold(tc, tu, tpb, nom_from_numpy(nom, cuda), width)
+    assert packed[0].tolist() == [700, 5, -1, 700]
+
+
+# ---------------------------------------------------- K6's narrowing fold
+
+
+def _lexi_table(N, seed=0, V=1):
+    """A narrow table whose every valid row fits the preemptor after its
+    first unit (one unit chosen a row): the rows' costs are the first
+    unit's pdb, top, psum, gcnt and startr, set by each test."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    R = 2
+    freed = np.zeros((N, V, R), f32)
+    freed[:, 0, :] = 1.0
+    fcnt = np.zeros((N, V), f32)
+    fcnt[:, 0] = 1.0
+    return {"free0": np.zeros((N, R), f32), "cfree0": np.zeros(N, f32),
+            "need": np.ones(R, f32), "need_cnt": f32(1), "freed": freed,
+            "fcnt": fcnt, "valid": np.ones((N, V), bool),
+            "pdb": rng.random((N, V)) < 0.3,
+            "top": rng.integers(0, 3, (N, V)).astype(np.int32),
+            "psum": rng.integers(0, 3, (N, V)).astype(f32),
+            "gcnt": rng.integers(1, 3, (N, V)).astype(np.int32),
+            "startr": rng.integers(0, 3, (N, V)).astype(np.int32),
+            "row_valid": np.ones(N, bool)}
+
+
+def _widen(a, R):
+    """The table with resources added up to R, each needing and freeing
+    nothing: every fit, choice and cost as before, priced by K6's wide
+    instance (R > 16)."""
+    w = dict(a)
+    n = R - a["need"].shape[0]
+    w["free0"] = np.pad(a["free0"], ((0, 0), (0, n)))
+    w["need"] = np.pad(a["need"], (0, n))
+    w["freed"] = np.pad(a["freed"], ((0, 0), (0, 0), (0, n)))
+    return w
+
+
+def _k6_hold(cuda, a):
+    """K6 against price_nodes_plain on the card (winner, chosen, k and
+    nviol), on the table as it is (the narrow instance, a cluster of 16
+    CTAs, at V <= 1,024 and R <= 16) and widened to 17 resources (the wide
+    walk, one block): the same winner; returns it."""
+    winners = []
+    for t in (a, _widen(a, 17)):
+        t = victim_tables_from_numpy(t, cuda)
+        args = [t[k] for k in pk.PRICE_KEYS]
+        ref = pk.price_nodes_plain(*args)
+        before = pk.LAUNCHES["price_nodes"]
+        got = pk.price_nodes(*args)
+        assert pk.LAUNCHES["price_nodes"] == before + 1
+        torch.cuda.synchronize()
+        R = args[4].shape[2]
+        for name, x, y in zip(("winner", "chosen", "k", "nviol"), got, ref):
+            assert x.dtype == y.dtype and torch.equal(x, y), (R, name)
+        winners.append(int(ref[0]))
+    assert winners[0] == winners[1]
+    return winners[0]
+
+
+@pytest.mark.parametrize("N", [5, 17, 1000, 8193])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_price_nodes_fold_ragged_rows(cuda, N, seed):
+    """Row counts that 16 CTAs do not divide (and fewer rows than CTAs),
+    random costs with ties, a quarter of the rows invalid."""
+    a = _lexi_table(N, seed, V=4)
+    a["row_valid"] = np.random.default_rng(seed).random(N) < 0.75
+    _k6_hold(cuda, a)
+
+
+def test_price_nodes_fold_tie_on_every_criterion(cuda):
+    """Every row of CTAs 10-15 ties on all five criteria (the rows
+    before them cannot host the preemptor): the lowest row wins."""
+    a = _lexi_table(1024)
+    for k in ("pdb", "top", "psum", "gcnt", "startr"):
+        a[k][:] = a[k][0]
+    a["row_valid"][:640] = False
+    assert _k6_hold(cuda, a) == 640
+
+
+@pytest.mark.parametrize("a_row,b_row", [(100, 900), (900, 100), (63, 64)])
+def test_price_nodes_fold_signed_zero_psum(cuda, a_row, b_row):
+    """psumv +0.0 at one row and -0.0 at another, tied before it on
+    (nviol, topv): the zeros tie and cntv decides (b_row's is lower);
+    with equal cntv the lower row wins."""
+    a = _lexi_table(1024)
+    a["row_valid"][:] = False
+    a["row_valid"][[a_row, b_row]] = True
+    a["pdb"][:] = False
+    a["top"][:] = 1
+    a["psum"][a_row, 0] = 0.0
+    a["psum"][b_row, 0] = -0.0
+    a["gcnt"][a_row, 0] = 2
+    a["gcnt"][b_row, 0] = 1
+    assert _k6_hold(cuda, a) == b_row
+    a["gcnt"][a_row, 0] = 1
+    a["startr"][[a_row, b_row], 0] = 0
+    assert _k6_hold(cuda, a) == min(a_row, b_row)
+
+
+def test_price_nodes_fold_nan_psum(cuda):
+    """A NaN psumv in the least (nviol, topv) gives no winner (the
+    reference's masked min is NaN and no row equals it); one outside it
+    changes nothing."""
+    a = _lexi_table(1024)
+    a["pdb"][:] = False
+    a["top"][:] = 5
+    a["top"][300:310, 0] = 1            # the least topv, CTA 4
+    a["psum"][700, 0] = np.nan          # outside it
+    assert 300 <= _k6_hold(cuda, a) < 310
+    a["psum"][305, 0] = np.nan          # inside it
+    assert _k6_hold(cuda, a) == -1
+
+
+def test_price_nodes_fold_no_feasible_row(cuda):
+    """No row can host the preemptor: -1, nothing chosen."""
+    a = _lexi_table(1024, V=4)
+    a["row_valid"][:] = False
+    assert _k6_hold(cuda, a) == -1
+    a = _lexi_table(1024, V=4)
+    a["free0"][:] = -5.0
+    assert _k6_hold(cuda, a) == -1

@@ -19,7 +19,11 @@ types:
   through the kernel route and the serial reprieve control;
 - the scheduler loop end to end: the reference's end-to-end preemption
   test, and a storm through Scheduler.drain_pipelined (binds, evicted
-  victims, nominations, Preempted events, metrics).
+  victims, nominations, Preempted events, metrics);
+- K6's one-pass lexicographic fold with its NaN flag (a Python model of
+  csrc/price_nodes.cu's, under random splits into CTAs) against the
+  five narrowing passes of _lexi_winner_plain and the JAX _lexi_winner,
+  and its design choice.
 
 Every multi-pod loop comparison runs with KTPU_COMMIT_THREAD=0 on both
 sides; the storm loop delivers informer events on the test's thread
@@ -30,6 +34,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from kubernetes_tpu import api as japi
 from kubernetes_tpu.api import policy as jpolicy
@@ -526,3 +531,97 @@ def test_storm_through_the_scheduler_matches_jax(monkeypatch):
     assert t["metrics"][0] == 12.0 and t["evicted"]
     assert all(prio[v] < 1000 for v in t["evicted"])
     assert len(priced) == 12 and any(calls)
+
+
+# ------------------------------------------------- K6's lexicographic fold
+
+
+_NONE = (np.iinfo(np.int32).max,) * 2 + (np.float32(0.0), 0, 0,
+                                         np.iinfo(np.int32).max, False)
+
+
+def _lexi_min(a, b):
+    """csrc/price_nodes.cu ktpu_lexi_min on (nviol, topv, psumv, cntv,
+    -startv, row, nan) candidates: the lesser in pickOneNodeForPreemption's
+    order (psumv as f32, so +0.0 and -0.0 tie), the NaN flags of a tied
+    (nviol, topv) merged."""
+    if b[5] == _NONE[5]:
+        return a
+    if a[5] == _NONE[5]:
+        return b
+    if a[0] != b[0]:
+        return a if a[0] < b[0] else b
+    if a[1] != b[1]:
+        return a if a[1] < b[1] else b
+    if a[2] < b[2]:
+        take_a = True
+    elif b[2] < a[2]:
+        take_a = False
+    elif a[3] != b[3]:
+        take_a = a[3] < b[3]
+    elif a[4] != b[4]:
+        take_a = a[4] < b[4]
+    else:
+        take_a = a[5] < b[5]
+    c = a if take_a else b
+    return c[:6] + (a[6] or b[6],)
+
+
+def _fold(cands, rng):
+    """The candidates folded in a random association order (a thread's
+    rows, a warp's shuffle tree, the CTA's and the cluster's folds)."""
+    cands = list(cands)
+    while len(cands) > 1:
+        i = int(rng.integers(0, len(cands) - 1))
+        cands[i:i + 2] = [_lexi_min(cands[i], cands[i + 1])]
+    return cands[0] if cands else _NONE
+
+
+def _fold_winner(feasible, crits, rng, ctas):
+    """K6's fold over rows split into `ctas` contiguous slices of random
+    sizes: each slice folded, then the slices' candidates; -1 when no
+    row is feasible or the winner's (nviol, topv) had a NaN psumv."""
+    nviol, topv, psumv, cntv, nstart = crits
+    N = len(feasible)
+    cuts = np.sort(rng.integers(0, N + 1, ctas - 1))
+    bounds = np.concatenate([[0], cuts, [N]])
+    parts = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        rows = [(int(nviol[i]), int(topv[i]), np.float32(psumv[i]),
+                 int(cntv[i]), int(nstart[i]), i, bool(np.isnan(psumv[i])))
+                for i in range(lo, hi) if feasible[i]]
+        parts.append(_fold(rows, rng))
+    c = _fold(parts, rng)
+    return -1 if c[5] == _NONE[5] or c[6] else c[5]
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_price_fold_matches_the_narrowing(seed):
+    """The one-pass fold of (nviol, topv, psumv, cntv, -startv, row) with
+    the NaN flag, under random splits into CTAs and random fold orders,
+    picks the row the five narrowing passes pick (the port's
+    _lexi_winner_plain and the JAX _lexi_winner): on heavy ties, +0.0
+    against -0.0, NaN psumv in and out of the winning (nviol, topv), and
+    tables with no feasible row."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+    for trial in range(60):
+        N = int(rng.integers(1, 40))
+        feasible = rng.random(N) < (0.0 if trial % 10 == 0 else 0.7)
+        nviol = rng.integers(0, 2, N).astype(np.int32)
+        topv = rng.choice([5, 7, 2_000_000_000], N).astype(np.int32)
+        psumv = rng.choice(np.array([0.0, -0.0, 1.5, 3.0, np.nan],
+                                    np.float32), N,
+                           p=[0.3, 0.3, 0.2, 0.15, 0.05])
+        cntv = rng.integers(0, 3, N).astype(np.int32)
+        nstart = -rng.integers(-1, 3, N).astype(np.int32)
+        crits = (nviol, topv, psumv, cntv, nstart)
+        want = int(tpk._lexi_winner_plain(
+            torch.from_numpy(feasible),
+            tuple(torch.from_numpy(c) for c in crits)))
+        jax_w = int(jpk._lexi_winner(jnp.asarray(feasible),
+                                     tuple(jnp.asarray(c) for c in crits)))
+        assert jax_w == want, trial
+        for ctas in (1, 3, 16):
+            assert _fold_winner(feasible, crits, rng, ctas) == want, \
+                (trial, ctas)

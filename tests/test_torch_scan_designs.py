@@ -1,4 +1,4 @@
-"""The host's choice of K2, K7, K9 and K15 designs, on the CPU.
+"""The host's choice of K2, K7, K9, K12 and K15 designs, on the CPU.
 
 K2 runs its "shared" design (csrc/class_scan_shared.cu), the [C, N]
 table and the class constants in shared memory, where they fit beside
@@ -11,15 +11,23 @@ CTA of a cluster of up to 16 holding its slice of the table, where the
 slice fits, and its "global" design (csrc/shard_scan.cu) otherwise. The
 choice is pure Python over the batch's sizes (kernels/batch.py
 class_scan_design, pod_scan_design, shard_scan_design, kernels/gang.py
-gang_design), mirrored by the C launchers, which refuse a batch their
-design does not take. These tests pin the choice at the main paths'
-sizes and at the edges, the per-design launch counts, and the ctypes
-parameter blocks against the C structs they stand for. One test a
-kernel: each walks its cases and names the failing one.
+gang_design, spec_scan_design), mirrored by the C launchers, which
+refuse a batch their design does not take. These tests pin the choice at
+the main paths' sizes and at the edges, the per-design launch counts, and
+the ctypes parameter blocks against the C structs they stand for. One
+test a kernel: each walks its cases and names the failing one. K12's two
+designs check a cohort's fence first (only the members before the first
+pod that reads carried terms are elected and checked): two tests hold
+that rule against the whole cohort's checks and against the JAX kernel's
+stats.
 """
 
 import re
 from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
 
 from kubernetes_tpu_torch.scheduler.kernels import batch as kb
 from kubernetes_tpu_torch.scheduler.kernels import gang as gk
@@ -270,3 +278,132 @@ def test_shard_scan_design_choice():
         [f for f, _ in kb._ShardParams._fields_]
     assert _c_fields(CSRC / "class_step.cuh", "KtpuScanParams") == \
         [f for f, _ in kb._ShardParams._fields_[0][1]._fields_]
+
+
+#: (C, N, R, G, Z, terms, nom, width, design) for K12
+K12_CASES = [
+    # chip_smoke.py's five batches: uniform, spread, anti-affinity (512
+    # classes), preferred (1,024 rows, 64 a CTA), nominated
+    (4, 8192, 8, 0, 0, NONE, False, 16, "cluster"),
+    (4, 8192, 8, 1, 17, SPREAD, False, 16, "cluster"),
+    (512, 1024, 8, 0, 0, TOPO, False, 16, "block"),
+    (4, 1024, 8, 0, 0, SOFT, False, 16, "cluster"),
+    (4, 8192, 8, 0, 0, NONE, True, 16, "cluster"),
+    # classes: the refresh's warp takes 32 in one pass
+    (32, 1024, 8, 0, 0, NONE, False, 16, "cluster"),
+    (33, 1024, 8, 0, 0, NONE, False, 16, "block"),
+    # rows: 16 CTAs x 512 threads x 4 rows, and one more
+    (4, 32768, 8, 0, 0, NONE, False, 16, "cluster"),
+    (4, 32769, 8, 0, 0, NONE, False, 16, "block"),
+    (4, 5, 8, 0, 0, NONE, False, 16, "cluster"),
+    # zones: the exchange's lanes hold 32
+    (4, 8192, 8, 1, 32, SPREAD, False, 16, "cluster"),
+    (4, 8192, 8, 1, 33, SPREAD, False, 16, "block"),
+    (4, 8192, 8, 0, 40, NONE, False, 16, "cluster"),
+    # cohorts: a lane a member
+    (4, 8192, 8, 0, 0, NONE, False, 32, "cluster"),
+    (4, 8192, 8, 0, 0, NONE, False, 64, "block"),
+    # usage rows the resource score cannot read or the kernels' scratch
+    # cannot hold
+    (4, 8192, 1, 0, 0, NONE, False, 16, "block"),
+    (4, 1024, 65, 0, 0, NONE, False, 16, "block"),
+    # 31 classes: 960 rows a CTA fit 160 KB, 1,000 do not
+    (31, 15360, 8, 0, 0, NONE, False, 16, "cluster"),
+    (31, 16000, 8, 0, 0, NONE, False, 16, "block"),
+]
+
+
+def test_spec_scan_design_choice():
+    from kubernetes_tpu_torch.scheduler.kernels import speculative as sk
+    for C, N, R, G, Z, terms, nom, width, want in K12_CASES:
+        assert kb.spec_scan_design(C, N, R, G, Z, terms, nom, width) == \
+            want, (C, N, R, G, Z, terms, nom, width)
+    # the design takes 512 classes; the host gives it 32 at most
+    assert kb.spec_cluster_fits(512, 1024, 8, 0, 0, TOPO)
+    assert kb.shard_smem_words(31, 1000, 8) * 4 > kb.SPEC_SMEM_LIMIT
+    assert kb.shard_smem_words(31, 960, 8) * 4 <= kb.SPEC_SMEM_LIMIT
+    for name in sk.LAUNCHES:
+        for d in kb.SPEC_SCAN_DESIGNS:
+            assert f"{name}:{d}" in kb.DESIGN_LAUNCHES, (name, d)
+    kb.DESIGN_LAUNCHES["spec_scan_soft:cluster"] = 2
+    kb.reset_launches()
+    assert not any(kb.DESIGN_LAUNCHES.values())
+    assert _c_fields(CSRC / "spec_scan.cuh", "KtpuSpecParams") == \
+        [f for f, _ in sk._SpecParams._fields_]
+
+
+def _first_collider(collide):
+    hits = np.nonzero(np.asarray(collide))[0]
+    return int(hits[0]) if len(hits) else len(collide)
+
+
+@pytest.mark.parametrize("W", [8, 16, 32])
+@pytest.mark.parametrize("where", ["first", "middle", "last", "none"])
+def test_spec_fence_first_finds_the_same_collider(W, where):
+    """K12 checks only the members before the cohort's first fenced one,
+    f: a member's type-1 and type-2 checks read only earlier members, so
+    the first collider over [0, f), or f, is the one the whole cohort's
+    checks (the port's _cohort_checks, the reference's :161-170) give. On
+    random cohorts with row clashes and near maxima, a fence at member 0,
+    in the middle or last, or none."""
+    from kubernetes_tpu_torch.scheduler.kernels import speculative as sk
+    rng = np.random.default_rng(W * 7 + len(where))
+    C = 5
+    f = {"first": 0, "middle": W // 2, "last": W - 1, "none": W}[where]
+    for trial in range(200):
+        ok = torch.from_numpy(rng.random(W) < 0.8)
+        best = torch.from_numpy(rng.integers(0, 3 * W, W).astype(np.int32))
+        vbest = torch.from_numpy(rng.choice(
+            [1.0, 2.0, 3.0, -0.0, 0.0], W).astype(np.float32))
+        cols = torch.from_numpy(rng.choice(
+            [0.5, 1.0, 2.5, 3.0, -1e30, 0.0, -0.0], (W, C)).astype(
+                np.float32))
+        u = torch.from_numpy(rng.integers(0, C, W))
+        seq = torch.from_numpy(rng.integers(0, 1 << 16, W).astype(np.int32))
+        fence = torch.zeros(W, dtype=torch.bool)
+        if f < W:
+            fence[f] = True
+            # members past the fence may be fenced too
+            fence[f + 1:] = torch.from_numpy(rng.random(W - f - 1) < 0.3)
+        whole = _first_collider(
+            sk._cohort_checks(ok, best, vbest, cols, u, seq, fence)[2])
+        if f == 0:
+            fenced = 0
+        else:
+            head = sk._cohort_checks(ok[:f], best[:f], vbest[:f], cols[:f],
+                                     u[:f], seq[:f], fence[:f])[2]
+            fenced = min(_first_collider(head), f)
+        assert fenced == whole, (trial, f)
+
+
+@pytest.mark.parametrize("W", [8, 16, 32])
+def test_spec_fence_stats_match_jax(W):
+    """The JAX speculative kernel and the port's plain version (every
+    member checked) on one batch whose fence marks sit at member 0, in
+    the middle, last, or nowhere in successive cohorts: the same
+    (accepted, first collider) a cohort, the fence-first rule's, and the
+    same decisions."""
+    from kubernetes_tpu.scheduler.kernels import speculative as jspec
+    from kubernetes_tpu_torch.convert import tables_from_numpy
+    from kubernetes_tpu_torch.scheduler.kernels import speculative as sk
+    from test_torch_affinity import _base
+    cfg, use, pb = _base(0)
+    P = pb["seq"].shape[0]
+    plain = np.ones(P, bool)
+    fences = []
+    for c in range(P // W):
+        at = (0, W // 2, W - 1, W)[c % 4]
+        fences.append(at)
+        if at < W:
+            plain[c * W + at] = False
+    pb = dict(pb, spec_plain=plain)
+    ref = jspec.schedule_batch_speculative(cfg, use, pb, None, width=W)
+    tc, tu, tpb = tables_from_numpy(cfg, use, pb, "cpu")
+    got = sk.schedule_batch_speculative_plain(tc, tu, tpb, None, W)
+    st = got[3].numpy()
+    np.testing.assert_array_equal(np.asarray(ref[3]), st)
+    np.testing.assert_array_equal(np.asarray(ref[0]), got[0].numpy())
+    active = pb["active"]
+    for c, at in enumerate(fences):
+        if at < W and active[c * W + at]:
+            assert st[c, 1] <= at and st[c, 0] == 0, (c, at, st[c])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the serial scans K2, K7, K9 and K15 spend their time, on one GPU.
+"""Where the serial scans K2, K7, K9, K15 and K12 spend their time, on one
+GPU.
 
-    python3 tools/scan_probe.py [--kernels k2,k7,k9,k15] [--gang-pods N]
+    python3 tools/scan_probe.py [--kernels k2,k7,k9,k15,k12] [--gang-pods N]
 
 It builds the port's kernels, drains the first batch of the `uniform` and
 `spread` paths (16,384 pods onto 5,000 nodes, as chip_smoke.py drives
@@ -15,11 +16,16 @@ first (largest) batch, and on those batches runs every design of
 - K9 `gang_scan_cap` (the gang batch);
 - K15 `shard_scan` / `shard_scan_spread` (the class batches on
   chip_smoke.MESH_SHARDS shards);
+- K12 `spec_scan` / `spec_scan_spread` (the class batches with spec_plain
+  as tensorize marks it, cohorts of 16: chip_smoke.spec_plain_of), its
+  `cluster` and `block` designs by the private `design=` argument of
+  kernels/speculative.py _spec_scan_cuda, every 8th cohort stamped;
 
 each as
 
 - the profiling instance (csrc/prof.cuh: clock stamps of one thread at
-  the phase boundaries of every 64th pod or entry), giving each phase's
+  the phase boundaries of every 64th pod or entry, K12's every 8th
+  cohort), giving each phase's
   mean SM cycles and share of a step (chip_smoke.step_profile);
 - the plain instance, three launches on fresh copies, by CUDA events
   (the mean of the last two: the first pays the library load).
@@ -42,10 +48,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIBS = {"k2": ("class_scan", "class_scan_shared"),
         "k7": ("pod_scan", "pod_scan_cluster"),
         "k9": ("gang_scan",),
-        "k15": ("shard_scan", "shard_scan_shared")}
+        "k15": ("shard_scan", "shard_scan_shared"),
+        "k12": ("spec_scan", "spec_scan_cluster")}
+#: K12's profiling stride: every 8th cohort of 16 pods
+SPEC_EVERY = 8
 
 
-def probe(port, cs, make_of, designs, steps, kernel, label, card, out):
+def probe(port, cs, make_of, designs, steps, kernel, label, card, out,
+          every=None):
     """Both designs of one scan on one batch (chip_smoke.design_times):
     make_of(design, prof=None) prepares fresh inputs and returns a call that
     launches it and returns (packed, carry); the old design is held bit
@@ -54,7 +64,7 @@ def probe(port, cs, make_of, designs, steps, kernel, label, card, out):
     ms_by, profile = cs.design_times(
         port, make_of, designs[0], designs, packed,
         port.kb._usage_out(carry), f"{kernel} on the {label} batch", steps,
-        kernel, True)
+        kernel, True, every=every)
     for design in designs:
         out[f"{kernel}:{label}:{design}"] = {"ms": ms_by[design],
                                              "profile": profile[design]}
@@ -64,8 +74,8 @@ def probe(port, cs, make_of, designs, steps, kernel, label, card, out):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", default="k2,k7,k9,k15",
-                    help="comma-separated subset of k2, k7, k9, k15")
+    ap.add_argument("--kernels", default="k2,k7,k9,k15,k12",
+                    help="comma-separated subset of k2, k7, k9, k15, k12")
     ap.add_argument("--gang-pods", type=int, default=50_000)
     args = ap.parse_args()
     kernels = [k for k in args.kernels.split(",") if k]
@@ -85,7 +95,7 @@ def main() -> None:
             for fn, d in cs.ptxas_info(built[lib]["log"]).items():
                 print(f"ptxas {lib}: {fn}: {d}")
     port = cs.Port()
-    kb, gk = port.kb, port.gk
+    kb, gk, sk = port.kb, port.gk, port.sk
     dev = torch.device("cuda")
     rec = cs.Recorder(port)
     with rec:
@@ -129,6 +139,18 @@ def main() -> None:
             return lambda: (kb._shard_scan_cuda(
                 D, node_cfg, pb, cls, rw, ms0, carry, terms, nom,
                 prof=prof, design=design), carry)
+        spb = dict(pb, spec_plain=cs.spec_plain_of(pb))
+        W = sk.cohort_width(P)
+
+        def k12(design, prof=None):
+            _, _, ms0, carry, terms = kb._scan_setup(node_cfg, usage, spb,
+                                                     nom)
+            return lambda: (sk._spec_scan_cuda(
+                node_cfg, spb, cls, rw, ms0, carry, terms, nom, W,
+                prof=prof, design=design)[0], carry)
+        if "k12" in kernels:
+            probe(port, cs, k12, kb.SPEC_SCAN_DESIGNS, P // W, "spec_scan",
+                  path, card, out, SPEC_EVERY)
         for k, make_of, designs, kernel in (
                 ("k2", k2, kb.CLASS_SCAN_DESIGNS, "class_scan"),
                 ("k7", k7, kb.POD_SCAN_DESIGNS, "pod_scan"),
