@@ -467,17 +467,19 @@ SPILL_GATED = ("drf_order", "affinity_scores", "affinity_masks",
                "apply_dirty", "class_scan", "class_scan_shared",
                "gang_scan", "pod_scan", "pod_scan_cluster", "shard_scan",
                "shard_scan_shared", "spec_scan", "spec_scan_cluster",
-               "price_nodes")
+               "price_nodes", "price_domains", "filter_score")
 #: the design each redesigned kernel must run on a main path, as
 #: "instance:design" (kernels/batch.py class_scan_design,
 #: pod_scan_design, spec_scan_design, shard_scan_design, kernels/gang.py
-#: gang_design): the other design of
-#: that instance must not launch there
+#: gang_design, kernels/preempt.py price_domains_design): the other
+#: design of that instance must not launch there (the gang storm runs
+#: both of K11's, and counts each)
 PATH_DESIGNS = {"uniform": ("class_scan:shared",),
                 "spread": ("class_scan_spread:shared",),
                 "scheduler": ("class_scan:shared",),
                 "gang": ("gang_scan_cap:cluster",),
-                "gang-preemption": ("gang_scan_cap_nom:cluster",),
+                "gang-preemption": ("gang_scan_cap_nom:cluster",
+                                    "price_domains:rows"),
                 "classic": ("pod_scan:cluster",),
                 "classic-spread": ("pod_scan_spread:cluster",),
                 "classic-anti-affinity": ("pod_scan_topo:cluster",),
@@ -604,11 +606,12 @@ class Port:
         return pod
 
     def launches(self):
-        """Launch counts by kernel instance, and K2's, K7's, K9's, K12's
-        and K15's by "instance:design" beside them."""
+        """Launch counts by kernel instance, and K2's, K7's, K9's, K11's,
+        K12's and K15's by "instance:design" beside them."""
         return {**self.kb.LAUNCHES, **self.tk.LAUNCHES, **self.pk.LAUNCHES,
                 **self.gk.LAUNCHES, **self.sk.LAUNCHES, **self.ak.LAUNCHES,
-                **self.kb.DESIGN_LAUNCHES, **self.gk.DESIGN_LAUNCHES}
+                **self.kb.DESIGN_LAUNCHES, **self.gk.DESIGN_LAUNCHES,
+                **self.pk.DESIGN_LAUNCHES}
 
     def reset_launches(self):
         self.kb.reset_launches()
@@ -2279,6 +2282,9 @@ def filter_rows(port, rec, launches):
         del fits_p, score_p
         ms = time_cuda(torch, lambda: kb.filter_score(node_cfg, usage, cpb),
                        reps=10, warm=2)
+        dev_ms = device_ms(torch,
+                           lambda: kb.filter_score(node_cfg, usage, cpb),
+                           reps=5)
         N, R = node_cfg["alloc"].shape
         P = cpb["seq"].shape[0]
         spread = "spread_base" in cpb
@@ -2301,14 +2307,14 @@ def filter_rows(port, rec, launches):
         b = bound(bytes_, ops)
         rows.append({"name": name, "route": "cuda",
                      "source": "kubernetes_tpu_torch/csrc/filter_score.cu"
-                               " + pod.cuh",
+                               " + pod.cuh + score.cuh",
                      "replaces":
                          "kubernetes_tpu/scheduler/kernels/batch.py:220",
                      "launches": launches[name], "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b[0], "bound_by": b[1],
                      "library_ms": None, "match": True,
-                     "fits": int(fits_k.sum()),
+                     "device_ms": dev_ms, "fits": int(fits_k.sum()),
                      "bytes": bytes_, "ops": ops,
                      "shape": f"P={P} N={N} R={R} ({path} batch)"})
         del fits_k, score_k
@@ -2913,56 +2919,68 @@ def domains_vectorized(torch, a):
     return winner, chosen, nviol
 
 
-def domains_row(port, rec, launches):
-    """K11 on the gang storm's last decision's inputs: timed beside the
-    plain version and the one-expression yardstick."""
-    torch, pk = port.torch, port.pk
-    if not rec.storm_domains:
-        fail("the gang storm never reached price_domains (K11)")
-    args, _ = rec.storm_domains[-1]
-    got = pk.price_domains(*args)
-    ref = pk.price_domains_plain(*args)
-    torch.cuda.synchronize()
-    if not decisions_equal(torch, got, ref):
-        fail("K11 price_domains disagrees with its plain version")
-    ms = time_cuda(torch, lambda: pk.price_domains(*args), reps=200, warm=5)
-    plain_ms, _ = time_host(torch, lambda: pk.price_domains_plain(*args))
-    # the keyless gang's decision (the storm's first): one row of U units
-    free_args, _ = rec.storm_domains[0]
-    free_ms = time_cuda(torch, lambda: pk.price_domains(*free_args), reps=5,
-                        warm=1)
-    free_plain_ms, _ = time_host(torch,
-                                 lambda: pk.price_domains_plain(*free_args))
-    lib_ms = time_cuda(torch, lambda: domains_vectorized(torch, args),
-                       reps=50, warm=3)
-    D, U = args[2].shape
-    bytes_ = nbytes(*args, *got)
-    # pass 1 walks each domain's units to its first fitting prefix (all U
-    # where none fits): 3 operations a unit; then one cost pass over U
-    # (6 a unit) and five narrowing passes over the rows
+def domains_ops(torch, args, D, U):
+    """K11's operations on these inputs: each domain's units walked to
+    its first fitting prefix (all U where none fits), 3 a unit (the
+    prefix add, the base add, the compare); one cost pass over the
+    chosen units (6 a unit) and one fold over the rows (6 a row)."""
     cums = torch.cumsum(torch.where(args[3], args[2], 0.0), 1) \
         + args[0][:, None]
     fitk = (cums >= args[1]) & args[3]
     walked = int(torch.where(fitk.any(1), fitk.to(torch.int32).argmax(1)
                              + 1, U).sum())
-    ops = walked * 3 + D * U * 6 + 6 * D
-    b = bound(bytes_, ops)
+    return walked * 3 + walked * 6 + 6 * D
+
+
+def domains_row(port, rec, launches):
+    """K11 on the gang storm's last decision's inputs ([1,024 x 32], the
+    rows design) and its first (the keyless gang's one row of the whole
+    cluster, the wide design): each held against the plain version and
+    timed by CUDA events (the enqueue included) and by the profiler's
+    device time, beside the plain version and the one-expression
+    yardstick."""
+    torch, pk = port.torch, port.pk
+    if not rec.storm_domains:
+        fail("the gang storm never reached price_domains (K11)")
+    out = {}
+    for tag, (args, _) in (("", rec.storm_domains[-1]),
+                           ("keyless_", rec.storm_domains[0])):
+        got = pk.price_domains(*args)
+        ref = pk.price_domains_plain(*args)
+        torch.cuda.synchronize()
+        if not decisions_equal(torch, got, ref):
+            fail(f"K11 price_domains ({tag or 'keyed'}) disagrees with its "
+                 "plain version")
+        D, U = args[2].shape
+        b = bound(nbytes(*args, *got), domains_ops(torch, args, D, U))
+        out.update({
+            f"{tag}ms": time_cuda(torch, lambda: pk.price_domains(*args),
+                                  reps=200, warm=5),
+            f"{tag}device_ms": device_ms(
+                torch, lambda: pk.price_domains(*args), reps=50),
+            f"{tag}plain_ms": time_host(
+                torch, lambda: pk.price_domains_plain(*args))[0],
+            f"{tag}library_ms": time_cuda(
+                torch, lambda: domains_vectorized(torch, args), reps=50,
+                warm=3),
+            f"{tag}library_device_ms": device_ms(
+                torch, lambda: domains_vectorized(torch, args), reps=20),
+            f"{tag}bound_ms": b[0], f"{tag}bound_by": b[1],
+            f"{tag}shape": [D, U]})
+    D, U = out["shape"]
+    args = rec.storm_domains[-1][0]
     return {"name": "price_domains", "route": "cuda",
             "source": "kubernetes_tpu_torch/csrc/price_domains.cu"
-                      " + price.cuh",
+                      " + price.cuh + cluster_xchg.cuh",
             "replaces": "kubernetes_tpu/scheduler/kernels/preempt.py:581",
             "launches": launches["price_domains"], "max_abs_err": 0.0,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b[0], "bound_by": b[1],
-            "library_ms": lib_ms, "match": True,
+            "match": True,
             "library_call": "the plain expression with torch.cumsum and "
                             "whole-tensor reductions (no one library call "
                             "prices domains)",
-            "bytes": bytes_, "ops": ops,
+            **out,
             "shape": f"D={D} U={U} ({int(args[9].sum())} domain rows, gang "
-                     "storm's last decision)",
-            "keyless_ms": free_ms, "keyless_plain_ms": free_plain_ms,
-            "keyless_shape": list(free_args[2].shape)}
+                     "storm's last decision)"}
 
 
 def feasible_row(port, rec, launches):
@@ -3930,6 +3948,13 @@ def main() -> None:
              "calls")
     if any(p != plans[0] for p in plans) or any(p != free[0] for p in free):
         fail("gang-storm: the repeated decision changed between repeats")
+    # K11's keyed decisions a warp a row, the keyless ones a block a row
+    designs = {k: per_path["gang-storm"][f"price_domains:{k}"]
+               for k in ("rows", "wide")}
+    if designs != {"rows": GANG_STORM_REPEATS, "wide": GANG_STORM_KEYLESS}:
+        fail(f"gang-storm: K11 ran {designs} (design: launches), not "
+             f"{GANG_STORM_REPEATS} keyed decisions in its rows design "
+             f"and {GANG_STORM_KEYLESS} keyless ones in its wide design")
     free_shape = tuple(rec.storm_domains[0][0][2].shape)
     if free_shape[0] != 1 or free_shape[1] <= 1024 or free[0][0] != "":
         fail(f"gang-storm: the keyless gang priced [D, U] = "

@@ -1,8 +1,9 @@
 // The per-(pod, node row) step of the classic scan: the pod's feasibility
 // at one row against the row's effective usage, and its base score there.
-// Included by pod_scan.cu (K7) and filter_score.cu (K8); written so that a
-// member scan (the gang kernel's trial window over the same step) can
-// include it as well.
+// Included by pod_scan.cu (K7) and filter_score.cu (K8, which stages its
+// rows and tests them as ktpu_pod_fits does without the overlay); written
+// so that a member scan (the gang kernel's trial window over the same
+// step) can include it as well.
 //
 // Replaces kubernetes_tpu/scheduler/kernels/batch.py _pod_feasible (:117)
 // and _pod_score (:127) with _least_requested / _balanced_allocation
@@ -62,16 +63,32 @@ __device__ __forceinline__ bool ktpu_pod_fits(
                           self ? pod.req : nullptr, self ? 1.0f : 0.0f);
 }
 
-// _pod_score at row r: rw0 LeastRequested + rw1 BalancedAllocation over
-// the row's non-zero usage plus the pod's non-zero request, then the
-// pod's static score at the row, each a rounding of its own.
+// LeastRequested + BalancedAllocation of _pod_score at a row: rw0 and rw1
+// over the row's non-zero usage plus the pod's non-zero request (K8
+// takes it apart from the static score, on the rows a pod fits).
+__device__ __forceinline__ float ktpu_pod_resource_at(
+    float alloc0, float alloc1, float nz_used0, float nz_used1,
+    float pod_nz0, float pod_nz1, float rw0, float rw1) {
+  return ktpu_resource_score(alloc0, alloc1, __fadd_rn(nz_used0, pod_nz0),
+                             __fadd_rn(nz_used1, pod_nz1), rw0, rw1);
+}
+
+// _pod_score at a row from its values: ktpu_pod_resource_at, then the
+// pod's static score at the row, each a rounding of its own
+__device__ __forceinline__ float ktpu_pod_base_at(
+    float alloc0, float alloc1, float nz_used0, float nz_used1,
+    float pod_nz0, float pod_nz1, float rw0, float rw1,
+    float static_score) {
+  return __fadd_rn(ktpu_pod_resource_at(alloc0, alloc1, nz_used0, nz_used1,
+                                        pod_nz0, pod_nz1, rw0, rw1),
+                   static_score);
+}
+
+// _pod_score at row r of the tables
 __device__ __forceinline__ float ktpu_pod_base(
     const KtpuNodeCfg& cfg, int r, int R, const KtpuPod& pod, float nz_used0,
     float nz_used1, float rw0, float rw1, float static_score) {
   const float* alloc_r = cfg.alloc + (size_t)r * R;
-  return __fadd_rn(ktpu_resource_score(alloc_r[0], alloc_r[1],
-                                       __fadd_rn(nz_used0, pod.nz0),
-                                       __fadd_rn(nz_used1, pod.nz1), rw0,
-                                       rw1),
-                   static_score);
+  return ktpu_pod_base_at(alloc_r[0], alloc_r[1], nz_used0, nz_used1,
+                          pod.nz0, pod.nz1, rw0, rw1, static_score);
 }

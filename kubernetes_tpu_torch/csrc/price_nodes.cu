@@ -11,17 +11,10 @@
 // narrowing: the rows at the least nviol, among them the least topv,
 // psumv, cntv, -startv in turn, then the lowest row.
 //
-// The narrowing is ONE lexicographic fold of (nviol, topv, psumv, cntv,
-// -startv, row) over the feasible rows, inside a warp, then across the
-// CTA (and the cluster): the minimum of that order is the row the five
-// narrowing passes keep. psumv compares as floats (+0.0 and -0.0 tie and
-// go on to cntv). The hazard is NaN: the reference's masked min returns
-// NaN when a row still tied on (nviol, topv) has a NaN psumv, no row then
-// equals it, and the winner is -1. So each candidate carries a flag, "a
-// row with the same (nviol, topv) had a NaN psumv"; two candidates tied
-// on that pair OR their flags, and a final candidate with the flag set
-// gives -1. Among the rows of the least pair the order is total when none
-// is NaN, so the fold's order does not change its result.
+// The narrowing is price.cuh's ONE lexicographic fold of (nviol, topv,
+// psumv, cntv, -startv, row) over the feasible rows, inside a warp, then
+// across the CTA (and the cluster), with its NaN flag: the fold K11
+// shares.
 //
 // Two instances, picked by the table's sizes:
 //   - narrow (V <= 1,024 units, R <= 16 resources, every path the repo
@@ -38,9 +31,9 @@
 //     64 resources; bench.py's 1,200-pod make_wide_node buckets to 2,048
 //     units): one block of 1024 threads; each warp owns rows warp, warp +
 //     32, ...; lane l keeps the running sums of lanes l, l + 32 and l +
-//     64 of the R + 1 at K11's depth (six prefix levels, five sum
-//     levels), the warp votes on the fit of each unit, and lane 0 prices
-//     the row. Then the same fold over the block's warps.
+//     64 of the R + 1 at the depth of 2^24 units (six prefix levels,
+//     five sum levels), the warp votes on the fit of each unit, and lane
+//     0 prices the row. Then the same fold over the block's warps.
 // Each running sum adds in the reference's order (__fadd_rn, built with
 // -fmad=false), as the plain version does (kernels/preempt.py
 // PREFIX_BLOCK, SUM_CHUNK): the prefix sums of the freed resources and pod
@@ -67,8 +60,8 @@
 #define KTPU_PRICE_NARROW_R 16
 #define KTPU_PRICE_NARROW_V 1024
 #define KTPU_PRICE_LANES (KTPU_PRICE_NARROW_R + 1)
-// the wide rows: lanes a thread keeps (32 * 3 >= 64 + 1) and K11's
-// levels (price_domains.cu: 16^6 = 2^24 units, 32^5 >= 2^24)
+// the wide rows: lanes a thread keeps (32 * 3 >= 64 + 1) and the levels
+// of 2^24 units (16^6 = 2^24, 32^5 >= 2^24)
 #define KTPU_PRICE_WIDE_LANES 3
 #define KTPU_PRICE_WIDE_PREFIX_LEVELS 6
 #define KTPU_PRICE_WIDE_SUM_LEVELS 5
@@ -93,77 +86,6 @@ struct KtpuPriceArgs {
   int* nviol;             // [N]
   int N, V, R;
 };
-
-// a feasible row's place in pickOneNodeForPreemption's order, or none
-// (row INT_MAX); nan: a row of the same (nviol, topv) had a NaN psumv
-struct KtpuLexi {
-  int nviol, topv;
-  float psum;
-  int cnt, nstart, row, nan;
-};
-
-__device__ __forceinline__ KtpuLexi ktpu_lexi_none() {
-  return KtpuLexi{INT_MAX, INT_MAX, 0.0f, 0, 0, INT_MAX, 0};
-}
-
-// the lesser of two candidates in the order, the NaN flags of a tied
-// (nviol, topv) merged
-__device__ __forceinline__ KtpuLexi ktpu_lexi_min(const KtpuLexi& a,
-                                                  const KtpuLexi& b) {
-  if (b.row == INT_MAX) return a;
-  if (a.row == INT_MAX) return b;
-  if (a.nviol != b.nviol) return a.nviol < b.nviol ? a : b;
-  if (a.topv != b.topv) return a.topv < b.topv ? a : b;
-  bool take_a;
-  if (a.psum < b.psum)
-    take_a = true;
-  else if (b.psum < a.psum)
-    take_a = false;
-  else if (a.cnt != b.cnt)
-    take_a = a.cnt < b.cnt;
-  else if (a.nstart != b.nstart)
-    take_a = a.nstart < b.nstart;
-  else
-    take_a = a.row < b.row;
-  KtpuLexi c = take_a ? a : b;
-  c.nan = a.nan | b.nan;
-  return c;
-}
-
-// the warp's fold; every lane ends with it
-__device__ __forceinline__ KtpuLexi ktpu_lexi_warp(KtpuLexi c) {
-  for (int o = 16; o > 0; o >>= 1) {
-    KtpuLexi d;
-    d.nviol = __shfl_xor_sync(0xffffffffu, c.nviol, o);
-    d.topv = __shfl_xor_sync(0xffffffffu, c.topv, o);
-    d.psum = __shfl_xor_sync(0xffffffffu, c.psum, o);
-    d.cnt = __shfl_xor_sync(0xffffffffu, c.cnt, o);
-    d.nstart = __shfl_xor_sync(0xffffffffu, c.nstart, o);
-    d.row = __shfl_xor_sync(0xffffffffu, c.row, o);
-    d.nan = __shfl_xor_sync(0xffffffffu, c.nan, o);
-    c = ktpu_lexi_min(c, d);
-  }
-  return c;
-}
-
-// the block's fold in warp 0 (every lane of it ends with it); sh holds a
-// candidate a warp
-__device__ __forceinline__ KtpuLexi ktpu_lexi_block(KtpuLexi c,
-                                                    KtpuLexi* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  c = ktpu_lexi_warp(c);
-  if (lane == 0) sh[warp] = c;
-  __syncthreads();
-  if (warp == 0) {
-    c = lane < (int)(blockDim.x >> 5) ? sh[lane] : ktpu_lexi_none();
-    c = ktpu_lexi_warp(c);
-  }
-  return c;
-}
-
-__device__ __forceinline__ int ktpu_lexi_winner_row(const KtpuLexi& c) {
-  return (c.row == INT_MAX || c.nan) ? -1 : c.row;
-}
 
 // Row i's chosen units (the first fitting prefix kidx, -1 when none) and
 // k and nviol into the outputs; returns its cost vector
@@ -295,8 +217,7 @@ ktpu_price_cluster_kernel(KtpuPriceArgs a, int Nc) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int nthreads = blockDim.x;
-  unsigned rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const unsigned rank = ktpu_cluster_rank();
   if (tid == 0) ktpu_xchg_init(&bar, 1);
   // the mbarrier's init reaches the cluster while the rows are priced
   ktpu_cluster_arrive();
@@ -309,25 +230,9 @@ ktpu_price_cluster_kernel(KtpuPriceArgs a, int Nc) {
   best = ktpu_lexi_block(best, sh);
   ktpu_cluster_wait();
   if (tid >= 32) return;
-  // warp 0: the CTA's candidate into slot `rank` of every CTA, then the
-  // fold of the cluster's 16
-  if (lane < KTPU_PRICE_CLUSTER) {
-    ktpu_st_async16(&slots[rank][0], &bar, lane, (unsigned)best.nviol,
-                    (unsigned)best.topv, __float_as_uint(best.psum),
-                    (unsigned)best.cnt);
-    ktpu_st_async16(&slots[rank][1], &bar, lane, (unsigned)best.nstart,
-                    (unsigned)best.row, (unsigned)best.nan, 0u);
-  }
-  if (lane == 0)
-    ktpu_mbar_expect(&bar, KTPU_PRICE_CLUSTER * 2 * sizeof(uint4));
-  ktpu_mbar_wait(&bar, 0);
-  KtpuLexi c = ktpu_lexi_none();
-  if (lane < KTPU_PRICE_CLUSTER) {
-    const uint4 x = slots[lane][0], y = slots[lane][1];
-    c = KtpuLexi{(int)x.x, (int)x.y, __uint_as_float(x.z), (int)x.w,
-                 (int)y.x, (int)y.y, (int)y.z};
-  }
-  c = ktpu_lexi_warp(c);
+  // warp 0: the CTA's candidate into every CTA, then the cluster's fold
+  const KtpuLexi c = ktpu_lexi_xchg(best, slots, &bar, rank,
+                                    KTPU_PRICE_CLUSTER);
   if (rank == 0 && lane == 0) a.winner[0] = ktpu_lexi_winner_row(c);
 }
 

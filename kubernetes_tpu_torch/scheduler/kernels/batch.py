@@ -1744,7 +1744,8 @@ _FILTER_PTRS = (
     "alloc", "max_pods", "node_ok", "mem_pressure", "valid",
     "unique_masks", "unique_scores", "rw", "used", "nz_used", "pod_count",
     "req", "nz_req", "blocked", "mask_idx", "score_idx", "spread_gidx",
-    "spread_base", "zone_of", "zinit", "spread_w", "fits", "score")
+    "spread_base", "zone_of", "zinit", "spread_w", "fits", "score",
+    "scratch")
 _FILTER_INTS = ("N", "R", "P", "G", "Z", "has_spread")
 
 
@@ -1757,14 +1758,20 @@ def filter_score(node_cfg: dict, usage: dict, pod_batch: dict
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The [P, N] fits mask and masked score matrix against the frozen
     snapshot (batch.py filter_score): plain on the CPU, kernel K8 on CUDA
-    (its instance with spread groups counts as filter_score_spread). No
-    scheduler route calls it; gang_feasible reads its mask."""
+    (its instance with spread groups counts as filter_score_spread: two
+    passes, which hold each pod's spread partials in an int32 scratch of
+    P * (3 + Z): the max counts' bits, have_zones, each pod's group
+    representative, the zone sums). No scheduler route calls it;
+    gang_feasible reads its mask."""
     alloc = node_cfg["alloc"]
     if not _on_cuda(alloc):
         return filter_score_plain(node_cfg, usage, pod_batch)
     f32, i32 = torch.float32, torch.int32
     N, R = alloc.shape
     P = _check_pod_rows(node_cfg, usage, pod_batch)
+    if not 2 <= R <= MAX_R:
+        raise ValueError(f"filter_score: {R} resource columns; K8 stages "
+                         f"2 to {MAX_R}")
     fits = torch.empty((P, N), dtype=torch.bool, device=alloc.device)
     score = torch.empty((P, N), dtype=f32, device=alloc.device)
     dims = {"N": N, "R": R, "P": P}
@@ -1776,18 +1783,23 @@ def filter_score(node_cfg: dict, usage: dict, pod_batch: dict
     if pod_batch.get("spread_base") is not None:
         G = pod_batch["spread_base"].shape[0]
         Z = pod_batch["spread_zinit"].shape[0]
-        if Z * 4 > 48 * 1024:
-            raise ValueError(f"filter_score: {Z} zones exceed the kernel's "
-                             "48 KB of zone sums in shared memory")
+        if Z < 1:
+            raise ValueError("filter_score: spread groups with no zone "
+                             "column (zone 0 is the unlabelled zone)")
         _need(pod_batch["spread_base"], (G, N), "spread_base")
         _need(pod_batch["spread_gidx"], (P,), "spread_gidx")
         _need(pod_batch["spread_zone"], (N,), "spread_zone")
         dims.update(G=G, Z=Z, has_spread=1)
+        # [P] max count bits, [P] have_zones, [P] representatives,
+        # [P, Z] zone sums
+        scratch = torch.empty((P * (3 + Z),), dtype=i32,
+                              device=alloc.device)
         ptrs.update(spread_gidx=(pod_batch["spread_gidx"], i32),
                     spread_base=(pod_batch["spread_base"], f32),
                     zone_of=(pod_batch["spread_zone"], i32),
                     zinit=(pod_batch["spread_zinit"], f32),
-                    spread_w=(pod_batch["spread_weight"].reshape(1), f32))
+                    spread_w=(pod_batch["spread_weight"].reshape(1), f32),
+                    scratch=(scratch, i32))
     name = "filter_score" + "_spread" * bool(dims.get("has_spread"))
     _launch("filter_score", "ktpu_filter_score", _FilterParams,
             _FILTER_INTS, dims, ptrs, name)

@@ -25,16 +25,20 @@ The device programs price them:
                           cluster of 16 CTAs at the narrow sizes, one
                           block's wide walk past them)
     price_domains -> K11  csrc/price_domains.cu  the same over the domain
-                          rows, the fit counted in member slots
+                          rows, the fit counted in member slots (a warp
+                          a row in a cluster of 16 CTAs; one block a
+                          row past 1,024 units a row, as a keyless
+                          gang's one row of the whole cluster)
 
-Both share csrc/price.cuh (the blocked prefix and the chunked sum; K11
-narrows with its passes). `price_nodes_plain` / `price_domains_plain` are
-the plain PyTorch versions in the JAX op order, with the prefix sums and the
-priority sum written as explicit loops over the unit axis (the order the
-kernels add in), and `price_nodes_reference` the numpy oracle of the
-reference. Dispatch is by tensor device, as in kernels/batch.py: a CPU
-tensor takes the plain version, a CUDA tensor launches the kernel (a
-build or launch failure raises). LAUNCHES counts their launches.
+Both share csrc/price.cuh (the blocked prefix and the chunked sum, and
+the one lexicographic fold of the rows' costs). `price_nodes_plain` /
+`price_domains_plain` are the plain PyTorch versions in the JAX op
+order, with the prefix sums and the priority sum written as explicit
+loops over the unit axis (the order the kernels add in), and
+`price_nodes_reference` the numpy oracle of the reference. Dispatch is
+by tensor device, as in kernels/batch.py: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel (a build or launch failure
+raises). LAUNCHES counts their launches.
 """
 
 from __future__ import annotations
@@ -80,8 +84,9 @@ MAX_U = 1 << 24
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DESIGN_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ----------------------------------------------------------- host tables
@@ -765,6 +770,49 @@ def _check_domain_inputs(base, need, dslots, valid, pdb, top, psum, gcnt,
                              f"{tuple(t.shape)}, K11 needs {shape}")
 
 
+#: price_domains' input dtypes, in DOMAIN_KEYS order
+_DOMAIN_TYPES = (torch.float32, torch.float32, torch.float32, torch.bool,
+                 torch.bool, torch.int32, torch.float32, torch.int32,
+                 torch.int32, torch.bool)
+#: the widest row K11 prices a warp a row (csrc/price_domains.cu
+#: KTPU_DOMAIN_NARROW_U); a wider table takes one block a row
+DOMAIN_ROWS_MAX_U = 1024
+#: K11's launches by "price_domains:design", beside LAUNCHES
+DESIGN_LAUNCHES: Dict[str, int] = {"price_domains:rows": 0,
+                                   "price_domains:wide": 0}
+
+
+def price_domains_design(U: int) -> str:
+    """The design K11's C entry takes for rows of U units: "rows" (a
+    warp a row on a cluster of 16 CTAs) or "wide" (one block a row)."""
+    return "rows" if U <= DOMAIN_ROWS_MAX_U else "wide"
+
+
+def _price_domains_cuda(*args):
+    """Kernel K11 on checked inputs (price_domains): the outputs alone
+    are allocated (the fold needs no scratch)."""
+    from .build import check
+    dslots = args[2]
+    D, U = dslots.shape
+    ptrs = []
+    for t, dt, name in zip(args, _DOMAIN_TYPES, DOMAIN_KEYS):
+        if t.device.type != "cuda" or t.dtype != dt or \
+                not t.is_contiguous():
+            _ptr(t, dt, name)   # raises, naming what is wrong
+        ptrs.append(t.data_ptr())
+    dev = dslots.device
+    outs = (torch.empty((), dtype=torch.int32, device=dev),
+            torch.empty((D, U), dtype=torch.bool, device=dev),
+            torch.empty((D,), dtype=torch.int32, device=dev))
+    ptrs += [o.data_ptr() for o in outs]
+    rc = _fn("price_domains", "ktpu_price_domains",
+             [_P] * 13 + [_I] * 2 + [_P])(*ptrs, D, U, _stream(dslots))
+    check(rc, "price_domains")
+    LAUNCHES["price_domains"] += 1
+    DESIGN_LAUNCHES[f"price_domains:{price_domains_design(U)}"] += 1
+    return outs
+
+
 def price_domains(base, need, dslots, valid, pdb, top, psum, gcnt, startr,
                   row_valid):
     """[D, U] whole-gang pricing (preempt.py price_domains): minMember
@@ -777,24 +825,4 @@ def price_domains(base, need, dslots, valid, pdb, top, psum, gcnt, startr,
     _check_domain_inputs(*args)
     if not _on_cuda(dslots):
         return price_domains_plain(*args)
-    from .build import check
-    D, U = dslots.shape
-    dev = dslots.device
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    winner = torch.empty((), dtype=i32, device=dev)
-    chosen = torch.empty((D, U), dtype=b8, device=dev)
-    nviol = torch.empty((D,), dtype=i32, device=dev)
-    # per-row cost vectors and the narrowing mask, between the passes
-    iscratch = torch.empty((4, D), dtype=i32, device=dev)
-    fscratch = torch.empty((D,), dtype=f32, device=dev)
-    types = (f32, f32, f32, b8, b8, i32, f32, i32, i32, b8)
-    ptrs = [_ptr(t, dt, name) for t, dt, name in zip(args, types,
-                                                    DOMAIN_KEYS)]
-    ptrs += [_ptr(winner, i32, "winner"), _ptr(chosen, b8, "chosen"),
-             _ptr(nviol, i32, "nviol"), _ptr(iscratch, i32, "iscratch"),
-             _ptr(fscratch, f32, "fscratch")]
-    rc = _fn("price_domains", "ktpu_price_domains",
-             [_P] * 15 + [_I] * 2 + [_P])(*ptrs, D, U, _stream(dslots))
-    check(rc, "price_domains")
-    LAUNCHES["price_domains"] += 1
-    return winner, chosen, nviol
+    return _price_domains_cuda(*args)

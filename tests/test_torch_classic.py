@@ -485,3 +485,63 @@ def test_scheduler_drain_classic_matches_jax(variant, monkeypatch):
         assert len([n for n in tbinds.values() if n]) == 512
     if variant == "preferred-affinity":
         assert any(t[3] for t in calls)       # soft credits rode K7
+
+
+def _ragged_filter_batch(seed, P, N, Z, R=4, G=3):
+    """A per-pod batch at counts no tile divides: pods with different
+    mask, score and spread rows side by side, every fifth pod in no
+    spread group (-1), zone ids up to Z + 1 (past the zone columns)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    alloc = np.zeros((N, R), f32)
+    alloc[:, 0] = rng.choice([1000, 2000, 4000], N)
+    alloc[:, 1] = rng.choice([4, 16], N) * GiB
+    alloc[:, 2:] = rng.integers(0, 3, (N, R - 2))
+    frac = rng.choice([0.0, 0.5, 0.9], N)
+    used = np.zeros((N, R), f32)
+    used[:, 0] = np.floor(alloc[:, 0] * frac / 50) * 50
+    used[:, 1] = np.floor(alloc[:, 1] * frac / MiB) * MiB
+    node_cfg = {"alloc": alloc, "max_pods": np.full(N, 110, f32),
+                "node_ok": rng.random(N) > 0.05,
+                "mem_pressure": rng.random(N) < 0.1,
+                "valid": np.ones(N, bool)}
+    usage = {"used": used, "nonzero_used": used[:, :2].copy(),
+             "pod_count": rng.integers(0, 111, N).astype(f32)}
+    req = np.zeros((P, R), f32)
+    req[:, 0] = rng.choice([100, 500, 1500], P)
+    req[:, 1] = rng.choice([128, 1024, 8192], P) * MiB
+    req[:, 2:] = rng.integers(0, 2, (P, R - 2))
+    gidx = rng.integers(0, G, P).astype(np.int32)
+    gidx[::5] = -1
+    pb = {"req": req, "nonzero_req": req[:, :2].copy(),
+          "mem_pressure_blocked": rng.random(P) < 0.3,
+          "mask_idx": rng.integers(0, 3, P).astype(np.int32),
+          "score_idx": rng.integers(0, 3, P).astype(np.int32),
+          "unique_masks": rng.random((3, N)) < 0.85,
+          "unique_scores": rng.integers(0, 7, (3, N)).astype(f32),
+          "resource_weights": np.ones(2, f32),
+          "seq": np.arange(P, dtype=np.int32),
+          "spread_gidx": gidx,
+          "spread_base": rng.integers(0, 5, (G, N)).astype(f32),
+          "spread_zone": rng.integers(0, Z + 2, N).astype(np.int32),
+          "spread_zinit": rng.integers(0, 3, Z).astype(f32),
+          "spread_weight": np.float32(1.0)}
+    return node_cfg, usage, pb
+
+
+@pytest.mark.parametrize("P,N,Z", [(300, 513, 8), (65, 257, 1),
+                                   (31, 130, 300)])
+@pytest.mark.parametrize("spread", [False, True])
+def test_filter_score_plain_matches_jax_ragged(P, N, Z, spread):
+    """filter_score_plain against the JAX filter_score at the ragged
+    shapes K8's tiles are held at on the card (fits and score bits)."""
+    node_cfg, usage, pb = _ragged_filter_batch(P + N + Z, P, N, Z)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    ref = jb.filter_score(node_cfg, usage, pb)
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, "cpu")
+    fits, score = tb.filter_score(tc, tu, tpb)
+    np.testing.assert_array_equal(np.asarray(ref[0]), fits.numpy())
+    np.testing.assert_array_equal(np.asarray(ref[1]).view(np.int32),
+                                  score.numpy().view(np.int32))
+    assert fits.any() and not fits.all()

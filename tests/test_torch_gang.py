@@ -425,6 +425,60 @@ def test_price_domains_plain_matches_jax(U):
     assert max(winners) >= 0
 
 
+def _one_unit_domains(D):
+    """Every valid domain needs exactly its first unit (one unit chosen a
+    row): the rows' costs are that unit's pdb, top, psum, gcnt, startr."""
+    a = _domain_arrays(np.random.default_rng(D), D, 4)
+    a["valid"][:] = True
+    a["base"][:] = 0.0
+    a["need"] = np.float32(1.0)
+    a["dslots"][:] = 1.0
+    a["row_valid"][:] = True
+    a["pdb"][:] = False
+    return a
+
+
+def _assert_same(a):
+    j, t = _price_both(a)
+    for name, x, y in zip(("winner", "chosen", "nviol"), j, t):
+        assert x.dtype == y.dtype, name
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    return int(t[0])
+
+
+def test_price_domains_plain_nan_psum_matches_jax():
+    """A NaN psumv among the rows tied on (nviol, topv) gives -1 in both
+    packages; a NaN outside them changes nothing."""
+    a = _one_unit_domains(64)
+    a["top"][:, 0] = 2_000_000_000
+    a["top"][20:24, 0] = 1_999_999_999      # the least topv
+    a["psum"][50, 0] = np.nan
+    assert 20 <= _assert_same(a) < 24
+    a["psum"][22, 0] = np.nan
+    assert _assert_same(a) == -1
+
+
+def test_price_domains_plain_ties_lowest_row_matches_jax():
+    """Rows tied on all five criteria: the lowest feasible one wins."""
+    a = _one_unit_domains(64)
+    for k in ("top", "psum", "gcnt", "startr"):
+        a[k][:, 0] = a[k][0, 0]
+    a["row_valid"][:37] = False
+    assert _assert_same(a) == 37
+
+
+@pytest.mark.parametrize("D,U", [(5, 17), (33, 100), (3, 1000)])
+def test_price_domains_plain_fractional_slots_matches_jax(D, U):
+    """Non-integer dslots at ragged widths: the blocked prefix order
+    decides which unit first fits, in both packages."""
+    rng = np.random.default_rng(D * U)
+    a = _domain_arrays(rng, D, U)
+    a["dslots"] = np.where(a["valid"], rng.random((D, U)) * rng.choice(
+        [1e-3, 0.7, 3e3], (D, U)), 0).astype(np.float32)
+    a["need"] = np.float32(np.median(a["dslots"].sum(1)) / 2 + 0.1)
+    _assert_same(a)
+
+
 def _storm_infos(side, n_nodes):
     """The storm cluster (workload.storm_objects) as NodeInfos."""
     api = side["api"]

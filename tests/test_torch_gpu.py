@@ -2143,3 +2143,176 @@ def test_price_nodes_fold_no_feasible_row(cuda):
     a = _lexi_table(1024, V=4)
     a["free0"][:] = -5.0
     assert _k6_hold(cuda, a) == -1
+
+
+# ------------------------------------------ K11's designs and its fold
+
+
+def _domain_table(D, U, seed=0, frac=False):
+    """[D, U] domain tables with priorities near 2·10^9 (their f32 sum
+    depends on its order), ties on top, a few PDB units; `frac` makes
+    dslots non-integer (the blocked order then decides the fit)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n_units = rng.integers(1, U + 1, D)
+    valid = np.arange(U)[None, :] < n_units[:, None]
+    dslots = rng.integers(0, 3, (D, U)).astype(f32)
+    if frac:
+        dslots = (rng.random((D, U)) * rng.choice([1e-3, 0.7, 3e3], (D, U))
+                  ).astype(f32)
+    need = f32(np.median(np.where(valid, dslots, 0).sum(1)) / 2 + 0.1)
+    return {"base": rng.integers(0, 3, D).astype(f32), "need": need,
+            "dslots": np.where(valid, dslots, 0).astype(f32),
+            "valid": valid, "pdb": (rng.random((D, U)) < 0.02) & valid,
+            "top": np.where(valid, rng.integers(1_999_999_998, 2_000_000_000,
+                                                (D, U)),
+                            np.iinfo(np.int32).min).astype(np.int32),
+            "psum": np.where(valid, rng.integers(1_999_999_000,
+                                                 2_000_000_000, (D, U)),
+                             0).astype(f32),
+            "gcnt": rng.integers(1, 9, (D, U)).astype(np.int32),
+            "startr": rng.integers(-3, 4, (D, U)).astype(np.int32),
+            "row_valid": rng.random(D) < 0.95}
+
+
+def _k11_hold(cuda, a):
+    """K11 against price_domains_plain on the card, in the design its
+    width takes (counted under it): winner, chosen and nviol equal;
+    returns the winner."""
+    from kubernetes_tpu_torch.convert import domain_tables_from_numpy
+    t = domain_tables_from_numpy(a, cuda)
+    args = [t[k] for k in pk.DOMAIN_KEYS]
+    ref = pk.price_domains_plain(*args)
+    key = f"price_domains:{pk.price_domains_design(args[2].shape[1])}"
+    before = pk.LAUNCHES["price_domains"], pk.DESIGN_LAUNCHES[key]
+    got = pk.price_domains(*args)
+    assert (pk.LAUNCHES["price_domains"], pk.DESIGN_LAUNCHES[key]) == \
+        (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("winner", "chosen", "nviol"), got, ref):
+        assert x.dtype == y.dtype and torch.equal(x, y), (key, name)
+    return int(ref[0])
+
+
+@pytest.mark.parametrize("D,U", [(1, 32), (5, 17), (700, 32), (1024, 32),
+                                 (1025, 64), (48, 1000), (1, 1024),
+                                 (1, 1025), (9, 2048)])
+@pytest.mark.parametrize("frac", [False, True])
+def test_price_domains_designs_match_plain(cuda, D, U, frac):
+    """Both designs (a warp a row up to 1,024 units, one block a row
+    past them) on ragged row counts and widths, integer and non-integer
+    dslots (the blocked prefix's order decides the fit)."""
+    _k11_hold(cuda, _domain_table(D, U, seed=D + U, frac=frac))
+
+
+@pytest.mark.parametrize("U", [16384, 1 << 20])
+@pytest.mark.parametrize("frac", [False, True])
+def test_price_domains_keyless_row(cuda, U, frac):
+    """One row of the whole cluster (a gang with no topology key): the
+    wide design, one block over the row, against the plain version; a
+    need past the row's slots leaves it infeasible."""
+    a = _domain_table(1, U, seed=U, frac=frac)
+    a["valid"][:] = True
+    a["row_valid"][:] = True
+    a["dslots"] = np.abs(a["dslots"]) + np.float32(0.25)
+    a["need"] = np.float32(a["dslots"][0, : U // 3].sum())
+    assert _k11_hold(cuda, a) == 0
+    a["need"] = np.float32(a["dslots"].sum() * 2 + 10)
+    assert _k11_hold(cuda, a) == -1
+
+
+def _k11_lexi(D):
+    """Every valid domain needs its first unit alone (one unit chosen a
+    row): the rows' costs are that unit's pdb, top, psum, gcnt, startr."""
+    a = _domain_table(D, 4, seed=3)
+    a["valid"][:] = True
+    a["base"][:] = 0.0
+    a["need"] = np.float32(1.0)
+    a["dslots"][:] = 1.0
+    a["row_valid"][:] = True
+    return a
+
+
+def test_price_domains_fold_ties_lowest_row(cuda):
+    """Rows tied on all five criteria across warps and CTAs (the rows
+    before 640 infeasible): the lowest tied row wins."""
+    a = _k11_lexi(1024)
+    for k in ("pdb", "top", "psum", "gcnt", "startr"):
+        a[k][:, 0] = a[k][0, 0]
+    a["row_valid"][:640] = False
+    assert _k11_hold(cuda, a) == 640
+    a["row_valid"][:] = True
+    a["psum"][[70, 900], 0] -= 128.0     # two tied rows in two CTAs
+    assert _k11_hold(cuda, a) == 70
+
+
+def test_price_domains_fold_nan_psum(cuda):
+    """A NaN psumv among the rows tied on (nviol, topv) gives -1; one
+    outside them changes nothing."""
+    a = _k11_lexi(1024)
+    a["pdb"][:] = False
+    a["top"][:, 0] = 2_000_000_000
+    a["top"][300:310, 0] = 1_999_999_999   # the least topv, CTA 4
+    a["psum"][700, 0] = np.nan
+    assert 300 <= _k11_hold(cuda, a) < 310
+    a["psum"][305, 0] = np.nan
+    assert _k11_hold(cuda, a) == -1
+
+
+# ------------------------------------------------ K8's tiles and passes
+
+
+def _filter_state(seed, P, N, R=8, G=3, Z=8, spread=True):
+    """A per-pod batch (no class tables): pods of one tile with different
+    mask, score and spread rows, a -1 spread group, zone ids past Z."""
+    rng = np.random.default_rng(seed)
+    node_cfg, usage, pb = _state(seed, N=N, R=R, C=4, P=P, G=G, Z=Z)
+    pb = _classic(pb)
+    pb.update(mask_idx=rng.integers(0, 3, P).astype(np.int32),
+              score_idx=rng.integers(0, 3, P).astype(np.int32),
+              unique_masks=rng.random((3, N)) < 0.85,
+              unique_scores=rng.integers(0, 7, (3, N)).astype(np.float32),
+              req=pb["req"] * rng.integers(1, 4, (P, 1)).astype(np.float32))
+    pb["spread_gidx"][::5] = -1
+    pb["spread_zone"] = rng.integers(0, Z + 2, N).astype(np.int32)
+    pb["spread_zinit"] = rng.integers(0, 3, Z).astype(np.float32)
+    if not spread:
+        pb = {k: v for k, v in pb.items() if not k.startswith("spread_")}
+    return node_cfg, usage, pb
+
+
+def _k8_hold(cuda, node_cfg, usage, pb):
+    tc, tu, tpb = tables_from_numpy(node_cfg, usage, pb, cuda)
+    name = "filter_score" + "_spread" * ("spread_base" in pb)
+    before = kb.LAUNCHES[name]
+    fits, score = kb.filter_score(tc, tu, tpb)
+    assert kb.LAUNCHES[name] == before + 1
+    ref_fits, ref_score = kb.filter_score_plain(tc, tu, tpb)
+    torch.cuda.synchronize()
+    assert torch.equal(fits, ref_fits)
+    assert torch.equal(score.view(torch.int32), ref_score.view(torch.int32))
+    assert 0 < int(fits.sum()) < fits.numel()
+
+
+@pytest.mark.parametrize("P,N", [(300, 513), (64, 512), (65, 1024),
+                                 (1, 7), (257, 2048)])
+@pytest.mark.parametrize("spread", [False, True])
+def test_filter_score_tiles_ragged(cuda, P, N, spread):
+    """Pod and row counts the tiles do not divide (N = 513: the scalar
+    accesses), mixed mask / score / spread rows within a tile."""
+    _k8_hold(cuda, *_filter_state(P + N, P, N, spread=spread))
+
+
+@pytest.mark.parametrize("Z", [1, 17, 300])
+def test_filter_score_spread_zones(cuda, Z):
+    """One zone column (only the unlabelled zone), a few, and more than
+    the tile's shared table holds (the zone sums straight into the
+    scratch table)."""
+    _k8_hold(cuda, *_filter_state(Z, 200, 1024, Z=Z))
+
+
+@pytest.mark.parametrize("R", [2, 17, 64])
+def test_filter_score_resource_columns(cuda, R):
+    """The narrowest usage row, one past 16 and the widest (the staged
+    columns shrink the block)."""
+    _k8_hold(cuda, *_filter_state(R, 130, 1000, R=R))

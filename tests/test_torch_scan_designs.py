@@ -407,3 +407,26 @@ def test_spec_fence_stats_match_jax(W):
     for c, at in enumerate(fences):
         if at < W and active[c * W + at]:
             assert st[c, 1] <= at and st[c, 0] == 0, (c, at, st[c])
+
+
+def test_filter_params_block_matches_c_struct():
+    """K8's ctypes block lists KtpuFilterParams's fields in order (the
+    spread scratch table after the outputs)."""
+    assert _c_fields(CSRC / "filter_score.cu", "KtpuFilterParams") == \
+        list(kb._FILTER_PTRS) + list(kb._FILTER_INTS)
+
+
+def test_price_domains_design_choice():
+    """K11's design by its table's width, counted by the one the C entry
+    takes: a warp a row up to KTPU_DOMAIN_NARROW_U units, one block a
+    row past it."""
+    from kubernetes_tpu_torch.scheduler.kernels import preempt as pk
+    src = (CSRC / "price_domains.cu").read_text()
+    narrow = re.search(r"#define KTPU_DOMAIN_NARROW_U (\d+)", src)
+    assert narrow and int(narrow.group(1)) == pk.DOMAIN_ROWS_MAX_U
+    assert "if (U <= KTPU_DOMAIN_NARROW_U)" in src
+    for U, design in ((1, "rows"), (32, "rows"), (1024, "rows"),
+                      (1025, "wide"), (16384, "wide"), (1 << 24, "wide")):
+        assert pk.price_domains_design(U) == design, U
+    assert set(pk.DESIGN_LAUNCHES) == {"price_domains:rows",
+                                       "price_domains:wide"}
